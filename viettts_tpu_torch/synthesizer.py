@@ -1,0 +1,100 @@
+"""Synthesis CLI of the PyTorch port (counterpart of
+``viettts_tpu/synthesizer.py``): the same flags, less ``--stream``, plus
+``--device``.
+
+Usage:
+    python -m viettts_tpu_torch.synthesizer --text "xin chào" --output clip.wav
+    python -m viettts_tpu_torch.synthesizer --text-file lines.txt --output-dir out/
+
+There is no device fallback: ``--device cuda`` (the default) fails when no
+GPU is available.
+"""
+
+from __future__ import annotations
+
+import sys
+from argparse import ArgumentParser
+from pathlib import Path
+
+
+def main(argv=None):
+    parser = ArgumentParser(description="Vietnamese TTS (PyTorch/CUDA port)")
+    parser.add_argument("--text", type=str, help="text to synthesize")
+    parser.add_argument(
+        "--text-file", type=Path,
+        help="file with one utterance per line (batch mode)",
+    )
+    parser.add_argument("--output", default=Path("clip.wav"), type=Path)
+    parser.add_argument(
+        "--output-dir", type=Path, help="output directory for batch mode"
+    )
+    parser.add_argument("--sample-rate", default=16000, type=int)
+    parser.add_argument("--silence-duration", default=-1, type=float)
+    parser.add_argument("--lexicon-file", default=None)
+    parser.add_argument(
+        "--save-mel", type=Path, default=None,
+        help="also save the log-mel as .npy",
+    )
+    parser.add_argument("--ckpt-dir", default=None, type=Path)
+    parser.add_argument("--hifigan-ckpt", default=None, type=Path)
+    parser.add_argument(
+        "--quality", action="store_true",
+        help="float32 vocoder route; equivalent to "
+        "--set hifigan.inference_dtype=float32",
+    )
+    parser.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="config override, e.g. --set dsp.sample_rate=16000",
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default: cuda; no CPU fallback)",
+    )
+    args = parser.parse_args(argv)
+
+    if not args.text and not args.text_file:
+        parser.error("one of --text / --text-file is required")
+
+    import numpy as np
+
+    from viettts_tpu_torch.config import Config, apply_overrides
+    from viettts_tpu.data.audio import write_wav
+    from viettts_tpu.text import normalize_text
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    cfg = apply_overrides(Config(), args.set)
+    if args.quality:
+        cfg = apply_overrides(cfg, ["hifigan.inference_dtype=float32"])
+    if args.ckpt_dir is not None:
+        cfg = cfg.replace(ckpt_dir=args.ckpt_dir)
+
+    synth = Synthesizer(
+        cfg,
+        hifigan_ckpt=args.hifigan_ckpt,
+        lexicon_file=args.lexicon_file,
+        device=args.device,
+    )
+
+    if args.text:
+        print("Normalized text input:", normalize_text(args.text))
+        result = synth.synthesize(args.text, args.silence_duration)
+        print("writing output to file", args.output)
+        write_wav(args.output, result.wave, args.sample_rate)
+        if args.save_mel is not None:
+            np.save(args.save_mel.with_suffix(".npy"), result.mel)
+        return 0
+
+    lines = [
+        ln.strip() for ln in args.text_file.read_text().splitlines() if ln.strip()
+    ]
+    out_dir = args.output_dir or Path("synthesized")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, result in enumerate(synth.synthesize_batch(lines, args.silence_duration)):
+        out = out_dir / f"{i:04d}.wav"
+        print("writing", out)
+        write_wav(out, result.wave, args.sample_rate)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
