@@ -8,18 +8,30 @@
    ``viettts_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch twin on the card, at the shapes
    the main path gives it, TF32 off: K1 ``ar_decode`` (H=512, P=256, D=80;
-   B in {1, 4}; 512 and 300 frames; dropout masks on) and K2 ``fused_mrf``
+   B in {1, 4}; 512 and 300 frames; dropout masks on), K2 ``fused_mrf``
    (the four default generator stages, B=2, 128 and 100 mel frames,
    ConvTranspose prologue on, conv_post epilogue on the last stage,
-   ResBlock1 and ResBlock2, float32 and bfloat16 storage), with both times.
-3. The main path at the full default width (``Config()``) on seeded random
-   weights written as native checkpoints: the port's CLI on one sentence,
-   then ``Synthesizer.synthesize_batch`` on 4 texts, on the default bf16
-   vocoder route and on the ``--quality`` float32 route.  Launch counters
-   are zeroed just before and read just after: every kernel must have
-   launched and no plain twin may have run.  The outputs must be finite,
-   in [-1, 1] and 256 samples per mel frame, and a float32 synthesis on the
-   card must agree with the same synthesis on the CPU (plain twins).
+   ResBlock1 and ResBlock2, float32 and bfloat16 storage) and K3
+   ``fused_mrf(quantize_int8=True)`` (the same stages in bfloat16 storage,
+   static and dynamic activation scales, with the int8 codes that the two
+   sides' prologue sums flip), with both times.
+3. The main paths at the full default width (``Config()``) on seeded
+   random weights written as native checkpoints, each with the launch
+   counters zeroed just before it and read just after (every kernel of the
+   path must have launched, no plain twin may have run):
+   a. the port's CLI on one sentence, then ``Synthesizer.synthesize`` and
+      ``synthesize_batch`` on 4 texts, on the default bf16 vocoder route and
+      on the ``--quality`` float32 route (K1, K2);
+   b. the int8 route (K1, K2's prologue and epilogue, K3): the CLI with
+      ``--stream`` (dynamic scales), ``Synthesizer.warmup()`` (calibration),
+      ``synthesize``, ``synthesize_batch`` and ``stream``, then the port's
+      server (``viettts_tpu_torch.serve`` with ``--warmup
+      --int8-probe-every 1``) answering /tts twice, /tts/stream once and
+      /stats, which must carry ``int8_max_clip_fraction``.
+   The outputs must be finite, in [-1, 1] and 256 samples per mel frame,
+   and the card must agree with the CPU (plain twins): a float32 synthesis,
+   and the int8 vocoder, with the card's scales, on the same mel, which
+   must also stay within int8 quantization error of the float32 vocoder.
 4. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -38,6 +50,11 @@ import wave
 from pathlib import Path
 
 SENTENCE = "xin chào các bạn, hôm nay trời đẹp quá"
+STREAM_TEXT = (
+    "hôm nay trời nắng đẹp, chúng ta cùng nhau đi dạo quanh bờ hồ. "
+    "ngắm hàng cây xanh và nghe tiếng chim hót líu lo trên cao. "
+    "chiều về, cả nhà quây quần bên mâm cơm, kể cho nhau nghe chuyện một ngày"
+)
 BATCH_TEXTS = [
     "một hai ba",
     "hôm qua em tới trường, mẹ dắt tay từng bước",
@@ -47,6 +64,10 @@ BATCH_TEXTS = [
 K1_ATOL = 1e-4
 K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
+K3_REL_RMS = 1e-3
+K3_MAX_REL = 0.02  # of max(|reference|, 1)
+INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
+INT8_VS_F32_REL_RMS = 0.05  # int8 vs float32 generator, the bar of tests/test_mrf.py
 
 
 def log(*args):
@@ -183,6 +204,95 @@ def check_fused_mrf(dev, cfg, B=2, frames=(128, 100)):
                         plain_ms = time_ms(lambda: fused_mrf_plain(x, w, ks, ds, **kw))
                         times[dtype][0] += ms
                         times[dtype][1] += plain_ms
+                        log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    return worst, times
+
+
+def rel_rms(got, want):
+    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+def first_code_flips(x, ups, act):
+    """int8 codes of the stage's first conv input that differ between K2's
+    prologue kernel and the twin's ConvTranspose, both summing in float64
+    as on the int8 route: where kernel and twin can first part (the integer
+    dots and the later float32 steps are the same on both sides)."""
+    import torch
+    from torch.nn import functional as F
+
+    from viettts_tpu_torch.ops import _build
+    from viettts_tpu_torch.ops.mrf import conv_transpose_same, convt_lead_pad, convt_weight_to_torch
+
+    w_t, b_t, u = ups
+    B, L_in, c_in = x.shape
+    k_u, _, C = w_t.shape
+    h = torch.empty(B, L_in * u, C, device=x.device)
+    _build.check(
+        _build.load_library().viettts_mrf_convt(
+            int(x.dtype == torch.bfloat16), 1, x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(),
+            h.data_ptr(), B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), _build.stream_ptr(x.device),
+        ),
+        "prologue",
+    )
+    zero = torch.zeros(C, dtype=torch.float64, device=x.device)
+    twin = conv_transpose_same(
+        F.leaky_relu(x.float().transpose(1, 2), 0.1).double(), convt_weight_to_torch(w_t.float()).double(), zero, u
+    ).float() + b_t.float()[None, :, None]
+    twin = twin.transpose(1, 2)
+    c127 = torch.tensor(127.0, device=x.device)
+
+    def codes(t):
+        y = F.leaky_relu(t, 0.1)
+        if act is not None:
+            return torch.round(torch.clamp(y * (c127 / act.clamp_min(1e-12)), -127.0, 127.0))
+        a = y.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        return torch.round(y * (c127 / a))
+
+    return int((codes(h) != codes(twin)).sum().item())
+
+
+def check_fused_mrf_int8(dev, cfg, B=2, frames=(128, 100)):
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights
+
+    rng = np.random.default_rng(2)
+    ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
+    worst = {"max_abs_err": 0.0, "rel_rms": 0.0, "code_flips": 0, "codes": 0}
+    times = {"static": [0.0, 0.0], "dynamic": [0.0, 0.0]}
+    for resblock2 in (False, True):
+        for T in frames:
+            for i, (C_in, C, k_u, u, L_in, post) in enumerate(stage_shapes(cfg, T)):
+                w32, ups32, pst32 = stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, torch.float32)
+                x = torch.from_numpy(seeded(rng, B, L_in, C_in)).to(dev, torch.bfloat16)
+                _, amax = mrf_walk(x.float().transpose(1, 2), w32, ks, ds, lambda j, y: y.abs().amax(), upsample=ups32)
+                w, ups, pst = prepare_mrf_weights(w32, ups32, pst32, torch.bfloat16, quantize_int8=True)
+                for mode, act in (("static", torch.stack(amax)), ("dynamic", None)):
+                    kw = dict(upsample=ups, post=pst, compute_dtype=torch.bfloat16, quantize_int8=True, act_scales=act)
+                    got = fused_mrf(x, w, ks, ds, **kw)
+                    want = fused_mrf_plain(x, w, ks, ds, **kw)
+                    if got.shape != want.shape or got.dtype != want.dtype:
+                        raise AssertionError(f"K3 stage {i}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+                    got, want = got.float(), want.float()
+                    err, rel = (got - want).abs().max().item(), rel_rms(got, want)
+                    flips = first_code_flips(x, ups, None if act is None else act[0])
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                    worst["rel_rms"] = max(worst["rel_rms"], rel)
+                    worst["code_flips"] += flips
+                    worst["codes"] += B * L_in * u * C
+                    bar = K3_MAX_REL * max(want.abs().max().item(), 1.0)
+                    tag = (f"K3 fused_mrf int8 {mode} resblock{'2' if resblock2 else '1'} stage {i} "
+                           f"x=[{B},{L_in},{C_in}] -> [{B},{L_in * u},{1 if post else C}]")
+                    log(f"{tag}: max|kernel - twin| = {err:.3e} (atol {bar:.3g}), rel-RMS {rel:.2e} "
+                        f"(bar {K3_REL_RMS}), first-conv codes flipped {flips} of {B * L_in * u * C}")
+                    if not (torch.isfinite(got).all() and err <= bar and rel <= K3_REL_RMS):
+                        raise AssertionError(f"{tag} differs from its twin: max {err}, rel-RMS {rel}")
+                    if T == frames[0] and not resblock2:
+                        ms = time_ms(lambda: fused_mrf(x, w, ks, ds, **kw))
+                        plain_ms = time_ms(lambda: fused_mrf_plain(x, w, ks, ds, **kw))
+                        times[mode][0] += ms
+                        times[mode][1] += plain_ms
                         log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
     return worst, times
 
@@ -356,6 +466,152 @@ def main_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
     return stats
 
 
+def _http(base, path, text=None):
+    import urllib.request
+
+    data = None if text is None else json.dumps({"text": text}).encode()
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def int8_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
+    """The int8 route through the CLI (``--stream``), the Synthesizer
+    (``warmup``, ``synthesize``, ``synthesize_batch``, ``stream``) and the
+    server; returns timings and the server's /stats."""
+    import threading
+
+    import numpy as np
+
+    from viettts_tpu_torch import serve
+    from viettts_tpu_torch import synthesizer as cli
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    sr = cfg.dsp.sample_rate
+    int8 = ["--set", "hifigan.inference_dtype=int8"]
+    wav = out_dir / "cli_int8_stream.wav"
+    t0 = time.perf_counter()
+    rc = cli.main(["--text", STREAM_TEXT, "--output", str(wav), "--ckpt-dir", str(ckpt_dir),
+                   "--device", device, "--stream", *int8])
+    if rc != 0:
+        raise AssertionError(f"CLI (int8, --stream) returned {rc}")
+    with wave.open(str(wav), "rb") as w:
+        n = w.getnframes()
+    if n == 0 or n % 256:
+        raise AssertionError(f"CLI (int8, --stream) wrote {n} samples")
+    log(f"int8 path: CLI --stream wrote {n / sr:.2f} s of audio in {time.perf_counter() - t0:.2f} s "
+        f"(model load and first calls included; dynamic scales)")
+
+    synth = Synthesizer(apply_overrides(cfg.replace(ckpt_dir=ckpt_dir), int8[1:]), device=device)
+    t0 = time.perf_counter()
+    synth.warmup()
+    warmup_s = time.perf_counter() - t0
+    if synth._act_scales is None:
+        raise AssertionError("warmup() left the int8 route uncalibrated")
+    log(f"int8 path: warmup (calibration + {len(synth.token_buckets)} token buckets) {warmup_s:.2f} s; "
+        f"per-stage max act scale {[round(float(v.max()), 3) for v in synth._act_scales.values()]}")
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = synth.synthesize(SENTENCE)
+        lat.append(time.perf_counter() - t0)
+    check_result(res, "synthesize (int8)")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        results = synth.synthesize_batch(BATCH_TEXTS)
+        walls.append(time.perf_counter() - t0)
+    for i, r in enumerate(results):
+        check_result(r, f"synthesize_batch[{i}] (int8)")
+    audio_s = sum(len(r.wave) for r in results) / sr
+    t0 = time.perf_counter()
+    first_s, chunks = None, []
+    for chunk in synth.stream(STREAM_TEXT):
+        first_s = first_s or time.perf_counter() - t0
+        check_result(chunk, f"stream chunk {len(chunks)} (int8)")
+        chunks.append(chunk)
+    stream_s = time.perf_counter() - t0
+    if len(chunks) < 2:
+        raise AssertionError(f"stream gave {len(chunks)} chunk(s) for a multi-sentence text")
+    stats = {"b1_latency_s": float(np.median(lat)), "b1_audio_s": len(res.wave) / sr,
+             "b4_s_audio_per_s": audio_s / float(np.median(walls)), "b4_audio_s": audio_s,
+             "warmup_s": warmup_s, "stream_chunks": len(chunks), "stream_first_chunk_s": first_s,
+             "stream_total_s": stream_s, "stream_audio_s": sum(len(c.wave) for c in chunks) / sr}
+    log(f"main path int8: B=1 latency {stats['b1_latency_s'] * 1e3:.1f} ms for {stats['b1_audio_s']:.2f} s of audio; "
+        f"batch-4 throughput {stats['b4_s_audio_per_s']:.1f} s-audio/s; stream {len(chunks)} chunks, "
+        f"first after {first_s * 1e3:.1f} ms, all {stats['stream_audio_s']:.2f} s of audio in {stream_s * 1e3:.1f} ms")
+
+    server = serve.build_server(["--host", "127.0.0.1", "--port", "0", "--ckpt-dir", str(ckpt_dir),
+                                 "--device", device, "--warmup", "--int8-probe-every", "1", *int8])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        blobs = [_http(base, "/tts", text) for text in (SENTENCE, BATCH_TEXTS[2])]
+        pcm = _http(base, "/tts/stream", STREAM_TEXT)
+        deadline = time.monotonic() + 60
+        while True:  # the worker counts a batch just after answering it
+            served = json.loads(_http(base, "/stats"))
+            if served["batches"] >= 2 or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    if any(len(b) <= 44 for b in blobs) or len(pcm) == 0 or len(pcm) % 2:
+        raise AssertionError(f"server answered {[len(b) for b in blobs]} wav bytes and {len(pcm)} PCM bytes")
+    if "int8_max_clip_fraction" not in served or served["batches"] < 2:
+        raise AssertionError(f"/stats after two int8 batches: {served}")
+    log(f"int8 path: server answered /tts twice ({[len(b) for b in blobs]} bytes), /tts/stream "
+        f"({len(pcm) // 2 / sr:.2f} s of audio); /stats {served}")
+    stats["server_stats"] = served
+    return stats, synth
+
+
+def reference_check_int8(cfg, ckpt_dir: Path, gpu_synth):
+    """The int8 route with the card's calibrated scales on both sides: the
+    card's vocoder (K2, K3) against the CPU's (plain twins) on the same
+    decoded mel, and against the card's float32 route within the int8
+    quantization bar of tests/test_mrf.py (0.05 rel-RMS).  End to end,
+    prenet dropout off, the two mels differ by ~1e-6 (K1 against its twin);
+    a one-ulp change of a bf16 mel value flips int8 codes that the
+    residual chains carry on, so that difference is logged, not held to
+    the vocoder's bar."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    cfg = apply_overrides(
+        cfg.replace(ckpt_dir=ckpt_dir),
+        ["hifigan.inference_dtype=int8", "acoustic.prenet_dropout_at_inference=false"],
+    )
+    gpu, cpu = Synthesizer(cfg, device="cuda"), Synthesizer(cfg, device="cpu")
+    f32 = Synthesizer(apply_overrides(cfg, ["hifigan.inference_dtype=float32"]), device="cuda")
+    gpu._act_scales = gpu_synth._act_scales
+    cpu._act_scales = {i: s.cpu() for i, s in gpu_synth._act_scales.items()}
+    text = BATCH_TEXTS[0]
+    mel = gpu._calibration_mel(text).cpu().numpy()
+    got, want = torch.from_numpy(gpu.vocode(mel)), torch.from_numpy(cpu.vocode(mel))
+    g, c = gpu.synthesize(text), cpu.synthesize(text)
+    errs = {"vocoder_wave": float((got - want).abs().max()), "vocoder_wave_rel_rms": rel_rms(got, want),
+            "int8_vs_f32_rel_rms": rel_rms(got, torch.from_numpy(f32.vocode(mel))),
+            "mel": float(np.abs(g.mel - c.mel).max()) if g.mel.shape == c.mel.shape else float("inf"),
+            "end_to_end_wave_rel_rms": rel_rms(torch.from_numpy(g.wave), torch.from_numpy(c.wave))
+            if g.wave.shape == c.wave.shape else float("inf")}
+    log(f"reference int8: card vs CPU, vocoder on the same {mel.shape[1]}-frame mel and end to end on "
+        f"{g.mel.shape[0]} frames: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not (errs["vocoder_wave_rel_rms"] <= INT8_ROUTE_REL_RMS
+            and errs["vocoder_wave"] <= K3_MAX_REL * max(float(want.abs().max()), 1.0)
+            and errs["int8_vs_f32_rel_rms"] <= INT8_VS_F32_REL_RMS and errs["mel"] <= 1e-3):
+        raise AssertionError(f"int8 route differs: {errs}")
+    return errs
+
+
 def reference_check(cfg, ckpt_dir: Path, device="cuda"):
     """float32, prenet dropout off: the card (kernels) against the CPU
     (plain twins) on one short text."""
@@ -414,32 +670,56 @@ def main() -> int:
 
     k1_err, k1_times = check_ar_decode(dev)
     k2_err, k2_times = check_fused_mrf(dev, cfg.hifigan)
+    k3, k3_times = check_fused_mrf_int8(dev, cfg.hifigan)
+
+    def zero_counts():
+        ar_decode.launches = ar_decode.plain_calls = 0
+        fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
+
+    def read_counts(path, kernels):
+        counts = {"ar_decode": (ar_decode.launches, ar_decode.plain_calls),
+                  "fused_mrf": (fused_mrf.launches, fused_mrf.plain_calls),
+                  "fused_mrf_int8": (fused_mrf.int8_launches, fused_mrf.plain_calls)}
+        log(f"{path} launches (kernel, plain twin): {counts}")
+        for name in kernels:
+            launches, plain = counts[name]
+            if launches == 0 or plain != 0:
+                raise AssertionError(f"{path}: {name} had {launches} kernel launches, {plain} plain calls")
+        return {name: counts[name][0] for name in kernels}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         write_checkpoints(cfg, tmp)
-        for fn in (ar_decode, fused_mrf):
-            fn.launches = fn.plain_calls = 0
+        zero_counts()
         stats = main_path(cfg, tmp, tmp)
-        counts = {fn.__name__: (fn.launches, fn.plain_calls) for fn in (ar_decode, fused_mrf)}
-        log(f"main path launches (kernel, plain twin): {counts}")
-        for name, (launches, plain) in counts.items():
-            if launches == 0 or plain != 0:
-                raise AssertionError(f"{name}: {launches} kernel launches, {plain} plain calls")
+        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf"])
+        zero_counts()
+        stats["int8"], int8_synth = int8_path(cfg, tmp, tmp)
+        launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
         ref = reference_check(cfg, tmp)
+        ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
 
     bf16, f32 = torch.bfloat16, torch.float32
     kernels = [
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
-         "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": counts["ar_decode"][0],
+         "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
+         "launches_int8_path": launches_int8["ar_decode"],
          "max_abs_err": k1_err, "ms": k1_times[1][0], "plain_ms": k1_times[1][1],
          "shape": "B=1 L=512 H=512 P=256 D=80 f32"},
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
-         "replaces": "viettts_tpu/ops/mrf.py:440", "launches": counts["fused_mrf"][0],
+         "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
+         "launches_int8_path": launches_int8["fused_mrf"],
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "ms": k2_times[bf16][0], "plain_ms": k2_times[bf16][1],
          "ms_f32": k2_times[f32][0], "plain_ms_f32": k2_times[f32][1],
          "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1; ms in bf16"},
+        {"name": "fused_mrf_int8", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_int8.cu",
+         "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
+         "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
+         "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
+         "ms": k3_times["static"][0], "plain_ms": k3_times["static"][1],
+         "ms_dynamic": k3_times["dynamic"][0], "plain_ms_dynamic": k3_times["dynamic"][1],
+         "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1, bf16 storage; ms static scales"},
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref}))
     print(json.dumps({"kernels": kernels}), flush=True)

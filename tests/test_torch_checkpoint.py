@@ -234,10 +234,24 @@ with open(sys.argv[1], "rb") as f:
     cfg = pickle.load(f)
 trainer_vars = load_variables(sys.argv[2], "duration")  # holds optax state
 res = Synthesizer(cfg, device="cpu").synthesize("xin chào các bạn")
+
+import dataclasses
+import viettts_tpu.serve  # the port's server reuses it: it must stay jax-free
+from viettts_tpu_torch.serve import TTSServer
+
+int8 = Synthesizer(
+    dataclasses.replace(cfg, hifigan=dataclasses.replace(cfg.hifigan, inference_dtype="int8")),
+    device="cpu",
+)
+int8.warmup(token_buckets=(32,))  # calibrates the static int8 scales
+res8 = int8.synthesize("xin chào các bạn")
+int8.int8_clip_stats(mel=res8.mel)
 print(json.dumps({
     "jax_loaded": any(n.split(".")[0] in ("jax", "flax", "optax") for n in sys.modules),
     "samples": len(res.wave), "frames": res.mel.shape[0],
     "finite": bool(np.isfinite(res.wave).all()),
+    "int8_finite": bool(np.isfinite(res8.wave).all()),
+    "int8_probed": int8.last_clip_stats is not None,
     "trainer_ckpt_keys": sorted(trainer_vars),
 }))
 """
@@ -257,4 +271,5 @@ def test_port_runs_with_jax_unimportable(native_dir, tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax_loaded"] is False
     assert out["finite"] and out["frames"] > 0 and out["samples"] == out["frames"] * 256
+    assert out["int8_finite"] and out["int8_probed"]
     assert out["trainer_ckpt_keys"] == ["batch_stats", "params"]

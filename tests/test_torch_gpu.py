@@ -114,3 +114,73 @@ def test_fused_mrf_kernel_matches_twin(cuda, dtype, B, L_in, C_in, C, k_u, u, po
     else:
         scale = max(want.float().abs().max().item(), 1.0)
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0.02 * scale)
+
+
+def _rel_rms(got, want):
+    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic", "static_4x"])
+@pytest.mark.parametrize(
+    "B,L_in,C_in,C,k_u,u,post,resblock2",
+    [
+        (2, 37, 48, 24, 16, 8, False, False),  # prologue (16, 8), ragged tiles
+        (1, 300, 20, 12, 4, 2, True, False),   # prologue (4, 2) + epilogue, C % 32 != 0
+        (2, 77, 16, 16, 0, 1, False, True),    # bare MRF, ResBlock2
+        (1, 130, 40, 40, 0, 1, True, False),   # bare MRF + epilogue
+    ],
+)
+def test_fused_mrf_int8_kernel_matches_twin(cuda, mode, B, L_in, C_in, C, k_u, u, post, resblock2):
+    """K3 (bf16 storage, int8 MRF convs) against the twin: rel-RMS 1e-3 and
+    max abs 0.02 of the output scale.  Both compute the integer dots
+    exactly and the float32 steps in the same order, so they differ only
+    where an upstream float32 sum rounds differently and flips an int8
+    code.  ``static_4x`` feeds 4x the calibration input: it must clip, and
+    stay finite."""
+    rng = np.random.RandomState(2)
+    kernel_sizes, dilations = (3, 7, 11), ((1, 3, 5),) * 3
+    weights, ups, pst = _stage(rng, C_in, C, k_u, u, post, resblock2, kernel_sizes, dilations)
+    weights = [tuple(None if t is None else t.to(cuda) for t in blk) for blk in weights]
+    ups = None if ups is None else (ups[0].to(cuda), ups[1].to(cuda), u)
+    pst = None if pst is None else (pst[0].to(cuda), pst[1].to(cuda))
+    x = _w(rng, B, L_in, C_in if k_u else C).to(cuda)
+    act = None
+    if mode != "dynamic":
+        _, amax = mrf.mrf_walk(x.transpose(1, 2), weights, kernel_sizes, dilations,
+                               lambda j, y: y.abs().amax(), upsample=ups)
+        act = torch.stack(amax)
+    if mode == "static_4x":
+        x = 4.0 * x
+        _, clipped = mrf.mrf_walk(x.transpose(1, 2), weights, kernel_sizes, dilations,
+                                  lambda j, y: (y.abs() > act[j]).float().mean(), upsample=ups)
+        assert max(c.item() for c in clipped) > 0.01
+    tw, tu, tp = mrf.prepare_mrf_weights(weights, ups, pst, torch.bfloat16, quantize_int8=True)
+    x = x.to(torch.bfloat16)
+    kw = dict(upsample=tu, post=tp, compute_dtype=torch.bfloat16, quantize_int8=True, act_scales=act)
+    counts = (mrf.fused_mrf.int8_launches, mrf.fused_mrf.plain_calls)
+    got = mrf.fused_mrf(x, tw, kernel_sizes, dilations, **kw)
+    torch.cuda.synchronize()
+    assert (mrf.fused_mrf.int8_launches, mrf.fused_mrf.plain_calls) == (counts[0] + 1, counts[1])
+    want = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    scale = max(want.abs().max().item(), 1.0)
+    assert (got - want).abs().max().item() <= 0.02 * scale
+    assert _rel_rms(got, want) <= 1e-3
+
+
+def test_fused_mrf_int8_bare_static_is_exact(cuda):
+    """Without a prologue the stage input reaches K3 and the twin as the
+    same float32 values, so no code can flip: the outputs are equal."""
+    rng = np.random.RandomState(3)
+    kernel_sizes, dilations = (3, 7, 11), ((1, 3, 5),) * 3
+    weights, _, _ = _stage(rng, 0, 32, 0, 1, False, False, kernel_sizes, dilations)
+    weights = [tuple(t.to(cuda) for t in blk) for blk in weights]
+    x = _w(rng, 2, 200, 32).to(cuda)
+    _, amax = mrf.mrf_walk(x.transpose(1, 2), weights, kernel_sizes, dilations, lambda j, y: y.abs().amax())
+    tw, _, _ = mrf.prepare_mrf_weights(weights, quantize_int8=True)
+    kw = dict(quantize_int8=True, act_scales=torch.stack(amax))
+    got = mrf.fused_mrf(x, tw, kernel_sizes, dilations, **kw)
+    want = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -74,10 +74,11 @@ def _seeded(tree, rng, gain=1.0):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-def _write_checkpoints(cfg, d, seed=0):
+def _write_checkpoints(cfg, d, seed=0, vocoder_gain=1.5):
     """Native checkpoints of seeded tiny models (shapes from the flax
     modules, values from numpy); the duration head's bias is set so tokens
-    last about 80 ms, a speaking pace."""
+    last about 80 ms, a speaking pace.  ``vocoder_gain`` 1.5 gives a
+    waveform of order 0.5, so the 1e-3 bar is a real test."""
     rng = np.random.RandomState(seed)
     toks = jnp.zeros((1, 8), jnp.int32)
     lengths = jnp.asarray([8], jnp.int32)
@@ -93,8 +94,7 @@ def _write_checkpoints(cfg, d, seed=0):
         AcousticBatch(toks, lengths, jnp.ones((1, 8)), None, None, jnp.zeros((1, 16, 80))),
         train=True,
     )
-    # gain 1.5: a waveform of order 0.5, so the 1e-3 bar is a real test
-    gvars = shapes(Generator(cfg.hifigan), jax.random.PRNGKey(0), jnp.zeros((1, 16, 80)), gain=1.5)
+    gvars = shapes(Generator(cfg.hifigan), jax.random.PRNGKey(0), jnp.zeros((1, 16, 80)), gain=vocoder_gain)
     for name, variables in (
         ("duration", dvars),
         ("acoustic", {"params": avars["params"], "batch_stats": avars["batch_stats"]}),
@@ -170,10 +170,137 @@ def test_cli_writes_wav(ckpt_dir, tmp_path, monkeypatch):
     assert sorted(p.name for p in (tmp_path / "batch").iterdir()) == ["0000.wav", "0001.wav"]
 
 
-def test_int8_route_is_refused(ckpt_dir):
-    cfg = apply_overrides(_cfg(ckpt_dir), ["hifigan.inference_dtype=int8"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_pipeline.Synthesizer(cfg, device="cpu")
+def _int8(cfg):
+    """The int8 route; JAX has it only on its fused vocoder."""
+    return apply_overrides(cfg, ["hifigan.inference_dtype=int8", "hifigan.fused_inference=true"])
+
+
+def test_int8_route_runs_on_cpu(ckpt_dir):
+    port = torch_pipeline.Synthesizer(_int8(_cfg(ckpt_dir)), device="cpu")
+    assert port.vocoder_quant and port.vocoder_dtype == torch.bfloat16
+    dynamic = port.synthesize(TEXTS[1])  # not calibrated yet: dynamic scales
+    port.warmup(token_buckets=(32,))
+    assert port._act_scales is not None and sorted(port._act_scales) == [0, 1, 2, 3]
+    static = port.synthesize(TEXTS[1])
+    for res in (dynamic, static):
+        assert np.isfinite(res.wave).all() and np.abs(res.wave).max() <= 1.0
+        assert res.wave.shape == (res.mel.shape[0] * 256,)
+    stats = port.int8_clip_stats(mel=static.mel)
+    assert port.last_clip_stats is stats and 0.0 <= stats["max_clip_fraction"] <= 1.0
+    assert sorted(stats["per_stage"]) == [0, 1, 2, 3]
+
+
+def test_calibrate_int8_runs_on_cpu(ckpt_dir):
+    """calibrate_int8 calibrates on the CPU too (True), as the per-text max
+    widened by the 1.25 margin; the float routes have nothing to calibrate."""
+    from viettts_tpu_torch.models.hifigan import generator_calibrate_int8
+
+    port = torch_pipeline.Synthesizer(_int8(_cfg(ckpt_dir)), device="cpu")
+    assert port.calibrate_int8(texts=TEXTS) is True
+    per_text = [generator_calibrate_int8(port.generator, port._calibration_mel(t)) for t in TEXTS]
+    for i, scales in port._act_scales.items():
+        want = 1.25 * torch.maximum(per_text[0][i], per_text[1][i])
+        torch.testing.assert_close(scales, want, rtol=1e-6, atol=0)
+    assert port.calibrate_int8() is True  # the built-in calibration texts
+    f32 = torch_pipeline.Synthesizer(_cfg(ckpt_dir), device="cpu")
+    assert f32.calibrate_int8() is False and f32._act_scales is None
+    with pytest.raises(RuntimeError, match="requires static-int8 calibration"):
+        f32.int8_clip_stats(text=TEXTS[0])
+
+
+@pytest.fixture(scope="module")
+def int8_ckpt_dir(tmp_path_factory):
+    """Checkpoints with a vocoder gain of 0.5.  The int8 route amplifies a
+    one-ulp bf16 difference of the mel by the generator's gain: at 1.5 the
+    ~6e-7 mel difference between the packages moves even the JAX route
+    by ~4% rel-RMS (three flipped mel values move it 1-8e-2 at 1.5 and
+    1-8e-4 at 0.5), which would swamp any fault of the port."""
+    return _write_checkpoints(_cfg(), tmp_path_factory.mktemp("torch_port_int8_ckpts"), vocoder_gain=0.5)
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_synthesize_matches_jax(int8_ckpt_dir, scales):
+    """The int8 route against the JAX int8 route (fused vocoder, Pallas in
+    interpret mode), with static scales installed by hand on both sides as
+    tests/test_pipeline.py does, or dynamic.  Bars: rel-RMS 5e-3 and max
+    abs 0.02 of max(|ref|, 1); durations and mel as the float route."""
+    from viettts_tpu.models.hifigan import generator_calibrate_int8
+
+    jax_synth, port = _pair(_int8(_cfg(int8_ckpt_dir)))
+    if scales == "static":
+        mel = jnp.asarray(port._calibration_mel(TEXTS[0]).numpy())
+        jax_scales = generator_calibrate_int8(jax_synth.cfg.hifigan, jax_synth._hifigan_vars["params"], mel)
+        jax_synth._act_scales = jax_scales
+        jax_synth._build_vocode()
+        port._act_scales = {i: torch.tensor(np.asarray(v)) for i, v in jax_scales.items()}
+    got, want = port.synthesize(TEXTS[1]), jax_synth.synthesize(TEXTS[1])
+    np.testing.assert_allclose(got.durations, want.durations, atol=1e-5)
+    np.testing.assert_allclose(got.mel, want.mel, atol=1e-4)
+    assert got.wave.shape == want.wave.shape
+    rel_rms = np.sqrt(np.mean((got.wave - want.wave) ** 2)) / np.sqrt(np.mean(want.wave ** 2))
+    assert rel_rms <= 5e-3
+    assert np.abs(got.wave - want.wave).max() <= 0.02 * max(float(np.abs(want.wave).max()), 1.0)
+
+
+STREAM_TEXT = "một hai ba bốn năm sáu bảy tám chín mười"
+
+
+def test_stream_matches_synthesize_and_jax(ckpt_dir):
+    """stream() with a 16-token chunk cap: the chunks concatenate to
+    ``synthesize`` (1e-5) and match the JAX ``stream`` chunk by chunk (the
+    parity bars above).  JAX streams with ``lead_tokens=0``: its lead chunk
+    otherwise takes the single-dispatch program, whose frame budget pads
+    the vocoder differently; at this chunk cap the chunks are the same."""
+    cfg = _cfg(ckpt_dir).replace(data=DataConfig(max_phoneme_seq_len=16))
+    jax_synth, port = _pair(cfg)
+    chunks = list(port.stream(STREAM_TEXT))
+    assert len(chunks) >= 2
+    whole = port.synthesize(STREAM_TEXT)
+    got = np.concatenate([c.wave for c in chunks])
+    assert got.shape == whole.wave.shape
+    np.testing.assert_allclose(got, whole.wave, atol=1e-5)
+    want = list(jax_synth.stream(STREAM_TEXT, lead_tokens=0))
+    assert len(want) == len(chunks)
+    for g, w in zip(chunks, want):
+        _assert_close(g, w)
+
+
+def test_stream_leads_with_a_short_chunk(ckpt_dir):
+    port = torch_pipeline.Synthesizer(_cfg(ckpt_dir), device="cpu")
+    tokens = port.text_to_token_ids(LONG_TEXT)
+    rows = torch_pipeline._chunk_token_rows(tokens, 256, first_chunk_tokens=12)
+    assert len(rows) >= 2 and len(rows[0]) <= 12
+    chunks = list(port.stream(LONG_TEXT, lead_tokens=12))
+    assert [len(c.durations) for c in chunks] == [len(r) for r in rows]
+    # durations come from one batch padded to the longest chunk, each decode
+    # from its own token bucket: a row alone gives the same audio
+    for chunk, row in zip(chunks, rows):
+        alone = port._synthesize_rows([row])[0]
+        np.testing.assert_allclose(chunk.durations, alone.durations, atol=1e-6)
+        assert chunk.wave.shape == alone.wave.shape
+        np.testing.assert_allclose(chunk.wave, alone.wave, atol=1e-5)
+
+
+def test_cli_stream_matches_one_shot(ckpt_dir, tmp_path, monkeypatch):
+    """--stream writes the wav chunk by chunk; it matches the one-shot wav
+    to one int16 step."""
+    import wave
+
+    import viettts_tpu_torch.config as config_mod
+    from viettts_tpu_torch import synthesizer as cli
+
+    monkeypatch.setattr(config_mod, "Config", _cfg)
+    common = ["--text", STREAM_TEXT, "--ckpt-dir", str(ckpt_dir), "--device", "cpu",
+              "--set", "data.max_phoneme_seq_len=16"]  # at least two chunks
+    one, streamed = tmp_path / "one.wav", tmp_path / "streamed.wav"
+    assert cli.main(common + ["--output", str(one)]) == 0
+    assert cli.main(common + ["--output", str(streamed), "--stream", "--save-mel", str(tmp_path / "mel")]) == 0
+    with wave.open(str(one)) as w1, wave.open(str(streamed)) as w2:
+        assert w1.getnframes() == w2.getnframes() > 0
+        a = np.frombuffer(w1.readframes(w1.getnframes()), "<i2").astype(np.int32)
+        b = np.frombuffer(w2.readframes(w2.getnframes()), "<i2").astype(np.int32)
+    assert np.abs(a - b).max() <= 1
+    assert np.load(tmp_path / "mel.npy").shape == (len(a) // 256, 80)
 
 
 def test_cuda_device_without_gpu_fails_loudly(ckpt_dir):

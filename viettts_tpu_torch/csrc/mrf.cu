@@ -24,29 +24,22 @@
 // Storage: weights and the stage's input/output are float32 or bfloat16;
 // biases, intermediates and all arithmetic are float32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mrf_common.cuh"
 
 namespace {
 
-constexpr int TL = 128;  // output rows (time) per block
-constexpr int TN = 32;   // output channels per block
+using viettts::fit_smem;
+using viettts::from_f;
+using viettts::lrelu;
+using viettts::NT;
+using viettts::TL;
+using viettts::TN;
+using viettts::to_f;
+
 constexpr int TK = 8;    // input channels per shared-memory stage
-constexpr int NT = 256;  // threads: 32 row groups x 8 column groups, 4 x 4 each
 constexpr int PT = 256;  // epilogue: output rows per block (one per thread)
 constexpr int PK = 32;   // epilogue: input channels per shared-memory stage
 constexpr int MAX_CP = 4;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float lrelu(float v, float slope) { return v > 0.f ? v : slope * v; }
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -55,7 +48,12 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 
 // y[b, n, co] = bias[co] + sum_{t, ci} lrelu(x[b, i, ci]) * w[t, ci, co]
 // over taps with n = i*u + pad_a - t (JAX's SAME conv_transpose).
-template <typename TI, typename TW>
+// TA is the accumulator: float, or double on the int8 route, where the
+// prologue feeds a quantizer: float64 sums of the exact float32 products,
+// rounded once to float32 and then added to the bias, so that kernel and
+// twin agree on every int8 code instead of flipping a few where their
+// float32 sums round apart.
+template <typename TI, typename TW, typename TA>
 __global__ void __launch_bounds__(NT) convt_kernel(
     const TI* __restrict__ x, const TW* __restrict__ w, const float* __restrict__ bias,
     float* __restrict__ y, int L_in, int C_in, int C_out, int k, int u, int pad_a, int win) {
@@ -69,11 +67,11 @@ __global__ void __launch_bounds__(NT) convt_kernel(
   const int L = L_in * u;
   const int i_lo = floor_div(n0 - pad_a, u);
   const TI* xb = x + (size_t)b * L_in * C_in;
-  float acc[4][4];
+  TA acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = TA(0);
 
   for (int c0 = 0; c0 < C_in; c0 += TK) {
     __syncthreads();
@@ -99,9 +97,9 @@ __global__ void __launch_bounds__(NT) convt_kernel(
         const float* wt = ws + t * TK * TN;
 #pragma unroll
         for (int kk = 0; kk < TK; ++kk) {
-          const float a = xr[kk];
+          const TA a = xr[kk];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wt[kk * TN + tx + 8 * j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fma(a, TA(wt[kk * TN + tx + 8 * j]), acc[i][j]);
         }
       }
     }
@@ -113,7 +111,7 @@ __global__ void __launch_bounds__(NT) convt_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int co = c0n + tx + 8 * j;
-      if (co < C_out) y[((size_t)b * L + n) * C_out + co] = acc[i][j] + bias[co];
+      if (co < C_out) y[((size_t)b * L + n) * C_out + co] = __fadd_rn(float(acc[i][j]), bias[co]);
     }
   }
 }
@@ -255,22 +253,15 @@ __global__ void to_f32_kernel(const __nv_bfloat16* __restrict__ x, float* __rest
     y[i] = __bfloat162float(x[i]);
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
-template <typename K>
-cudaError_t fit_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename TI, typename TW>
+template <typename TI, typename TW, typename TA>
 int launch_convt(const void* x, const void* w, const void* bias, void* y, int B, int L_in,
                  int C_in, int C_out, int k, int u, int pad_a, cudaStream_t s) {
   const int win = (TL + k - 2) / u + 2;
   const size_t smem = sizeof(float) * ((size_t)win * TK + (size_t)k * TK * TN);
-  cudaError_t err = fit_smem(convt_kernel<TI, TW>, smem);
+  cudaError_t err = fit_smem(convt_kernel<TI, TW, TA>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L_in * u + TL - 1) / TL, (C_out + TN - 1) / TN, B);
-  convt_kernel<TI, TW><<<grid, NT, smem, s>>>(
+  convt_kernel<TI, TW, TA><<<grid, NT, smem, s>>>(
       static_cast<const TI*>(x), static_cast<const TW*>(w), static_cast<const float*>(bias),
       static_cast<float*>(y), L_in, C_in, C_out, k, u, pad_a, win);
   return (int)cudaGetLastError();
@@ -310,15 +301,21 @@ int launch_post(const void* x, const void* w, const void* bias, void* out, int B
 
 }  // namespace
 
-// x and w are both bfloat16 (bf16 != 0) or both float32.
-extern "C" int viettts_mrf_convt(int bf16, const void* x, const void* w, const void* bias,
-                                 void* y, int B, int L_in, int C_in, int C_out, int k, int u,
-                                 int pad_a, void* stream) {
+// x and w are both bfloat16 (bf16 != 0) or both float32; acc64 != 0 sums
+// in float64 (the int8 route).
+extern "C" int viettts_mrf_convt(int bf16, int acc64, const void* x, const void* w,
+                                 const void* bias, void* y, int B, int L_in, int C_in, int C_out,
+                                 int k, int u, int pad_a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && acc64)
+    return launch_convt<__nv_bfloat16, __nv_bfloat16, double>(x, w, bias, y, B, L_in, C_in,
+                                                              C_out, k, u, pad_a, s);
   if (bf16)
-    return launch_convt<__nv_bfloat16, __nv_bfloat16>(x, w, bias, y, B, L_in, C_in, C_out, k,
-                                                      u, pad_a, s);
-  return launch_convt<float, float>(x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, s);
+    return launch_convt<__nv_bfloat16, __nv_bfloat16, float>(x, w, bias, y, B, L_in, C_in, C_out,
+                                                             k, u, pad_a, s);
+  if (acc64)
+    return launch_convt<float, float, double>(x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, s);
+  return launch_convt<float, float, float>(x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, s);
 }
 
 extern "C" int viettts_mrf_conv(int w_bf16, int out_bf16, const void* x, const void* w,

@@ -8,12 +8,16 @@ resblocks] -> leaky_relu(0.01) -> conv_post -> tanh: [B, T * 256, 1].
 ``Generator.forward`` is the plain float32 formulation with torch convs.
 ``generator_apply_fused`` is the serving path: every stage, ConvTranspose
 prologue included and the tail fused into the last one, goes through
-``fused_mrf`` (kernel K2 on CUDA), with float32 or bfloat16 storage.
+``fused_mrf`` (kernel K2 on CUDA), with float32 or bfloat16 storage, and
+on the int8 route with its MRF convs in kernel K3.
+``generator_calibrate_int8`` and ``generator_int8_clip_stats`` walk the
+plain float32 generator for the int8 route's static activation scales and
+its clip-rate probe.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +29,7 @@ from viettts_tpu_torch.ops.mrf import (
     POST_LRELU_SLOPE,
     conv_transpose_same,
     fused_mrf,
+    mrf_walk,
     prepare_mrf_weights,
     storage_dtype,
 )
@@ -89,10 +94,12 @@ class Generator(nn.Module):
         self._fused.clear()
 
     @torch.no_grad()
-    def fused_weights(self, compute_dtype) -> List:
+    def fused_weights(self, compute_dtype, quantize_int8: bool = False) -> List:
         """Per-stage ``fused_mrf`` arguments in the JAX (W, I, O) layout and
-        the storage dtype; built once per (dtype, device) and cached."""
-        key = (storage_dtype(compute_dtype), self.conv_pre.weight.device)
+        the storage dtype (MRF convs as int8 codes with ``quantize_int8``,
+        quantized from the float32 weights); built once per (dtype, int8,
+        device) and cached."""
+        key = (storage_dtype(compute_dtype), quantize_int8, self.conv_pre.weight.device)
         stages = self._fused.get(key)
         if stages is not None:
             return stages
@@ -117,28 +124,86 @@ class Generator(nn.Module):
             upsample = (ups.weight.permute(2, 0, 1).flip(0), ups.bias, u)
             last = i == len(cfg.upsample_rates) - 1
             post = (wio(self.conv_post), self.conv_post.bias) if last else None
-            stages.append(prepare_mrf_weights(blocks, upsample, post, compute_dtype))
+            stages.append(prepare_mrf_weights(blocks, upsample, post, compute_dtype, quantize_int8))
         self._fused[key] = stages
         return stages
 
 
 def generator_apply_fused(
-    gen: Generator, mel: torch.Tensor, compute_dtype=torch.float32
+    gen: Generator,
+    mel: torch.Tensor,
+    compute_dtype=torch.float32,
+    quantize_int8: bool = False,
+    act_scales: Optional[Dict[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Serving generator: [B, T, n_mels] -> float32 waveform [B, T * 256, 1].
 
     ``compute_dtype=torch.bfloat16`` stores the weights and the
     inter-stage activations in bfloat16; arithmetic stays float32.
     conv_pre is a plain torch conv (it is outside the TPU kernel too).
+    ``quantize_int8`` runs every stage's MRF convs in int8 (K3), as the JAX
+    int8 route fuses all four stages; ``act_scales`` ``{stage: [n_convs]}``
+    (``generator_calibrate_int8``) selects static activation scales, else
+    they are dynamic.
     """
     cfg = gen.cfg
     store = storage_dtype(compute_dtype)
-    w_pre = gen.conv_pre.weight.to(store).float()
-    x = F.conv1d(mel.to(store).float().transpose(1, 2), w_pre, gen.conv_pre.bias, padding=3)
+    # as JAX's conv_pre: the conv rounds to the storage dtype, then the
+    # bias is added in it (one bf16 rounding less moves the int8 route's
+    # codes, and its waveform by ~1% rel-RMS).  On the int8 route the sums
+    # are float64 (exact products, one rounding), as in the prologue, so
+    # that every device rounds them to the same bf16 values, which the
+    # int8 codes would otherwise amplify.
+    acc = torch.float64 if quantize_int8 else torch.float32
+    w_pre = gen.conv_pre.weight.to(store).to(acc)
+    x = F.conv1d(mel.to(store).to(acc).transpose(1, 2), w_pre, padding=3).float()
+    x = x.to(store).float() + gen.conv_pre.bias.to(store).float()[None, :, None]
     x = x.transpose(1, 2).contiguous().to(store)
-    for weights, upsample, post in gen.fused_weights(compute_dtype):
+    for i, (weights, upsample, post) in enumerate(gen.fused_weights(compute_dtype, quantize_int8)):
         x = fused_mrf(
             x, weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
             upsample=upsample, post=post, compute_dtype=compute_dtype,
+            quantize_int8=quantize_int8,
+            act_scales=(act_scales or {}).get(i) if quantize_int8 else None,
         )
     return x
+
+
+@torch.no_grad()
+def _mrf_activation_walk(
+    gen: Generator, mel: torch.Tensor, metric: Callable[[int, int, torch.Tensor], torch.Tensor]
+) -> Dict[int, torch.Tensor]:
+    """Run the plain float32 generator on ``mel`` and reduce every MRF conv
+    input with ``metric(stage, conv_index, activation)``, in the flat conv
+    order ``fused_mrf`` quantizes in.  Returns ``{stage: [n_convs] f32}``."""
+    cfg = gen.cfg
+    x = gen.conv_pre(mel.float().transpose(1, 2))
+    out = {}
+    for i, (weights, upsample, _) in enumerate(gen.fused_weights(torch.float32)):
+        x, vals = mrf_walk(
+            x, weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
+            lambda j, y: metric(i, j, y), upsample=upsample,
+        )
+        out[i] = torch.stack(vals)
+    return out
+
+
+def generator_calibrate_int8(gen: Generator, mel: torch.Tensor, margin: float = 1.0):
+    """Per-conv activation amaxes for static int8 MRF quantization:
+    ``max|leaky_relu(conv input)| * margin`` for every MRF conv of every
+    stage, ``{stage: [n_convs] f32}``; pass it to
+    ``generator_apply_fused(act_scales=...)``.  Inputs beyond the
+    calibrated range are clipped by the kernel, so calibrate on diverse
+    utterances (``Synthesizer.calibrate_int8`` maxes over several) and keep
+    a margin; ``generator_int8_clip_stats`` shows what clips."""
+    return _mrf_activation_walk(gen, mel, lambda i, j, y: y.abs().amax() * margin)
+
+
+def generator_int8_clip_stats(gen: Generator, mel: torch.Tensor, act_scales: Dict[int, torch.Tensor]):
+    """Fraction of each MRF conv input's elements whose magnitude exceeds
+    its calibrated amax (what the static int8 route clips), ``{stage:
+    [n_convs] f32}``.  Costs one float32 generator forward: a sampled
+    serving probe, not a per-request one."""
+    return _mrf_activation_walk(
+        gen, mel, lambda i, j, y: (y.abs() > act_scales[i][j]).float().mean()
+    )

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, which is loaded with ``ctypes``.  The build runs at first use
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
+interface, which is loaded with ``ctypes``.  The build runs at first use
 (never at import: the CPU tests import every module) and again whenever
 the sources change: the library's file name carries a hash of the sources
 and flags.  Output goes to ``viettts_tpu_torch/_build/``, which git
@@ -28,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 P = ctypes.c_void_p
@@ -39,13 +40,18 @@ SIGNATURES = {
     # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out,
     # B, L, H, P, D, scale, stream
     "viettts_ar_decode": [P] * 11 + [I] * 5 + [F, P],
-    # bf16, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
-    "viettts_mrf_convt": [I, P, P, P, P] + [I] * 7 + [P],
+    # bf16, acc64, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
+    "viettts_mrf_convt": [I, I, P, P, P, P] + [I] * 7 + [P],
     # w_bf16, out_bf16, x, w, bias, res, y, out,
     # B, L, C_in, C_out, k, dilation, mode, scale, stream
     "viettts_mrf_conv": [I, I] + [P] * 6 + [I] * 7 + [F, P],
     # w_bf16, x, w, bias, out, B, L, C, C_post, k, stream
     "viettts_mrf_post": [I, P, P, P, P] + [I] * 5 + [P],
+    # out_bf16, x, w, scale, bias, act, act_stride, dynamic, res, y, out,
+    # B, L, C_in, C_out, k, dilation, mode, div, stream
+    "viettts_mrf_conv_int8": [I] + [P] * 5 + [I, I] + [P] * 3 + [I] * 7 + [F, P],
+    # x, amax, B, n, stream
+    "viettts_mrf_absmax": [P, P, I, ctypes.c_longlong, P],
     # x_bf16, y_f32, n, stream
     "viettts_mrf_to_f32": [P, P, ctypes.c_longlong, P],
 }
@@ -86,15 +92,30 @@ def load_library() -> ctypes.CDLL:
     if not so.exists():
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tag = f"{so.stem}.{os.getpid()}"
         cu, _ = _sources()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(cu, objs))
+        ]
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, out))
+        if not failed:
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, proc.stdout + proc.stderr))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, rc, out in failed
+            ))
         tmp.replace(so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

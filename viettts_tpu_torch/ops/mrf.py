@@ -1,4 +1,4 @@
-"""One HiFi-GAN generator stage: CUDA kernel K2 and its plain twin.
+"""One HiFi-GAN generator stage: CUDA kernels K2 and K3 and their plain twin.
 
 Counterpart of ``viettts_tpu/ops/mrf.py::fused_mrf``.  A stage is
 
@@ -18,15 +18,31 @@ selects the storage dtype of the weights and of the stage input and output
 as in the TPU kernel.  ``prepare_mrf_weights`` casts a float32 weight set
 to that layout once.
 
-``fused_mrf`` runs ``csrc/mrf.cu`` on CUDA tensors and ``fused_mrf_plain``
-on CPU tensors; any other device raises.  ``fused_mrf.launches`` counts
-stages run on the kernels and ``fused_mrf.plain_calls`` counts calls of
-the twin.
+``quantize_int8=True`` runs the 18 MRF convs as int8 x int8 -> int32 dots
+(kernel K3, the TPU kernel's ``quantize_int8`` mode): W1/W2 are
+``Int8Conv`` codes with per-output-channel scales, quantized once from the
+float32 weights by ``prepare_mrf_weights(quantize_int8=True)``; the
+epilogue, biases, residuals and the block mean stay as on the float route,
+and the prologue sums in float64 (rounded once to float32), so that the
+kernel and the twin give its output the same int8 codes.  Each conv's
+input ``lrelu(x)`` is quantized with one scale: ``act_scales`` [n_convs]
+(calibrated amaxes in flat conv order, ``mrf_walk``) clips at a fixed
+scale; without it the scale is the amax of the conv input over each batch
+row (dynamic).  The TPU kernel's dynamic
+amax spans one time tile plus its halo (``_pick_tile_rows``), so it equals
+this one only where the sequence fits one tile (at most 8192 packed rows
+of 128 lanes); longer inputs differ from JAX by design.
+
+``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``) on CUDA
+tensors and ``fused_mrf_plain`` on CPU tensors; any other device raises.
+``fused_mrf.launches`` counts stages that launched K2 kernels,
+``fused_mrf.int8_launches`` stages that launched K3, and
+``fused_mrf.plain_calls`` calls of the twin.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -38,8 +54,42 @@ POST_LRELU_SLOPE = 0.01  # torch's default slope, as upstream HiFi-GAN uses
 MAX_POST_CHANNELS = 4  # the epilogue kernel keeps one accumulator per channel
 
 
+class Int8Conv(NamedTuple):
+    """A resblock's stacked convs quantized to int8: ``codes`` int8
+    [D, k, C_in, C_out] and per-output-channel ``scales`` float32 [D, C_out],
+    so that ``w ~= codes * scales``."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+
+def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
+    """Symmetric per-output-channel int8 of float32 conv weights [..., k,
+    C_in, C_out]: ``s = max(max|w[..., o]|, 1e-12) / 127`` over taps and
+    inputs, codes ``clip(round(w / s), -127, 127)`` (round half to even),
+    as the TPU kernel quantizes each packed column (``mrf.py:576-580``)."""
+    if w.dtype != torch.float32:
+        raise ValueError(f"quantize_weight_int8: quantize from float32 weights, got {w.dtype}")
+    s = torch.clamp_min(w.abs().amax(dim=(-3, -2)), 1e-12) / _f32(127.0, w)
+    codes = torch.clamp(torch.round(w / s[..., None, None, :]), -127.0, 127.0)
+    return Int8Conv(codes.to(torch.int8).contiguous(), s.contiguous())
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``like``'s device.  Dividing by it (or
+    into it) is IEEE division; with a Python number, torch computes
+    ``v / t`` as ``reciprocal(t) * v``, and on CUDA ``t / v`` as
+    ``t * (1 / v)``: one more rounding than the TPU kernel's division."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
 def storage_dtype(compute_dtype) -> torch.dtype:
     return torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+
+
+def n_convs(weights) -> int:
+    """Number of MRF convs in a stage: the length of its ``act_scales``."""
+    return sum(b1.shape[0] * (1 if w2 is None else 2) for _, b1, w2, _ in weights)
 
 
 def convt_lead_pad(k: int, u: int) -> int:
@@ -76,6 +126,82 @@ def _conv_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> tor
     )
 
 
+def _conv_int8(
+    x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
+    d: int, act: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """One quantized SAME conv on the float32 conv input x [B, C, L], in
+    the TPU kernel's order of float32 operations (``mrf.py:280-357``).
+    ``act`` is the calibrated amax (static; inputs beyond it clip) or None
+    (dynamic: the amax of each batch row, no clip).  The integer dot runs
+    as a float64 conv of the codes, which is exact: its sums stay far below
+    2**53, where float32 would round above 2**24."""
+    c127 = _f32(127.0, x)
+    if act is not None:
+        a = torch.clamp_min(act, 1e-12)
+        q = torch.round(torch.clamp(x * (c127 / a), -127.0, 127.0))
+        mult = (scales * (a / c127))[None, :, None]
+    else:
+        a = x.abs().amax(dim=(1, 2))  # [B]
+        q = torch.round(x * (c127 / torch.clamp_min(a, 1e-30))[:, None, None])
+        mult = ((a * (1.0 / 127.0))[:, None] * scales[None, :])[..., None]
+    k = codes.shape[0]
+    dot = F.conv1d(
+        q.double(), codes.double().permute(2, 1, 0),
+        padding=d * (k - 1) // 2, dilation=d,
+    )
+    return dot.float() * mult + b[None, :, None]
+
+
+def _mrf_stack(h, weights, kernel_sizes, dilations, conv: Callable[..., torch.Tensor]) -> torch.Tensor:
+    """The MRF resblocks on the stage trunk h [B, C, L]: ``conv(inp, w, b,
+    j, d, index)`` applies conv j of a stacked weight to its lrelu'd input;
+    ``index`` counts the stage's convs in the flat order of ``act_scales``
+    (resblocks, dilation units, then the unit's one or two convs)."""
+    index = 0
+    acc = None
+    for blk in range(len(kernel_sizes)):
+        w1, b1, w2, b2 = weights[blk]
+        r = h
+        for j, d in enumerate(dilations[blk]):
+            y = conv(F.leaky_relu(r, LRELU_SLOPE), w1, b1, j, d, index)
+            index += 1
+            if w2 is not None:
+                y = conv(F.leaky_relu(y, LRELU_SLOPE), w2, b2, j, 1, index)
+                index += 1
+            r = y + r
+        acc = r if acc is None else acc + r
+    return acc / _f32(len(kernel_sizes), acc)
+
+
+def mrf_walk(
+    x: torch.Tensor,
+    weights: Sequence[Tuple],
+    kernel_sizes: Sequence[int],
+    dilations: Sequence[Sequence[int]],
+    metric: Callable[[int, torch.Tensor], torch.Tensor],
+    *,
+    upsample: Optional[Tuple] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One stage in plain float32 on x [B, C_in, L_in] (channels first),
+    with float weights: returns the MRF output [B, C, L] and
+    ``metric(index, conv_input)`` for every MRF conv in flat conv order —
+    what int8 calibration (amax) and the clip probe (clip fraction) read."""
+    h = x.float()
+    if upsample is not None:
+        w_t, b_t, u = upsample
+        h = conv_transpose_same(
+            F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(w_t.float()), b_t.float(), u
+        )
+    vals: List[torch.Tensor] = []
+
+    def conv(inp, w, b, j, d, index):
+        vals.append(metric(index, inp))
+        return _conv_same(inp, w[j], b[j], d)
+
+    return _mrf_stack(h, weights, kernel_sizes, dilations, conv), vals
+
+
 def fused_mrf_plain(
     x: torch.Tensor,
     weights: Sequence[Tuple],
@@ -85,6 +211,8 @@ def fused_mrf_plain(
     upsample: Optional[Tuple] = None,
     post: Optional[Tuple] = None,
     compute_dtype=torch.float32,
+    quantize_int8: bool = False,
+    act_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the stage kernels: float32 arithmetic, rounding
     to the storage dtype only where the kernel stores."""
@@ -92,21 +220,22 @@ def fused_mrf_plain(
     h = x.float().transpose(1, 2)  # [B, C, L]
     if upsample is not None:
         w_t, b_t, u = upsample
-        h = conv_transpose_same(
-            F.leaky_relu(h, LRELU_SLOPE),
-            convt_weight_to_torch(w_t.float()), b_t.float(), u,
-        )
-    acc = None
-    for blk in range(len(kernel_sizes)):
-        w1, b1, w2, b2 = weights[blk]
-        r = h
-        for j, d in enumerate(dilations[blk]):
-            y = _conv_same(F.leaky_relu(r, LRELU_SLOPE), w1[j], b1[j], d)
-            if w2 is not None:
-                y = _conv_same(F.leaky_relu(y, LRELU_SLOPE), w2[j], b2[j], 1)
-            r = y + r
-        acc = r if acc is None else acc + r
-    acc = acc / len(kernel_sizes)
+        h, w = F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(w_t.float())
+        if quantize_int8:
+            # as the kernel on this route: float64 sums of the exact float32
+            # products, rounded once, then the float32 bias
+            zero = torch.zeros(w.shape[1], dtype=torch.float64, device=h.device)
+            h = conv_transpose_same(h.double(), w.double(), zero, u).float() + b_t.float()[None, :, None]
+        else:
+            h = conv_transpose_same(h, w, b_t.float(), u)
+    if quantize_int8:
+        def conv(inp, w, b, j, d, index):
+            act = None if act_scales is None else act_scales[index]
+            return _conv_int8(inp, w.codes[j], w.scales[j], b[j], d, act)
+    else:
+        def conv(inp, w, b, j, d, index):
+            return _conv_same(inp, w[j], b[j], d)
+    acc = _mrf_stack(h, weights, kernel_sizes, dilations, conv)
     if post is not None:
         w_p, b_p = post
         z = _conv_same(F.leaky_relu(acc, POST_LRELU_SLOPE), w_p, b_p, 1)
@@ -114,26 +243,32 @@ def fused_mrf_plain(
     return acc.transpose(1, 2).contiguous().to(storage_dtype(compute_dtype))
 
 
-def prepare_mrf_weights(weights, upsample=None, post=None, compute_dtype=torch.float32):
+def prepare_mrf_weights(
+    weights, upsample=None, post=None, compute_dtype=torch.float32, quantize_int8=False
+):
     """Cast a float32 weight set to what ``fused_mrf`` takes: weights in the
-    storage dtype, biases in float32, all contiguous."""
+    storage dtype, biases in float32, all contiguous.  ``quantize_int8``
+    turns W1/W2 into ``Int8Conv``, quantized from the float32 values (the
+    TPU kernel packs and quantizes in float32, never from bf16)."""
     store = storage_dtype(compute_dtype)
 
     def w(t):
-        return None if t is None else t.to(store).contiguous()
+        if t is None:
+            return None
+        return quantize_weight_int8(t.float()) if quantize_int8 else t.to(store).contiguous()
 
     def b(t):
         return None if t is None else t.float().contiguous()
 
     weights = [(w(w1), b(b1), w(w2), b(b2)) for w1, b1, w2, b2 in weights]
     if upsample is not None:
-        upsample = (w(upsample[0]), b(upsample[1]), int(upsample[2]))
+        upsample = (upsample[0].to(store).contiguous(), b(upsample[1]), int(upsample[2]))
     if post is not None:
-        post = (w(post[0]), b(post[1]))
+        post = (post[0].to(store).contiguous(), b(post[1]))
     return weights, upsample, post
 
 
-def _check(x, weights, kernel_sizes, dilations, upsample, post, store):
+def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_int8, act_scales):
     """Validate shapes, dtypes, devices and contiguity; returns (L, C)."""
     if x.dim() != 3 or x.dtype != store:
         raise ValueError(f"fused_mrf: x must be [B, L, C] {store}, got {tuple(x.shape)} {x.dtype}")
@@ -159,12 +294,31 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store):
                 if b is not None:
                     raise ValueError("fused_mrf: W2 is None but B2 is not")
                 continue
-            if tuple(w.shape) != (n, k, C, C) or tuple(b.shape) != (n, C):
+            if isinstance(w, Int8Conv) != quantize_int8:
                 raise ValueError(
-                    f"fused_mrf: block {blk} {name} {tuple(w.shape)} / bias {tuple(b.shape)}, "
+                    f"fused_mrf: block {blk} {name} must {'' if quantize_int8 else 'not '}be an "
+                    f"Int8Conv with quantize_int8={quantize_int8}"
+                )
+            codes = w.codes if quantize_int8 else w
+            if tuple(codes.shape) != (n, k, C, C) or tuple(b.shape) != (n, C):
+                raise ValueError(
+                    f"fused_mrf: block {blk} {name} {tuple(codes.shape)} / bias {tuple(b.shape)}, "
                     f"want {(n, k, C, C)} / {(n, C)}"
                 )
-            tensors += [(f"{name}[{blk}]", w, store), (f"B{name[1]}[{blk}]", b, torch.float32)]
+            if quantize_int8:
+                if tuple(w.scales.shape) != (n, C):
+                    raise ValueError(f"fused_mrf: block {blk} {name} scales {tuple(w.scales.shape)}, want {(n, C)}")
+                tensors += [(f"{name}[{blk}] codes", w.codes, torch.int8),
+                            (f"{name}[{blk}] scales", w.scales, torch.float32)]
+            else:
+                tensors += [(f"{name}[{blk}]", w, store)]
+            tensors += [(f"B{name[1]}[{blk}]", b, torch.float32)]
+    if act_scales is not None:
+        if not quantize_int8:
+            raise ValueError("fused_mrf: act_scales needs quantize_int8=True")
+        if tuple(act_scales.shape) != (n_convs(weights),):
+            raise ValueError(f"fused_mrf: act_scales {tuple(act_scales.shape)}, want ({n_convs(weights)},)")
+        tensors += [("act_scales", act_scales, torch.float32)]
     if post is not None:
         w_p, b_p = post
         kp, c, cp = w_p.shape
@@ -190,32 +344,45 @@ def fused_mrf(
     upsample: Optional[Tuple] = None,
     post: Optional[Tuple] = None,
     compute_dtype=torch.float32,
+    quantize_int8: bool = False,
+    act_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Apply one (ConvTranspose +) MRF (+ conv_post) stage.
 
     Without ``upsample`` x is [B, L, C]; with it x is [B, L/u, C_in].
     Returns [B, L, C] in the storage dtype, or the float32 [B, L, C_post]
-    waveform when ``post`` is given.
+    waveform when ``post`` is given.  ``quantize_int8`` / ``act_scales``:
+    see the module docstring.
     """
     store = storage_dtype(compute_dtype)
-    L, C = _check(x, weights, kernel_sizes, dilations, upsample, post, store)
-    kwargs = dict(upsample=upsample, post=post, compute_dtype=compute_dtype)
+    L, C = _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_int8, act_scales)
+    kwargs = dict(
+        upsample=upsample, post=post, compute_dtype=compute_dtype,
+        quantize_int8=quantize_int8, act_scales=act_scales,
+    )
     if x.device.type == "cpu":
         return fused_mrf_plain(x, weights, kernel_sizes, dilations, **kwargs)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mrf: no kernel for device {x.device}")
     if post is not None and post[0].shape[2] > MAX_POST_CHANNELS:
         raise ValueError(f"fused_mrf kernel takes at most {MAX_POST_CHANNELS} post channels")
-    return _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, L, C)
+    return _fused_mrf_cuda(
+        x, weights, kernel_sizes, dilations, upsample, post, store, L, C, quantize_int8, act_scales
+    )
 
 
-def _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, L, C):
+def _fused_mrf_cuda(
+    x, weights, kernel_sizes, dilations, upsample, post, store, L, C, quantize_int8, act_scales
+):
     lib = _build.load_library()
     stream = _build.stream_ptr(x.device)
     bf = int(store == torch.bfloat16)
     B = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
-    fused_mrf.launches += 1
+    # K3 replaces the MRF convs; K2 still runs the prologue, the epilogue
+    # and a bf16 input's cast
+    if not quantize_int8 or upsample is not None or post is not None or store != torch.float32:
+        fused_mrf.launches += 1
 
     if upsample is not None:
         w_t, b_t, u = upsample
@@ -223,7 +390,7 @@ def _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, 
         h = torch.empty(B, L, C, **f32)
         _build.check(
             lib.viettts_mrf_convt(
-                bf, x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+                bf, int(quantize_int8), x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(), h.data_ptr(),
                 B, x.shape[1], c_in, C, k_u, u, convt_lead_pad(k_u, u), stream,
             ),
             "fused_mrf prologue",
@@ -243,22 +410,47 @@ def _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, 
     out_dtype = torch.float32 if post is not None else store
     out = torch.empty(B, L, C, dtype=out_dtype, device=x.device)
     out_bf = int(out_dtype == torch.bfloat16)
+    if quantize_int8:
+        fused_mrf.int8_launches += 1
+        # dynamic: one amax per (conv, batch row), filled by atomicMax
+        amax = torch.zeros(n_convs(weights), B, **f32) if act_scales is None else None
+    index = 0
 
     def other(t):
         return bufs[1] if t is bufs[0] else bufs[0]
 
-    def conv(inp, w, b, k, d, res, y, mode=0, out_ptr=None):
+    def conv(inp, w, b, j, k, d, res, y, mode=0, out_ptr=None):
         # mode 0: y = v; 1: y += v; 2: out = ((y or 0) + v) / n_blocks,
         # where v = conv_k,d(lrelu(inp)) + b (+ res)
+        nonlocal index
+        res_ptr = None if res is None else res.data_ptr()
+        y_ptr = None if y is None else y.data_ptr()
+        if not quantize_int8:
+            _build.check(
+                lib.viettts_mrf_conv(
+                    bf, out_bf, inp.data_ptr(), w[j].data_ptr(), b[j].data_ptr(), res_ptr,
+                    y_ptr, out_ptr, B, L, C, C, k, d, mode, float(n_blocks), stream,
+                ),
+                "fused_mrf conv",
+            )
+            return
+        if amax is None:
+            act, act_stride, dynamic = act_scales[index], 0, 0
+        else:
+            act, act_stride, dynamic = amax[index], 1, 1
+            _build.check(
+                lib.viettts_mrf_absmax(inp.data_ptr(), act.data_ptr(), B, L * C, stream),
+                "fused_mrf int8 amax",
+            )
         _build.check(
-            lib.viettts_mrf_conv(
-                bf, out_bf, inp.data_ptr(), w.data_ptr(), b.data_ptr(),
-                None if res is None else res.data_ptr(),
-                None if y is None else y.data_ptr(), out_ptr,
+            lib.viettts_mrf_conv_int8(
+                out_bf, inp.data_ptr(), w.codes[j].data_ptr(), w.scales[j].data_ptr(),
+                b[j].data_ptr(), act.data_ptr(), act_stride, dynamic, res_ptr, y_ptr, out_ptr,
                 B, L, C, C, k, d, mode, float(n_blocks), stream,
             ),
-            "fused_mrf conv",
+            "fused_mrf int8 conv",
         )
+        index += 1
 
     for blk, k in enumerate(kernel_sizes):
         w1, b1, w2, b2 = weights[blk]
@@ -267,21 +459,21 @@ def _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, 
         for j, d in enumerate(dils):
             if w2 is not None:  # ResBlock1: dilated conv, then a dilation-1 conv
                 t = other(cur)
-                conv(cur, w1[j], b1[j], k, d, None, t)
-                src, w, b, dil = t, w2[j], b2[j], 1
+                conv(cur, w1, b1, j, k, d, None, t)
+                src, w, b, dil = t, w2, b2, 1
             else:  # ResBlock2: one dilated conv
-                src, w, b, dil = cur, w1[j], b1[j], d
+                src, w, b, dil = cur, w1, b1, d
             if j < len(dils) - 1:
                 # never the conv's own input (other blocks read its halo);
                 # writing over the residual is safe: each element is read
                 # and written by the same thread
                 dst = other(src)
-                conv(src, w, b, k, dil, cur, dst)
+                conv(src, w, b, j, k, dil, cur, dst)
                 cur = dst
             elif blk < n_blocks - 1:
-                conv(src, w, b, k, dil, cur, acc, mode=0 if blk == 0 else 1)
+                conv(src, w, b, j, k, dil, cur, acc, mode=0 if blk == 0 else 1)
             else:
-                conv(src, w, b, k, dil, cur, acc, mode=2, out_ptr=out.data_ptr())
+                conv(src, w, b, j, k, dil, cur, acc, mode=2, out_ptr=out.data_ptr())
 
     if post is None:
         return out
@@ -299,4 +491,5 @@ def _fused_mrf_cuda(x, weights, kernel_sizes, dilations, upsample, post, store, 
 
 
 fused_mrf.launches = 0
+fused_mrf.int8_launches = 0
 fused_mrf.plain_calls = 0

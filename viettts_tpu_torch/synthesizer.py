@@ -1,9 +1,9 @@
 """Synthesis CLI of the PyTorch port (counterpart of
-``viettts_tpu/synthesizer.py``): the same flags, less ``--stream``, plus
-``--device``.
+``viettts_tpu/synthesizer.py``): the same flags, plus ``--device``.
 
 Usage:
     python -m viettts_tpu_torch.synthesizer --text "xin chào" --output clip.wav
+    python -m viettts_tpu_torch.synthesizer --text "xin chào" --output clip.wav --stream
     python -m viettts_tpu_torch.synthesizer --text-file lines.txt --output-dir out/
 
 There is no device fallback: ``--device cuda`` (the default) fails when no
@@ -34,6 +34,11 @@ def main(argv=None):
     parser.add_argument(
         "--save-mel", type=Path, default=None,
         help="also save the log-mel as .npy",
+    )
+    parser.add_argument(
+        "--stream", action="store_true",
+        help="write the wav progressively, one silence-bounded chunk at a "
+        "time (Synthesizer.stream)",
     )
     parser.add_argument("--ckpt-dir", default=None, type=Path)
     parser.add_argument("--hifigan-ckpt", default=None, type=Path)
@@ -77,11 +82,15 @@ def main(argv=None):
 
     if args.text:
         print("Normalized text input:", normalize_text(args.text))
-        result = synth.synthesize(args.text, args.silence_duration)
-        print("writing output to file", args.output)
-        write_wav(args.output, result.wave, args.sample_rate)
+        if args.stream:
+            mel = _write_stream(synth, args)
+        else:
+            result = synth.synthesize(args.text, args.silence_duration)
+            print("writing output to file", args.output)
+            write_wav(args.output, result.wave, args.sample_rate)
+            mel = result.mel
         if args.save_mel is not None:
-            np.save(args.save_mel.with_suffix(".npy"), result.mel)
+            np.save(args.save_mel.with_suffix(".npy"), mel)
         return 0
 
     lines = [
@@ -94,6 +103,29 @@ def main(argv=None):
         print("writing", out)
         write_wav(out, result.wave, args.sample_rate)
     return 0
+
+
+def _write_stream(synth, args):
+    """Write ``synth.stream`` chunks to the wav as they arrive (16-bit PCM,
+    as ``write_wav``); returns the concatenated mel."""
+    import time
+    import wave
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    mels = []
+    with wave.open(str(args.output), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(args.sample_rate)
+        for i, part in enumerate(synth.stream(args.text, args.silence_duration)):
+            w.writeframes((np.clip(part.wave, -1.0, 1.0) * 32767.0).astype("<i2").tobytes())
+            mels.append(part.mel)
+            print(f"chunk {i}: {len(part.wave) / args.sample_rate:.2f} s of audio "
+                  f"at t={time.perf_counter() - t0:.2f} s")
+    print("wrote", args.output)
+    return np.concatenate(mels, axis=0)
 
 
 if __name__ == "__main__":
