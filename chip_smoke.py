@@ -64,6 +64,12 @@ BATCH_TEXTS = [
 K1_ATOL = 1e-4
 K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
+K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
+MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s of audio)
+# dense tensor-core peaks of an H100 SXM at 700 W (NVIDIA data sheet): bf16,
+# and TF32 for the float32 route, whose 3xTF32 dots issue 3 products per
+# product counted
+PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 495.0}
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
 INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
@@ -162,19 +168,34 @@ def stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype):
     return prepare_mrf_weights(blocks, ups, pst, dtype)
 
 
-def check_fused_mrf(dev, cfg, B=2, frames=(128, 100)):
+def mrf_flop(cfg, B, L, C, resblock2):
+    """FLOP of a stage's MRF convs: 2 * B * L * C^2 * (taps summed over
+    its convs)."""
+    taps = sum(len(d) * k * (1 if resblock2 else 2)
+               for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+    return 2.0 * B * L * C * C * taps
+
+
+def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
+                    timed_cases=((2, 128), (1, MAIN_PATH_FRAMES))):
+    """K2 against its twins at every stage of each (B, frames) case,
+    ResBlock1 and ResBlock2, float32 and bfloat16; ResBlock1 stages timed
+    at (2, 128) and at the main path's B=1 frame count."""
     import numpy as np
     import torch
 
     from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain
 
     rng = np.random.default_rng(1)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    times = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0, "bf16_dots_rel_rms": 0.0}
+    # times[dtype][(B, T)] = per stage [kernel ms, twin ms, MRF-only kernel ms, MRF TFLOP/s]
+    times = {torch.float32: {}, torch.bfloat16: {}}
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     for dtype in (torch.float32, torch.bfloat16):
+        peak = PEAK_TFLOPS[str(dtype)[6:]]
         for resblock2 in (False, True):
-            for T in frames:
+            for B, T in cases:
+                timed = not resblock2 and (B, T) in timed_cases
                 for i, (C_in, C, k_u, u, L_in, post) in enumerate(stage_shapes(cfg, T)):
                     w, ups, pst = stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype)
                     x = torch.from_numpy(seeded(rng, B, L_in, C_in)).to(dev, dtype)
@@ -192,19 +213,32 @@ def check_fused_mrf(dev, cfg, B=2, frames=(128, 100)):
                         bar = f"rtol {K2_F32['rtol']} atol {K2_F32['atol']}"
                     else:
                         scale = max(want.float().abs().max().item(), 1.0)
-                        ok = err <= K2_BF16_REL * scale
-                        bar = f"atol {K2_BF16_REL * scale:.3g}"
+                        rounded = fused_mrf_plain(x, w, ks, ds, bf16_dots=True, **kw)
+                        rel = rel_rms(got.float(), rounded.float())
+                        worst["bf16_dots_rel_rms"] = max(worst["bf16_dots_rel_rms"], rel)
+                        ok = err <= K2_BF16_REL * scale and rel <= K2_BF16_DOTS_REL_RMS
+                        bar = (f"atol {K2_BF16_REL * scale:.3g}; vs the bf16-operand twin rel-RMS {rel:.2e} "
+                               f"(bar {K2_BF16_DOTS_REL_RMS}; the f32 twin is "
+                               f"{rel_rms(want.float(), rounded.float()):.2e} from it)")
                     tag = (f"K2 fused_mrf {str(dtype)[6:]} resblock{'2' if resblock2 else '1'} "
                            f"stage {i} x=[{B},{L_in},{C_in}] -> [{B},{L_in * u},{1 if post else C}]")
                     log(f"{tag}: max|kernel - twin| = {err:.3e} ({bar})")
                     if not ok:
                         raise AssertionError(f"{tag} differs from its twin by {err}")
-                    if T == frames[0] and not resblock2:
+                    if timed:
                         ms = time_ms(lambda: fused_mrf(x, w, ks, ds, **kw))
                         plain_ms = time_ms(lambda: fused_mrf_plain(x, w, ks, ds, **kw))
-                        times[dtype][0] += ms
-                        times[dtype][1] += plain_ms
-                        log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+                        # the MRF convs alone: the stage without prologue and epilogue
+                        h = torch.from_numpy(seeded(rng, B, L_in * u, C)).to(dev, dtype)
+                        mrf_ms = time_ms(lambda: fused_mrf(h, w, ks, ds, compute_dtype=dtype))
+                        rate = mrf_flop(cfg, B, L_in * u, C, resblock2) / mrf_ms / 1e9
+                        times[dtype].setdefault((B, T), []).append([ms, plain_ms, mrf_ms, rate])
+                        log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms; MRF convs alone "
+                            f"{mrf_ms:.3f} ms = {rate:.1f} TFLOP/s ({100 * rate / peak:.1f}% of the "
+                            f"{peak:.0f} TFLOP/s dense {'bf16' if dtype == torch.bfloat16 else 'TF32'} peak)")
+        for (B, T), rows in times[dtype].items():
+            log(f"K2 fused_mrf {str(dtype)[6:]} B={B} {T} frames, 4 stages: kernel "
+                f"{sum(r[0] for r in rows):.3f} ms, twin {sum(r[1] for r in rows):.3f} ms")
     return worst, times
 
 
@@ -229,7 +263,7 @@ def first_code_flips(x, ups, act):
     h = torch.empty(B, L_in * u, C, device=x.device)
     _build.check(
         _build.load_library().viettts_mrf_convt(
-            int(x.dtype == torch.bfloat16), 1, x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(),
+            int(x.dtype == torch.bfloat16), x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(),
             h.data_ptr(), B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), _build.stream_ptr(x.device),
         ),
         "prologue",
@@ -700,6 +734,10 @@ def main() -> int:
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
 
     bf16, f32 = torch.bfloat16, torch.float32
+
+    def stage_sum(times, col, case=(2, 128)):
+        return sum(r[col] for r in times[case])
+
     kernels = [
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
@@ -710,8 +748,13 @@ def main() -> int:
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
          "launches_int8_path": launches_int8["fused_mrf"],
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
-         "ms": k2_times[bf16][0], "plain_ms": k2_times[bf16][1],
-         "ms_f32": k2_times[f32][0], "plain_ms_f32": k2_times[f32][1],
+         "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
+         "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
+         "ms_f32": stage_sum(k2_times[f32], 0), "plain_ms_f32": stage_sum(k2_times[f32], 1),
+         "stages": {f"{str(dt)[6:]} B={B} T={T}": {
+             "ms": [r[0] for r in rows], "plain_ms": [r[1] for r in rows],
+             "mrf_ms": [r[2] for r in rows], "mrf_tflops": [r[3] for r in rows]}
+             for dt in (bf16, f32) for (B, T), rows in k2_times[dt].items()},
          "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1; ms in bf16"},
         {"name": "fused_mrf_int8", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_int8.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],

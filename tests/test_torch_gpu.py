@@ -7,15 +7,17 @@ runs on its own, without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
 Shapes are small and ragged (lengths that are not tile multiples, widths
-that are not powers of two) to reach the kernels' edge handling; the main
-path's shapes are checked by ``chip_smoke.py``.
+that are not powers of two) to reach the kernels' edge handling, plus the
+main path's stage widths at short lengths; the main path's full shapes are
+checked by ``chip_smoke.py``.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
-from viettts_tpu_torch.ops import ar_decoder, mrf
+from viettts_tpu_torch.ops import _build, ar_decoder, mrf
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +69,10 @@ def test_ar_decode_kernel_refuses_unsupported_width(cuda):
     assert ar_decoder.ar_decode.plain_calls == plain
 
 
+def _rel_rms(got, want):
+    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
 def _stage(rng, C_in, C, k_u, u, post, resblock2, kernel_sizes, dilations):
     weights = []
     for k, dils in zip(kernel_sizes, dilations):
@@ -87,11 +93,19 @@ def _stage(rng, C_in, C, k_u, u, post, resblock2, kernel_sizes, dilations):
         (1, 300, 20, 12, 4, 2, True, False),   # prologue (4, 2) + epilogue
         (2, 77, 16, 16, 0, 1, False, True),    # bare MRF, ResBlock2
         (1, 130, 40, 40, 0, 1, True, False),   # bare MRF + epilogue, C % 32 != 0
+        # the main path's four stages (default widths), short lengths
+        (1, 40, 512, 256, 16, 8, False, False),
+        (2, 9, 256, 128, 16, 8, False, False),
+        (1, 300, 128, 64, 4, 2, False, True),
+        (2, 260, 64, 32, 4, 2, True, False),
     ],
 )
 def test_fused_mrf_kernel_matches_twin(cuda, dtype, B, L_in, C_in, C, k_u, u, post, resblock2):
-    """f32: rtol 1e-5 with atol 1e-4 (TF32 off); bf16 storage: 0.02 of the
-    output scale, the bar of tests/test_mrf.py."""
+    """f32 (3xTF32 dots): rtol 1e-5 with atol 1e-4 against the float32 twin
+    (cuDNN TF32 off); bf16 (bf16 operand dots): 0.02 of the output scale
+    against the float32 twin, the bar of tests/test_mrf.py, and rel-RMS
+    1e-3 against the twin that rounds the dot operands as the kernel does
+    (``bf16_dots``): the same function, summed in another order."""
     rng = np.random.RandomState(1)
     kernel_sizes, dilations = (3, 7, 11), ((1, 3, 5),) * 3
     weights, ups, pst = _stage(rng, C_in, C, k_u, u, post, resblock2, kernel_sizes, dilations)
@@ -114,10 +128,76 @@ def test_fused_mrf_kernel_matches_twin(cuda, dtype, B, L_in, C_in, C, k_u, u, po
     else:
         scale = max(want.float().abs().max().item(), 1.0)
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0.02 * scale)
+        rounded = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, bf16_dots=True, **kw)
+        assert _rel_rms(got.float(), rounded.float()) <= 1e-3
 
 
-def _rel_rms(got, want):
-    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [12, 72])
+@pytest.mark.parametrize("tile", range(5))
+def test_mrf_conv_every_tile_matches_twin(cuda, dtype, C, tile):
+    """One MRF conv (bias and residual) in each tile shape of the kernel,
+    against a float32 conv of the operands the kernel multiplies: bf16
+    rounding of lrelu(x) and of the weights, or the full float32 values
+    for 3xTF32.  Only the order of the float32 sums differs.  C = 12 takes
+    the scalar weight loads of the bf16 route, C = 72 a partial chunk."""
+    rng = np.random.RandomState(4)
+    B, L, k, d = 2, 203, 7, 3
+    x = _w(rng, B, L, C).to(cuda)
+    w = _w(rng, k, C, C, s=0.5 / np.sqrt(k * C)).to(cuda)
+    b = _w(rng, C, s=0.05).to(cuda)
+    res = _w(rng, B, L, C).to(cuda)
+    inp = F.leaky_relu(x, 0.1)
+    if dtype == torch.bfloat16:
+        wk = w.to(torch.bfloat16)
+        inp, wd = inp.to(torch.bfloat16).float(), wk.float()
+    else:
+        wk, wd = mrf.tf32_split(w[None])[0], w
+    want = F.conv1d(inp.transpose(1, 2), wd.permute(2, 1, 0), b, padding=d * (k - 1) // 2, dilation=d)
+    want = want.transpose(1, 2) + res
+    y = torch.empty_like(x)
+    lib = _build.load_library()
+    _build.check(
+        lib.viettts_mrf_conv(
+            int(dtype == torch.bfloat16), 0, x.data_ptr(), wk.data_ptr(), b.data_ptr(), res.data_ptr(),
+            y.data_ptr(), None, B, L, C, C, k, d, 0, tile, 1.0, _build.stream_ptr(x.device),
+        ),
+        "mrf conv",
+    )
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_u,u,C_in,C", [(16, 8, 48, 24), (4, 2, 20, 12)])
+@pytest.mark.parametrize("tile", range(5))
+def test_mrf_convt_every_tile_matches_twin(cuda, dtype, k_u, u, C_in, C, tile):
+    """The float routes' ConvTranspose prologue (u interleaved stride-1
+    convs on the tensor cores) in each tile shape, against the twin's
+    ConvTranspose of the operands the kernel multiplies, as above."""
+    rng = np.random.RandomState(5)
+    B, L_in = 2, 37
+    x = _w(rng, B, L_in, C_in).to(cuda)
+    w = _w(rng, k_u, C_in, C, s=(k_u * C_in / u) ** -0.5).to(cuda)
+    b = _w(rng, C, s=0.05).to(cuda)
+    inp = F.leaky_relu(x, 0.1)
+    if dtype == torch.bfloat16:
+        wk = w.to(torch.bfloat16)
+        inp, wd = inp.to(torch.bfloat16).float(), wk.float()
+    else:
+        wk, wd = mrf.tf32_split(w[None])[0], w
+    want = mrf.conv_transpose_same(inp.transpose(1, 2), mrf.convt_weight_to_torch(wd), b, u).transpose(1, 2)
+    y = torch.empty(B, L_in * u, C, device=cuda)
+    lib = _build.load_library()
+    _build.check(
+        lib.viettts_mrf_convt_mma(
+            int(dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(),
+            B, L_in, C_in, C, k_u, u, mrf.convt_lead_pad(k_u, u), tile, _build.stream_ptr(x.device),
+        ),
+        "mrf prologue",
+    )
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("mode", ["static", "dynamic", "static_4x"])

@@ -119,6 +119,54 @@ def test_conv_transpose_same_matches_lax(k, u):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_dots_twin_rounds_operands(dtype):
+    """``bf16_dots`` rounds each MRF conv's lrelu input to bf16, the TPU
+    kernel's DEFAULT-precision dot: it moves the output, by less than the
+    bf16 bar (0.02 of the output scale)."""
+    x, weights, ups, pst = _case(11, 2, 32, 32, 16, (16, 8), False)
+    tw, tu, tp = mrf.prepare_mrf_weights(
+        _to(weights, torch.from_numpy), _to(ups, torch.from_numpy), None, dtype
+    )
+    xt = torch.from_numpy(x).to(dtype)
+    kw = dict(upsample=tu, compute_dtype=dtype)
+    ref = mrf.fused_mrf_plain(xt, tw, KERNEL_SIZES, DILATIONS, **kw).float()
+    got = mrf.fused_mrf_plain(xt, tw, KERNEL_SIZES, DILATIONS, bf16_dots=True, **kw).float()
+    diff = (got - ref).abs().max().item()
+    assert 0 < diff <= 0.02 * max(ref.abs().max().item(), 1.0)
+
+
+def test_tf32_split_is_rna_and_nearly_exact():
+    """``tf32_round`` is PTX ``cvt.rna.tf32.f32`` (ties away from zero, low
+    13 bits cleared); ``hi + lo`` of ``tf32_split`` keeps w to 2**-21, in
+    the kernel's (O, I) tap layout."""
+    ulp = 2.0 ** -10  # TF32 spacing in [1, 2)
+    t = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 1.5 * ulp, 0.0])
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 0.0])
+    assert torch.equal(mrf.tf32_round(t), want)
+    rng = np.random.RandomState(12)
+    w = torch.from_numpy((rng.randn(3, 7, 16, 16) * 0.1).astype(np.float32))
+    split = mrf.tf32_split(w)
+    assert split.shape == (3, 2, 7, 16, 16)
+    assert int((split.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    split = split.transpose(-1, -2)  # the kernel's (O, I) taps back to (I, O)
+    err = (split[:, 0].double() + split[:, 1].double() - w.double()).abs()
+    assert bool((err <= w.double().abs() * 2.0 ** -21).all())
+    assert (split[:, 1] != 0).any()
+
+
+def test_float32_weights_carry_the_tf32_split():
+    x, weights, _, _ = _case(5, 1, 32, 8, 8, None, False)
+    tw, _, _ = mrf.prepare_mrf_weights(_to(weights, torch.from_numpy))
+    w1 = tw[0][0]
+    assert isinstance(w1, mrf.Tf32Conv)
+    torch.testing.assert_close(w1.w, torch.from_numpy(weights[0][0]), rtol=0, atol=0)
+    torch.testing.assert_close(w1.split, mrf.tf32_split(w1.w), rtol=0, atol=0)
+    bad = [(mrf.Tf32Conv(w1.w, w1.split[:, :1]),) + tuple(tw[0][1:])] + list(tw[1:])
+    with pytest.raises(ValueError, match="TF32 split"):
+        mrf.fused_mrf(torch.from_numpy(x), bad, KERNEL_SIZES, DILATIONS)
+
+
 def test_cpu_tensors_take_the_plain_twin():
     x, weights, ups, pst = _case(3, 1, 16, 8, 4, (4, 2), True)
     tw, tu, tp = mrf.prepare_mrf_weights(

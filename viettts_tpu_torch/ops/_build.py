@@ -40,11 +40,14 @@ SIGNATURES = {
     # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out,
     # B, L, H, P, D, scale, stream
     "viettts_ar_decode": [P] * 11 + [I] * 5 + [F, P],
-    # bf16, acc64, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
-    "viettts_mrf_convt": [I, I, P, P, P, P] + [I] * 7 + [P],
-    # w_bf16, out_bf16, x, w, bias, res, y, out,
-    # B, L, C_in, C_out, k, dilation, mode, scale, stream
-    "viettts_mrf_conv": [I, I] + [P] * 6 + [I] * 7 + [F, P],
+    # bf16, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
+    "viettts_mrf_convt": [I, P, P, P, P] + [I] * 7 + [P],
+    # w_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, y,
+    # B, L_in, C_in, C_out, k, u, pad_a, tile (-1: by shape), stream
+    "viettts_mrf_convt_mma": [I, P, P, P, P] + [I] * 8 + [P],
+    # w_bf16, out_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, res, y, out,
+    # B, L, C_in, C_out, k, dilation, mode, tile (-1: by shape), div, stream
+    "viettts_mrf_conv": [I, I] + [P] * 6 + [I] * 8 + [F, P],
     # w_bf16, x, w, bias, out, B, L, C, C_post, k, stream
     "viettts_mrf_post": [I, P, P, P, P] + [I] * 5 + [P],
     # out_bf16, x, w, scale, bias, act, act_stride, dynamic, res, y, out,

@@ -16,7 +16,11 @@ u)`` and ``post = (w [kp,C,C_post], b [C_post])``.  ``compute_dtype``
 selects the storage dtype of the weights and of the stage input and output
 (float32 or bfloat16); biases are float32 and all arithmetic is float32,
 as in the TPU kernel.  ``prepare_mrf_weights`` casts a float32 weight set
-to that layout once.
+to that layout once; on the float32 route W1/W2 become ``Tf32Conv``, the
+float32 weights with their TF32 hi/lo split (``tf32_split``), which the
+kernel's 3xTF32 tensor-core dots read.  On the bf16 route the kernel's
+dots take bf16(lrelu(x)) operands, as the TPU kernel's DEFAULT-precision
+dots did; ``fused_mrf_plain(bf16_dots=True)`` rounds the same way.
 
 ``quantize_int8=True`` runs the 18 MRF convs as int8 x int8 -> int32 dots
 (kernel K3, the TPU kernel's ``quantize_int8`` mode): W1/W2 are
@@ -52,6 +56,37 @@ from viettts_tpu_torch.ops import _build
 LRELU_SLOPE = 0.1
 POST_LRELU_SLOPE = 0.01  # torch's default slope, as upstream HiFi-GAN uses
 MAX_POST_CHANNELS = 4  # the epilogue kernel keeps one accumulator per channel
+
+
+class Tf32Conv(NamedTuple):
+    """A resblock's stacked float32 convs for the kernel's 3xTF32 dots:
+    ``w`` float32 [D, k, C_in, C_out] (what the twin reads) and ``split``
+    float32 [D, 2, k, C_out, C_in], its TF32 parts hi and lo in the
+    kernel's layout (``tf32_split``)."""
+
+    w: torch.Tensor
+    split: torch.Tensor
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, the low 13 bits cleared: PTX ``cvt.rna.tf32.f32``."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor) -> torch.Tensor:
+    """Stacked (W, I, O) weights [D, k, C_in, C_out] -> the kernel's 3xTF32
+    layout [D, 2, k, C_out, C_in]: ``hi = tf32(w)`` and ``lo = tf32(w - hi)``
+    (``hi + lo`` keeps 22 of w's 24 significant bits), each tap transposed
+    to (O, I) so that a row of the weight tile is contiguous in C_in."""
+    hi = tf32_round(w)
+    return torch.stack([hi, tf32_round(w - hi)], dim=1).transpose(-1, -2).contiguous()
+
+
+def _dense(w):
+    """The float weight tensor of a W1/W2 entry (a tensor or a ``Tf32Conv``)."""
+    return w.w if isinstance(w, Tf32Conv) else w
 
 
 class Int8Conv(NamedTuple):
@@ -191,13 +226,13 @@ def mrf_walk(
     if upsample is not None:
         w_t, b_t, u = upsample
         h = conv_transpose_same(
-            F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(w_t.float()), b_t.float(), u
+            F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(_dense(w_t).float()), b_t.float(), u
         )
     vals: List[torch.Tensor] = []
 
     def conv(inp, w, b, j, d, index):
         vals.append(metric(index, inp))
-        return _conv_same(inp, w[j], b[j], d)
+        return _conv_same(inp, _dense(w)[j], b[j], d)
 
     return _mrf_stack(h, weights, kernel_sizes, dilations, conv), vals
 
@@ -213,14 +248,21 @@ def fused_mrf_plain(
     compute_dtype=torch.float32,
     quantize_int8: bool = False,
     act_scales: Optional[torch.Tensor] = None,
+    bf16_dots: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the stage kernels: float32 arithmetic, rounding
-    to the storage dtype only where the kernel stores."""
+    to the storage dtype only where the kernel stores.  ``bf16_dots``
+    rounds the lrelu input of every MRF conv and of the ConvTranspose
+    prologue to bfloat16 before its float32 conv: the TPU kernel's
+    DEFAULT-precision dot (``viettts_tpu/ops/mrf.py:336-340``) and the
+    bf16 kernel's operands, used to hold that kernel to its function."""
     fused_mrf.plain_calls += 1
     h = x.float().transpose(1, 2)  # [B, C, L]
     if upsample is not None:
         w_t, b_t, u = upsample
-        h, w = F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(w_t.float())
+        h, w = F.leaky_relu(h, LRELU_SLOPE), convt_weight_to_torch(_dense(w_t).float())
+        if bf16_dots:
+            h = h.to(torch.bfloat16).float()
         if quantize_int8:
             # as the kernel on this route: float64 sums of the exact float32
             # products, rounded once, then the float32 bias
@@ -234,7 +276,9 @@ def fused_mrf_plain(
             return _conv_int8(inp, w.codes[j], w.scales[j], b[j], d, act)
     else:
         def conv(inp, w, b, j, d, index):
-            return _conv_same(inp, w[j], b[j], d)
+            if bf16_dots:
+                inp = inp.to(torch.bfloat16).float()
+            return _conv_same(inp, _dense(w)[j], b[j], d)
     acc = _mrf_stack(h, weights, kernel_sizes, dilations, conv)
     if post is not None:
         w_p, b_p = post
@@ -249,20 +293,33 @@ def prepare_mrf_weights(
     """Cast a float32 weight set to what ``fused_mrf`` takes: weights in the
     storage dtype, biases in float32, all contiguous.  ``quantize_int8``
     turns W1/W2 into ``Int8Conv``, quantized from the float32 values (the
-    TPU kernel packs and quantizes in float32, never from bf16)."""
+    TPU kernel packs and quantizes in float32, never from bf16); on the
+    float32 route they become ``Tf32Conv`` (split once here, not per call)."""
     store = storage_dtype(compute_dtype)
 
     def w(t):
         if t is None:
             return None
-        return quantize_weight_int8(t.float()) if quantize_int8 else t.to(store).contiguous()
+        t = _dense(t)
+        if quantize_int8:
+            return quantize_weight_int8(t.float())
+        if store == torch.float32:
+            t = t.float().contiguous()
+            return Tf32Conv(t, tf32_split(t))
+        return t.to(store).contiguous()
 
     def b(t):
         return None if t is None else t.float().contiguous()
 
     weights = [(w(w1), b(b1), w(w2), b(b2)) for w1, b1, w2, b2 in weights]
     if upsample is not None:
-        upsample = (upsample[0].to(store).contiguous(), b(upsample[1]), int(upsample[2]))
+        w_t = _dense(upsample[0])
+        if store == torch.float32 and not quantize_int8:
+            w_t = w_t.float().contiguous()
+            w_t = Tf32Conv(w_t, tf32_split(w_t[None])[0])
+        else:
+            w_t = w_t.to(store).contiguous()
+        upsample = (w_t, b(upsample[1]), int(upsample[2]))
     if post is not None:
         post = (post[0].to(store).contiguous(), b(post[1]))
     return weights, upsample, post
@@ -277,11 +334,15 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_
     tensors = [("x", x, store)]
     if upsample is not None:
         w_t, b_t, u = upsample
-        k_u, c_in, C = w_t.shape
+        k_u, c_in, C = _dense(w_t).shape
         if c_in != x.shape[2] or tuple(b_t.shape) != (C,):
-            raise ValueError(f"fused_mrf: upsample weight {tuple(w_t.shape)} does not fit x {tuple(x.shape)}")
+            raise ValueError(f"fused_mrf: upsample weight {tuple(_dense(w_t).shape)} does not fit x {tuple(x.shape)}")
         L = x.shape[1] * u
-        tensors += [("upsample w", w_t, store), ("upsample b", b_t, torch.float32)]
+        tensors += [("upsample w", _dense(w_t), store), ("upsample b", b_t, torch.float32)]
+        if isinstance(w_t, Tf32Conv):
+            if tuple(w_t.split.shape) != (2, k_u, C, c_in):
+                raise ValueError(f"fused_mrf: upsample TF32 split {tuple(w_t.split.shape)}, want {(2, k_u, C, c_in)}")
+            tensors += [("upsample split", w_t.split, torch.float32)]
     else:
         L, C = x.shape[1], x.shape[2]
     for blk, k in enumerate(kernel_sizes):
@@ -299,7 +360,7 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_
                     f"fused_mrf: block {blk} {name} must {'' if quantize_int8 else 'not '}be an "
                     f"Int8Conv with quantize_int8={quantize_int8}"
                 )
-            codes = w.codes if quantize_int8 else w
+            codes = w.codes if quantize_int8 else _dense(w)
             if tuple(codes.shape) != (n, k, C, C) or tuple(b.shape) != (n, C):
                 raise ValueError(
                     f"fused_mrf: block {blk} {name} {tuple(codes.shape)} / bias {tuple(b.shape)}, "
@@ -311,7 +372,12 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_
                 tensors += [(f"{name}[{blk}] codes", w.codes, torch.int8),
                             (f"{name}[{blk}] scales", w.scales, torch.float32)]
             else:
-                tensors += [(f"{name}[{blk}]", w, store)]
+                tensors += [(f"{name}[{blk}]", _dense(w), store)]
+                if isinstance(w, Tf32Conv):
+                    if tuple(w.split.shape) != (n, 2, k, C, C):
+                        raise ValueError(f"fused_mrf: block {blk} {name} TF32 split {tuple(w.split.shape)}, "
+                                         f"want {(n, 2, k, C, C)}")
+                    tensors += [(f"{name}[{blk}] split", w.split, torch.float32)]
             tensors += [(f"B{name[1]}[{blk}]", b, torch.float32)]
     if act_scales is not None:
         if not quantize_int8:
@@ -366,6 +432,10 @@ def fused_mrf(
         raise ValueError(f"fused_mrf: no kernel for device {x.device}")
     if post is not None and post[0].shape[2] > MAX_POST_CHANNELS:
         raise ValueError(f"fused_mrf kernel takes at most {MAX_POST_CHANNELS} post channels")
+    if store == torch.float32 and not quantize_int8:
+        ws = [w for w1, _, w2, _ in weights for w in (w1, w2)] + ([upsample[0]] if upsample else [])
+        if not all(w is None or isinstance(w, Tf32Conv) for w in ws):
+            raise ValueError("fused_mrf kernel: float32 weights must be Tf32Conv (prepare_mrf_weights)")
     return _fused_mrf_cuda(
         x, weights, kernel_sizes, dilations, upsample, post, store, L, C, quantize_int8, act_scales
     )
@@ -386,15 +456,26 @@ def _fused_mrf_cuda(
 
     if upsample is not None:
         w_t, b_t, u = upsample
-        k_u, c_in, _ = w_t.shape
+        k_u, c_in, _ = _dense(w_t).shape
         h = torch.empty(B, L, C, **f32)
-        _build.check(
-            lib.viettts_mrf_convt(
-                bf, int(quantize_int8), x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(), h.data_ptr(),
-                B, x.shape[1], c_in, C, k_u, u, convt_lead_pad(k_u, u), stream,
-            ),
-            "fused_mrf prologue",
-        )
+        pad_a = convt_lead_pad(k_u, u)
+        if quantize_int8:  # CUDA cores, float64 sums: the int8 codes depend on them
+            code = lib.viettts_mrf_convt(
+                bf, x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+                B, x.shape[1], c_in, C, k_u, u, pad_a, stream,
+            )
+        else:  # tensor cores, u interleaved stride-1 convs of a float32 input
+            xf = x
+            if store == torch.bfloat16:
+                xf = torch.empty(x.shape, **f32)
+                _build.check(lib.viettts_mrf_to_f32(x.data_ptr(), xf.data_ptr(), x.numel(), stream),
+                             "fused_mrf prologue input cast")
+            wk = w_t.split if isinstance(w_t, Tf32Conv) else w_t
+            code = lib.viettts_mrf_convt_mma(
+                bf, xf.data_ptr(), wk.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+                B, x.shape[1], c_in, C, k_u, u, pad_a, -1, stream,
+            )
+        _build.check(code, "fused_mrf prologue")
     elif store == torch.float32:
         h = x  # read only: the MRF never writes its trunk
     else:
@@ -426,10 +507,11 @@ def _fused_mrf_cuda(
         res_ptr = None if res is None else res.data_ptr()
         y_ptr = None if y is None else y.data_ptr()
         if not quantize_int8:
+            wj = w.split[j] if isinstance(w, Tf32Conv) else w[j]
             _build.check(
                 lib.viettts_mrf_conv(
-                    bf, out_bf, inp.data_ptr(), w[j].data_ptr(), b[j].data_ptr(), res_ptr,
-                    y_ptr, out_ptr, B, L, C, C, k, d, mode, float(n_blocks), stream,
+                    bf, out_bf, inp.data_ptr(), wj.data_ptr(), b[j].data_ptr(), res_ptr,
+                    y_ptr, out_ptr, B, L, C, C, k, d, mode, -1, float(n_blocks), stream,
                 ),
                 "fused_mrf conv",
             )
