@@ -8,13 +8,16 @@
    ``viettts_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch twin on the card, at the shapes
    the main path gives it, TF32 off: K1 ``ar_decode`` (H=512, P=256, D=80;
-   B in {1, 4}; 512 and 300 frames; dropout masks on), K2 ``fused_mrf``
+   B in {1, 4, 16}; 512 and 300 frames; dropout masks on; two launches
+   must give the same bits), K2 ``fused_mrf``
    (the four default generator stages, B=2, 128 and 100 mel frames,
    ConvTranspose prologue on, conv_post epilogue on the last stage,
    ResBlock1 and ResBlock2, float32 and bfloat16 storage) and K3
    ``fused_mrf(quantize_int8=True)`` (the same stages in bfloat16 storage,
    static and dynamic activation scales, with the int8 codes that the two
-   sides' prologue sums flip), with both times.
+   sides' prologue sums flip), with both times and each kernel's roofline
+   bound (``bound_ms``: the larger of its bytes over the HBM rate and its
+   operations over the dense peak of their type, H100 SXM data sheet).
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
    counters zeroed just before it and read just after (every kernel of the
@@ -62,6 +65,7 @@ BATCH_TEXTS = [
     "tuyệt vời quá!",
 ]
 K1_ATOL = 1e-4
+K1_CASES = ((1, 512), (4, 512), (16, 512), (1, 300), (4, 300), (16, 300))
 K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
@@ -70,6 +74,10 @@ MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s
 # and TF32 for the float32 route, whose 3xTF32 dots issue 3 products per
 # product counted
 PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 495.0}
+# H100 SXM at 700 W (NVIDIA data sheet): float32 outside the tensor cores
+# (K1; also the bound taken for K3's float64 prologue, the FP64 tensor
+# rate), dense int8 tensor cores (K3), HBM3 bytes per second
+PEAK_F32_FLOPS, PEAK_INT8_OPS, HBM_BYTES_PER_S = 67e12, 1979e12, 3.35e12
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
 INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
@@ -95,6 +103,23 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def roofline(bytes_, ops_seconds):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations' time at their peaks (seconds, summed by type)."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    return max(t_bytes, ops_seconds) * 1e3, "operations" if ops_seconds >= t_bytes else "bytes"
+
+
+def ar_decode_bound(B, L, H, P, D):
+    """K1's roofline: 2 FLOP per weight per batch row per frame at the
+    float32 peak; bytes: every weight, both gate tensors, both keep masks
+    and the mel read or written once."""
+    weights = D * P + P * P + (P + H) * 4 * H + (P + 2 * H) * 4 * H + 2 * H * D + D
+    flop = 2.0 * (weights - D) * B * L
+    bytes_ = 4 * weights + 2 * 4 * B * L * 4 * H + 2 * L * B * P + 4 * B * L * D
+    return roofline(bytes_, flop / PEAK_F32_FLOPS)
+
+
 def seeded(rng, *shape, scale=1.0):
     import numpy as np
 
@@ -106,7 +131,10 @@ def seeded(rng, *shape, scale=1.0):
 # ---------------------------------------------------------------------------
 
 
-def check_ar_decode(dev, H=512, P=256, D=80, cases=((1, 512), (4, 512), (1, 300), (4, 300))):
+def check_ar_decode(dev, H=512, P=256, D=80, cases=K1_CASES):
+    """K1 against its twin at each (B, frames) case, and against itself:
+    two launches on the same inputs must give the same bits.  Returns the
+    worst error and per-case times with the roofline bound."""
     import numpy as np
     import torch
 
@@ -126,15 +154,23 @@ def check_ar_decode(dev, H=512, P=256, D=80, cases=((1, 512), (4, 512), (1, 300)
         keep1, keep2 = (torch.from_numpy(rng.random((L, B, P)) < 0.5).to(dev) for _ in range(2))
         args = (g1c, g2c, keep1, keep2, *weights, 2.0)
         got = ar_decode(*args)
+        again = ar_decode(*args)
         want = ar_decode_plain(*args)
         err = (got - want).abs().max().item()
         worst = max(worst, err)
-        log(f"K1 ar_decode B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL})")
+        log(f"K1 ar_decode B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); "
+            f"two launches bitwise equal: {torch.equal(got, again)}")
         if not err <= K1_ATOL:
             raise AssertionError(f"ar_decode B={B} L={L} differs from its twin by {err}")
-        if L == 512:
-            times[B] = (time_ms(lambda: ar_decode(*args)), time_ms(lambda: ar_decode_plain(*args), reps=2))
-            log(f"K1 ar_decode B={B} L={L}: kernel {times[B][0]:.3f} ms, twin {times[B][1]:.3f} ms")
+        if not torch.equal(got, again):
+            raise AssertionError(f"ar_decode B={B} L={L}: two launches on the same inputs differ")
+        ms = time_ms(lambda: ar_decode(*args))
+        plain_ms = time_ms(lambda: ar_decode_plain(*args), reps=2)
+        bound_ms, bound_by = ar_decode_bound(B, L, H, P, D)
+        times[(B, L)] = {"ms": ms, "plain_ms": plain_ms, "us_per_frame": 1e3 * ms / L,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+        log(f"K1 ar_decode B={B} L={L}: kernel {ms:.3f} ms ({1e3 * ms / L:.2f} us/frame), twin {plain_ms:.3f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
     return worst, times
 
 
@@ -174,6 +210,35 @@ def mrf_flop(cfg, B, L, C, resblock2):
     taps = sum(len(d) * k * (1 if resblock2 else 2)
                for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
     return 2.0 * B * L * C * C * taps
+
+
+def mrf_bound(cfg, B, T, route):
+    """Roofline of the four ResBlock1 generator stages for a mel of T frames
+    at batch B: each stage's input, weights and output moved once; its
+    ConvTranspose prologue, 18 MRF convs and (last stage) conv_post as
+    multiply-adds.  bfloat16: bf16 storage, every product on the dense bf16
+    tensor cores (989 TFLOP/s).  float32: 3xTF32, three TF32 products per
+    product (495 TFLOP/s).  int8: bf16 storage and int8 MRF weights, the MRF
+    products at 1979 TOP/s, the float64 prologue and the conv_post epilogue
+    at 67 TFLOP/s."""
+    esize = {"bfloat16": 2, "float32": 4, "int8": 2}[route]
+    bytes_, secs = 0.0, 0.0
+    for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, T):
+        L = L_in * u
+        mrf_w = sum(len(d) * 2 * (k * C * C + C) for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+        pro_w, post_w = k_u * C_in * C + C, (7 * C + 1) if post else 0
+        bytes_ += esize * (B * L_in * C_in + B * L * (1 if post else C))
+        bytes_ += (1 if route == "int8" else esize) * mrf_w + esize * (pro_w + post_w)
+        pro_flop = 2.0 * B * L * C * C_in * k_u / u
+        mrf = mrf_flop(cfg, B, L, C, False)
+        post_flop = 2.0 * B * L * 7 * C if post else 0.0
+        if route == "bfloat16":
+            secs += (pro_flop + mrf + post_flop) / (PEAK_TFLOPS["bfloat16"] * 1e12)
+        elif route == "float32":
+            secs += 3 * (pro_flop + mrf + post_flop) / (PEAK_TFLOPS["float32"] * 1e12)
+        else:
+            secs += mrf / PEAK_INT8_OPS + (pro_flop + post_flop) / PEAK_F32_FLOPS
+    return roofline(bytes_, secs)
 
 
 def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
@@ -738,11 +803,18 @@ def main() -> int:
     def stage_sum(times, col, case=(2, 128)):
         return sum(r[col] for r in times[case])
 
+    k1_main = k1_times[(1, 512)]
+    k2_bound, k2_by = mrf_bound(cfg.hifigan, 2, 128, "bfloat16")
+    k2_bound_f32, k2_by_f32 = mrf_bound(cfg.hifigan, 2, 128, "float32")
+    k3_bound, k3_by = mrf_bound(cfg.hifigan, 2, 128, "int8")
     kernels = [
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
          "launches_int8_path": launches_int8["ar_decode"],
-         "max_abs_err": k1_err, "ms": k1_times[1][0], "plain_ms": k1_times[1][1],
+         "max_abs_err": k1_err, "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call runs the fed-back decode",
+         "cases": {f"B={B} L={L}": v for (B, L), v in k1_times.items()},
          "shape": "B=1 L=512 H=512 P=256 D=80 f32"},
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
@@ -751,6 +823,9 @@ def main() -> int:
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
          "ms_f32": stage_sum(k2_times[f32], 0), "plain_ms_f32": stage_sum(k2_times[f32], 1),
+         "bound_ms": k2_bound, "bound_by": k2_by, "bound_ms_f32": k2_bound_f32, "bound_by_f32": k2_by_f32,
+         "library_ms": stage_sum(k2_times[bf16], 1),
+         "library": "cuDNN conv1d per conv, i.e. the plain twin (bf16; f32 in plain_ms_f32)",
          "stages": {f"{str(dt)[6:]} B={B} T={T}": {
              "ms": [r[0] for r in rows], "plain_ms": [r[1] for r in rows],
              "mrf_ms": [r[2] for r in rows], "mrf_tflops": [r[3] for r in rows]}
@@ -762,6 +837,8 @@ def main() -> int:
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_times["static"][0], "plain_ms": k3_times["static"][1],
          "ms_dynamic": k3_times["dynamic"][0], "plain_ms_dynamic": k3_times["dynamic"][1],
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+         "library": "none: no PyTorch call runs int8 convolutions",
          "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1, bf16 storage; ms static scales"},
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref}))

@@ -2,6 +2,9 @@
 ``ar_decode`` in interpret mode, with the same numpy keep-masks fed to
 both, and the CPU dispatch of the ``ar_decode`` wrapper."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -90,3 +93,71 @@ def test_wrapper_rejects_bad_inputs(index, bad, match):
     args[index] = bad(args[index])
     with pytest.raises(ValueError, match=match):
         ar_decoder.ar_decode(*args)
+
+
+def test_plan_decode_published_width():
+    """H=512, P=256, D=80 on an H100 (132 SMs): 128 CTAs of 4 hidden units,
+    every gate column of both layers resident within 227 KB per CTA."""
+    plan = ar_decoder.plan_decode(512, 256, 80, 132)
+    assert (plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols) == (128, 4, 2, 1)
+    resident = 4 * (2 * 256 + 3 * 512) * 4 * plan.units  # the five gate-column blocks
+    assert resident == 131072 and resident < plan.smem_bytes <= ar_decoder.SMEM_LIMIT
+
+
+@pytest.mark.parametrize(
+    "H,P,D,sms",
+    [(64, 32, 20, 132), (96, 48, 80, 132), (270, 40, 24, 132), (512, 256, 80, 132), (512, 256, 80, 128), (32, 8, 16, 132)],
+)
+def test_plan_decode_covers_every_column(H, P, D, sms):
+    """At most one CTA per SM; the units, prenet and projection columns of
+    the CTAs cover H, P and D; per-CTA counts are powers of two."""
+    plan = ar_decoder.plan_decode(H, P, D, sms)
+    assert plan.ctas <= sms
+    assert (plan.ctas - 1) * plan.units < H <= plan.ctas * plan.units
+    assert plan.ctas * plan.prenet_cols >= P and plan.ctas * plan.proj_cols >= D
+    for n in (plan.units, plan.prenet_cols, plan.proj_cols):
+        assert n & (n - 1) == 0
+    assert plan.smem_bytes <= ar_decoder.SMEM_LIMIT
+
+
+def _kernel_smem_floats():
+    """``smem_floats`` of csrc/ar_decoder.cu as a Python function of
+    (H, P, D, U, PK, DK), and the kernel's integer ``constexpr`` values."""
+    src = (Path(ar_decoder.__file__).parent.parent / "csrc" / "ar_decoder.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    body = re.search(r"size_t smem_floats\(([^)]*)\) \{(.*?)\n\}", src, re.S)
+    params = [p.split()[-1] for p in body.group(1).split(",")]
+    stmts = " ".join(body.group(2).split()).replace("(size_t)", "").replace("const size_t ", "")
+    stmts = stmts.replace(", ncm =", "; ncm =").replace("return ", "floats = ")
+
+    def floats(*args):
+        scope = dict(consts, kWarps=consts["kThreads"] // 32, max3=max, **dict(zip(params, args)))
+        for stmt in stmts.split(";"):
+            exec(stmt.strip(), {}, scope)
+        return scope["floats"]
+
+    return consts, floats
+
+
+@pytest.mark.parametrize(
+    "H,P,D,sms", [(512, 256, 80, 132), (64, 32, 20, 132), (96, 48, 80, 132), (270, 40, 24, 132)]
+)
+def test_plan_decode_mirrors_the_kernel_source(H, P, D, sms):
+    """The constants and the shared-memory formula ``plan_decode`` copies
+    from csrc/ar_decoder.cu agree with the source, so a drift fails here
+    and not only as a refused launch on the card."""
+    consts, floats = _kernel_smem_floats()
+    assert {k: consts[k] for k in ("kThreads", "kStage", "kChunk", "kRows")} == {
+        "kThreads": ar_decoder.THREADS, "kStage": ar_decoder.STAGE_ROWS,
+        "kChunk": ar_decoder.BATCH_CHUNK, "kRows": ar_decoder.MAX_ROWS,
+    }
+    plan = ar_decoder.plan_decode(H, P, D, sms)
+    assert plan.smem_bytes == 4 * floats(H, P, D, plan.units, plan.prenet_cols, plan.proj_cols)
+
+
+@pytest.mark.parametrize("H,sms", [(1024, 132), (2048, 132), (512, 114)])
+def test_plan_decode_refuses_what_does_not_fit(H, sms):
+    """H=1024 on 132 SMs, or H=512 on a 114-SM card: 8 units per CTA, whose
+    resident gate columns alone exceed a block's shared memory."""
+    with pytest.raises(ValueError, match="bytes of shared memory per CTA"):
+        ar_decoder.plan_decode(H, 256, 80, sms)

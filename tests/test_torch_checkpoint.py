@@ -5,8 +5,8 @@
   port's unpickler, which maps ``viettts_tpu.ops.rnn.LSTMParams`` to its
   own class instead of importing jax.
 * The port's modules hold exactly the JAX models' parameters.
-* With ``jax``, ``flax`` and ``optax`` made unimportable, the port imports
-  and synthesizes on the CPU in a subprocess.
+* With ``jax``, ``flax``, ``optax`` and the JAX package made unimportable,
+  the port imports and synthesizes on the CPU in a subprocess.
 """
 
 import json
@@ -31,7 +31,7 @@ from viettts_tpu_torch.models.acoustic import AcousticModel as TorchAcoustic
 from viettts_tpu_torch.models.duration import DurationModel as TorchDuration
 from viettts_tpu_torch.models.hifigan import Generator as TorchGenerator
 
-from test_torch_pipeline import _cfg, _write_checkpoints
+from test_torch_pipeline import _cfg, _write_checkpoints, port_config
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -217,7 +217,7 @@ import importlib, importlib.abc, json, pickle, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "viettts_tpu"):
             raise ImportError("refused: " + name)
         return None
 
@@ -236,7 +236,6 @@ trainer_vars = load_variables(sys.argv[2], "duration")  # holds optax state
 res = Synthesizer(cfg, device="cpu").synthesize("xin chào các bạn")
 
 import dataclasses
-import viettts_tpu.serve  # the port's server reuses it: it must stay jax-free
 from viettts_tpu_torch.serve import TTSServer
 
 int8 = Synthesizer(
@@ -247,7 +246,7 @@ int8.warmup(token_buckets=(32,))  # calibrates the static int8 scales
 res8 = int8.synthesize("xin chào các bạn")
 int8.int8_clip_stats(mel=res8.mel)
 print(json.dumps({
-    "jax_loaded": any(n.split(".")[0] in ("jax", "flax", "optax") for n in sys.modules),
+    "jax_loaded": any(n.split(".")[0] in ("jax", "flax", "optax", "viettts_tpu") for n in sys.modules),
     "samples": len(res.wave), "frames": res.mel.shape[0],
     "finite": bool(np.isfinite(res.wave).all()),
     "int8_finite": bool(np.isfinite(res8.wave).all()),
@@ -260,7 +259,7 @@ print(json.dumps({
 def test_port_runs_with_jax_unimportable(native_dir, tmp_path):
     cfg_path, trainer_path = tmp_path / "cfg.pickle", tmp_path / "trainer.pickle"
     with open(cfg_path, "wb") as f:
-        pickle.dump(_cfg(native_dir), f)
+        pickle.dump(port_config(_cfg(native_dir)), f)
     _trainer_checkpoint(native_dir, trainer_path)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run(

@@ -12,6 +12,8 @@ Tolerances: durations 1e-5 and mel 1e-4 (float32 recurrences with
 differently ordered sums); waveform 1e-3, the parity bar of BASELINE.md.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,16 @@ def _cfg(ckpt_dir=None):
         ),
     )
     return cfg if ckpt_dir is None else cfg.replace(ckpt_dir=ckpt_dir)
+
+
+def port_config(cfg):
+    """The port's own config tree with the same fields as a JAX one."""
+    from viettts_tpu_torch import config as port
+
+    if dataclasses.is_dataclass(cfg):
+        cls = getattr(port, type(cfg).__name__)
+        return cls(**{f.name: port_config(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
+    return cfg
 
 
 def _seeded(tree, rng, gain=1.0):
@@ -115,7 +127,7 @@ def ckpt_dir(tmp_path_factory):
 def _pair(cfg):
     jax_synth = JaxSynthesizer(cfg)
     jax_synth.single_dispatch_max_tokens = 0
-    return jax_synth, torch_pipeline.Synthesizer(cfg, device="cpu")
+    return jax_synth, torch_pipeline.Synthesizer(port_config(cfg), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -153,13 +165,14 @@ def test_long_form_chunking_matches_jax(ckpt_dir):
 
 def test_cli_writes_wav(ckpt_dir, tmp_path, monkeypatch):
     """The port's CLI end to end on the CPU: one text, then batch mode.
-    ``Config()`` is swapped for the tiny config, which ``--set`` cannot
+    ``Config()`` is swapped for the tiny config (the port's own tree), which ``--set`` cannot
     spell (its dilations are a tuple of tuples)."""
     import viettts_tpu_torch.config as config_mod
-    from viettts_tpu.data.audio import read_wav
+    from viettts_tpu.data.audio import read_wav  # the JAX package reads what the port wrote
     from viettts_tpu_torch import synthesizer as cli
 
-    monkeypatch.setattr(config_mod, "Config", _cfg)
+    tiny = port_config(_cfg())
+    monkeypatch.setattr(config_mod, "Config", lambda: tiny)
     out, lines = tmp_path / "clip.wav", tmp_path / "lines.txt"
     lines.write_text("một hai\nba bốn năm\n")
     common = ["--ckpt-dir", str(ckpt_dir), "--device", "cpu", "--quality"]
@@ -176,7 +189,7 @@ def _int8(cfg):
 
 
 def test_int8_route_runs_on_cpu(ckpt_dir):
-    port = torch_pipeline.Synthesizer(_int8(_cfg(ckpt_dir)), device="cpu")
+    port = torch_pipeline.Synthesizer(port_config(_int8(_cfg(ckpt_dir))), device="cpu")
     assert port.vocoder_quant and port.vocoder_dtype == torch.bfloat16
     dynamic = port.synthesize(TEXTS[1])  # not calibrated yet: dynamic scales
     port.warmup(token_buckets=(32,))
@@ -195,14 +208,14 @@ def test_calibrate_int8_runs_on_cpu(ckpt_dir):
     widened by the 1.25 margin; the float routes have nothing to calibrate."""
     from viettts_tpu_torch.models.hifigan import generator_calibrate_int8
 
-    port = torch_pipeline.Synthesizer(_int8(_cfg(ckpt_dir)), device="cpu")
+    port = torch_pipeline.Synthesizer(port_config(_int8(_cfg(ckpt_dir))), device="cpu")
     assert port.calibrate_int8(texts=TEXTS) is True
     per_text = [generator_calibrate_int8(port.generator, port._calibration_mel(t)) for t in TEXTS]
     for i, scales in port._act_scales.items():
         want = 1.25 * torch.maximum(per_text[0][i], per_text[1][i])
         torch.testing.assert_close(scales, want, rtol=1e-6, atol=0)
     assert port.calibrate_int8() is True  # the built-in calibration texts
-    f32 = torch_pipeline.Synthesizer(_cfg(ckpt_dir), device="cpu")
+    f32 = torch_pipeline.Synthesizer(port_config(_cfg(ckpt_dir)), device="cpu")
     assert f32.calibrate_int8() is False and f32._act_scales is None
     with pytest.raises(RuntimeError, match="requires static-int8 calibration"):
         f32.int8_clip_stats(text=TEXTS[0])
@@ -266,7 +279,7 @@ def test_stream_matches_synthesize_and_jax(ckpt_dir):
 
 
 def test_stream_leads_with_a_short_chunk(ckpt_dir):
-    port = torch_pipeline.Synthesizer(_cfg(ckpt_dir), device="cpu")
+    port = torch_pipeline.Synthesizer(port_config(_cfg(ckpt_dir)), device="cpu")
     tokens = port.text_to_token_ids(LONG_TEXT)
     rows = torch_pipeline._chunk_token_rows(tokens, 256, first_chunk_tokens=12)
     assert len(rows) >= 2 and len(rows[0]) <= 12
@@ -289,7 +302,8 @@ def test_cli_stream_matches_one_shot(ckpt_dir, tmp_path, monkeypatch):
     import viettts_tpu_torch.config as config_mod
     from viettts_tpu_torch import synthesizer as cli
 
-    monkeypatch.setattr(config_mod, "Config", _cfg)
+    tiny = port_config(_cfg())
+    monkeypatch.setattr(config_mod, "Config", lambda: tiny)
     common = ["--text", STREAM_TEXT, "--ckpt-dir", str(ckpt_dir), "--device", "cpu",
               "--set", "data.max_phoneme_seq_len=16"]  # at least two chunks
     one, streamed = tmp_path / "one.wav", tmp_path / "streamed.wav"
@@ -307,4 +321,4 @@ def test_cuda_device_without_gpu_fails_loudly(ckpt_dir):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU failure cannot be shown")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        torch_pipeline.Synthesizer(_cfg(ckpt_dir), device="cuda")
+        torch_pipeline.Synthesizer(port_config(_cfg(ckpt_dir)), device="cuda")

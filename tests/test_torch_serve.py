@@ -1,5 +1,6 @@
-"""The port's HTTP server (``viettts_tpu_torch.serve``) on the CPU, over
-the int8 route of a tiny seeded Synthesizer, and its clip-probe schedule."""
+"""The port's HTTP server (``viettts_tpu_torch.serve``: its own batcher and
+front end) on the CPU, over the int8 route of a tiny seeded Synthesizer,
+its clip-probe schedule and its queue limit."""
 
 import io
 import json
@@ -14,13 +15,13 @@ import pytest
 
 from viettts_tpu_torch import serve
 from viettts_tpu_torch.infer.pipeline import Synthesizer
-from tests.test_torch_pipeline import _cfg, _int8, _write_checkpoints
+from tests.test_torch_pipeline import _cfg, _int8, _write_checkpoints, port_config
 
 
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
     d = _write_checkpoints(_cfg(), tmp_path_factory.mktemp("torch_serve_ckpts"))
-    s = Synthesizer(_int8(_cfg(d)), device="cpu")
+    s = Synthesizer(port_config(_int8(_cfg(d))), device="cpu")
     s.calibrate_int8(texts=("một hai ba",))
     return s
 
@@ -117,3 +118,43 @@ def test_clip_probe_fires_on_every_nth_batch(every, batches, probes):
         batcher.close()
     assert batcher.stats()["batches"] == batches
     assert fake.probes == probes
+
+
+class _BlockingSynth:
+    """synthesize_batch blocks until released; ``started`` is set once the
+    worker is inside it."""
+
+    def __init__(self):
+        self.started, self.release = threading.Event(), threading.Event()
+
+    def synthesize_batch(self, texts, silence_duration=-1.0):
+        self.started.set()
+        self.release.wait(30)
+        return [_Result(np.zeros(16, np.float32), np.zeros((1, 80), np.float32)) for _ in texts]
+
+
+def test_queue_full_refuses_with_retry_after():
+    """With one request in synthesis and ``max_pending`` queued, submit
+    refuses with QueueFullError (HTTP 429 upstream) and counts it; the
+    queued requests are still served."""
+    fake = _BlockingSynth()
+    batcher = serve.DynamicBatcher(fake, max_batch=1, batch_window_ms=0.0, max_pending=1, clip_probe_every=0)
+    done = []
+    workers = [threading.Thread(target=lambda i=i: done.append(batcher.submit(f"t{i}", timeout=30))) for i in range(2)]
+    try:
+        workers[0].start()
+        assert fake.started.wait(30)
+        workers[1].start()
+        deadline = time.monotonic() + 30
+        while batcher.stats()["pending"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        with pytest.raises(serve.QueueFullError) as err:
+            batcher.submit("refused", timeout=30)
+        assert err.value.pending == 1 and err.value.retry_after_s >= 1
+        assert batcher.stats()["rejected"] == 1
+    finally:
+        fake.release.set()
+        for w in workers:
+            w.join(timeout=30)
+        batcher.close()
+    assert len(done) == 2 and batcher.stats()["requests"] == 2

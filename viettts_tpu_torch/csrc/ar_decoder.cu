@@ -1,40 +1,236 @@
-// The autoregressive acoustic-decoder loop (K1), whole sequence in one launch.
+// The autoregressive acoustic-decoder loop (K1): the whole decode in one
+// persistent launch over a grid of co-resident CTAs.
 //
 // Replaces the TPU kernel viettts_tpu/ops/ar_decoder.py::ar_decode
 // (_ar_kernel), which kept every decoder weight resident in VMEM and
 // streamed the conditioning gates chunk by chunk through its sequential
-// grid.
+// grid.  Per frame t:
 //
-// What bounds it on the H100: the decode is strictly sequential (frame t's
-// prenet reads frame t-1's mel), and each frame is a handful of
-// matrix-vector products over about 16.7 MB of float32 weights (at
-// H=512, P=256, D=80): far more than one SM's shared memory, but inside
-// the 50 MB L2.  Per frame the work is tiny and the dependent phases
-// (prenet 1, prenet 2, LSTM 1, LSTM 2, projection) each need a barrier,
-// so launch and synchronisation latency, not FLOPs, dominate if every
-// phase is its own kernel.
+//   p1 = relu(mel_{t-1} @ Wfc1) * keep1_t * s        p = relu(p1 @ Wfc2) * keep2_t * s
+//   g1 = g1c_t + [p, h1] @ W1m -> (h1, c1)           g2 = g2c_t + [p, h1', h2] @ W2m -> (h2, c2)
+//   mel_t = [h1', h2'] @ Wp + b
 //
-// Design: one CTA per batch row with H threads, and the frame loop inside
-// the kernel: one launch per decode.  Thread j owns hidden unit j of both
-// LSTM layers and computes its four gate columns (j, H+j, 2H+j, 3H+j), so
-// the cell update and c stay in registers; row-major [K, 4H] weights make
-// those reads coalesced across the CTA.  p, h1 and h2 are broadcast
-// through shared memory with __syncthreads() between the phases.  The mel
-// projection is split across warps (each sums a slice of [h1, h2] for all
-// D outputs) and reduced in shared memory.  Weights are read from global
-// memory every frame and stay resident in L2; the limit is then one SM's
-// L2 bandwidth, which spreading gate columns across CTAs and bf16 weights
-// (later work) address.  expf/tanhf without fast-math keep parity with
-// the plain PyTorch loop.
+// What bounds it on the H100: the frames are strictly sequential and each
+// frame is a chain of dependent matrix-vector products over 17.45 MB of
+// float32 weights (H=512, P=256, D=80), ~8.7 MFLOP at B=1: ~0.13 us of the
+// card's float32 peak.  One SM streaming those weights from L2 every frame
+// took ~340 us a frame.  Spread over the grid with the weights resident,
+// what is left is latency: for each of the 5 dependent phases of a frame,
+// one grid-wide hand-off through L2 (a producer's store reaching L2, a
+// consumer's load coming back), times the frames.
+//
+// Design.  G CTAs (one per SM at most: 128 at H=512), each owning U hidden
+// units (4 at H=512), hold all four gate columns of their units for both
+// LSTM layers in shared memory for the whole launch (131 KB at H=512),
+// plus their columns of the prenet weights and of the projection: the
+// 17.45 MB are spread over the grid and loaded once per launch, so no
+// weight byte moves in the frame loop.  The vectors that cross CTAs go
+// through a global exchange buffer:
+//
+//   A  [h1, h2] -> mel_{t-1} (projection columns; also written out)
+//   B  mel -> p1 (prenet 1 columns)       C  p1 -> p (prenet 2 columns)
+//   D  p -> LSTM 1 gates of own units -> h1', c1
+//   E  h1' -> LSTM 2 gates of own units -> h2', c2
+//
+// The grid barrier between dependent phases is the data itself: every
+// exchanged value is one 64-bit word, float bits and the frame number
+// (+1), stored and loaded relaxed at GPU scope (single-copy atomic, never
+// a stale L1 line), and a reader spins on its words until all carry the
+// frame it waits for, so a hand-off costs one L2 round trip and no
+// separate barrier.  Buffers alternate by frame parity; a CTA can only
+// reach frame t + 2 after every CTA has published frame t + 1's h, which
+// each publishes after its last read of frame t's buffers, so no value is
+// overwritten before it is read.  Work that does not feed the next phase
+// runs after a CTA has published (h2 @ Wh2 after A, p @ W2p after D,
+// h1' @ Wh1 for the next frame after E) and is kept, with the
+// conditioning gates, as gate partial sums in shared memory beside the
+// cell states.  A CTA's own work per phase is a chain of latencies
+// (shared-memory loads, a shuffle tree, barriers), so the weights are
+// stored column by column and a warp sums whole columns in 16-byte loads,
+// everything is inlined and the CTA has 256 threads, which leaves the
+// registers to avoid spills.  Every dot is summed in a fixed order inside
+// one CTA: the same inputs give the same bits.  expf/tanhf without
+// fast-math keep parity with the plain PyTorch loop.  Spinning needs
+// every CTA resident: the launch is cooperative and refused (never
+// shrunk) when the occupancy does not allow G CTAs on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStage = 16;    // batch rows staged at once
+constexpr int kChunk = 8;     // batch rows summed per matrix-vector pass
+constexpr int kRows = 64;     // batch rows per launch (gate sums and c stay in shared memory)
+static_assert(kStage * 2 * kWarps <= kThreads, "one output per thread");
+
+typedef unsigned long long word;  // float bits | frame tag << 32
+
+struct Dims {
+  int B, L, H, P, D;
+  int G, U, PK, DK;  // CTAs, hidden units / prenet columns / projection columns per CTA
+  float scale;
+};
+
+__host__ __device__ inline int max3(int a, int b, int c) {
+  const int m = a > b ? a : b;
+  return m > c ? m : c;
+}
+
+// floats of dynamic shared memory; ops/ar_decoder.py::plan_decode mirrors it
+__host__ __device__ inline size_t smem_floats(int H, int P, int D, int U, int PK, int DK) {
+  const size_t nc = 4 * (size_t)U, ncm = max3(4 * U, PK, DK);
+  return (size_t)kStage * max3(2 * H, P, D) + (size_t)kWarps * kChunk + (size_t)kStage * ncm +
+         (size_t)kRows * (2 * nc + 2 * U) + ((size_t)(P + H) + (P + 2 * H)) * nc +
+         (size_t)(D + P) * PK + (size_t)(2 * H + 1) * DK;
+}
+
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void ar_decode_kernel(
+__device__ __forceinline__ void publish(word* p, float v, unsigned tag) {
+  const word w = ((word)tag << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ word peek(const word* p) {
+  word w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+// xs[b * K + k] = the value of src[(b0 + b) * ld + k] once it carries
+// `tag`, for b < nb, k < K.  Each thread spins on its own words, kIlp
+// loads in flight, re-reading only those that have not arrived.
+__device__ __forceinline__ void gather(float* xs, const word* src, int ld, int b0, int nb, int K, unsigned tag) {
+  constexpr int kIlp = 4;
+  const int n = nb * K;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kIlp * kThreads) {
+    const word* at[kIlp];
+    unsigned pending = 0;
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int i = i0 + u * kThreads, b = nb == 1 ? 0 : i / K;
+      at[u] = src + (size_t)(b0 + b) * ld + (i - b * K);
+      if (i < n) pending |= 1u << u;
+    }
+    word w[kIlp];
+    while (pending) {
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u)
+        if (pending >> u & 1) w[u] = peek(at[u]);
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u)
+        if ((pending >> u & 1) && (unsigned)(w[u] >> 32) == tag) {
+          xs[i0 + u * kThreads] = __uint_as_float((unsigned)w[u]);
+          pending &= ~(1u << u);
+        }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int log2i(int pow2) { return __ffs(pow2) - 1; }
+
+// res[b * NC + c] = sum_k xs[b * ldx + k] * Wt[c * K + k] for b < nb <= NB,
+// c < NC (a power of two), the weights stored column by column.  A warp
+// sums CPW = max(1, NC / kWarps) columns over the part-th of WPC =
+// max(1, kWarps / NC) parts of the rows, each lane 4 rows at a time in
+// 16-byte loads of the columns and of each staged row when they are
+// aligned; a shuffle tree sums the lanes, then the parts add in order.
+// Fixed order: the same inputs give the same bits.
+template <int NB, int CPW>
+__device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, const float* Wt, int NC,
+                                          int K, float* red, float* res) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, lg = log2i(NC);
+  const int lgw = NC < kWarps ? log2i(kWarps) - lg : 0;  // log2 of the parts per column
+  const int part = warp & ((1 << lgw) - 1), c0 = (warp >> lgw) * CPW;
+  const int span = (((K + (1 << lgw) - 1) >> lgw) + 3) & ~3;
+  const int k_lo = min(K, part * span), k_hi = min(K, k_lo + span);
+  const bool vec = ((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(Wt) |
+                     (unsigned)ldx * 4u | (unsigned)K * 4u) & 15) == 0;
+  float acc[CPW][NB];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[j][b] = 0.f;
+  // whole 128-row blocks in 16-byte steps, then one row per lane
+  const int k_vec = vec ? k_lo + ((k_hi - k_lo) & ~127) : k_lo;
+#pragma unroll 2
+  for (int k = k_lo + 4 * lane; k < k_vec; k += 128) {
+    float4 wv[CPW];
+#pragma unroll
+    for (int j = 0; j < CPW; ++j) wv[j] = *reinterpret_cast<const float4*>(Wt + (size_t)(c0 + j) * K + k);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const float4 x = *reinterpret_cast<const float4*>(xs + b * ldx + k);
+#pragma unroll
+      for (int j = 0; j < CPW; ++j)
+        acc[j][b] = fmaf(x.w, wv[j].w, fmaf(x.z, wv[j].z, fmaf(x.y, wv[j].y, fmaf(x.x, wv[j].x, acc[j][b]))));
+    }
+  }
+  for (int k = k_vec + lane; k < k_hi; k += 32) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const float x = xs[b * ldx + k];
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) acc[j][b] = fmaf(x, Wt[(size_t)(c0 + j) * K + k], acc[j][b]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[j][b] += __shfl_xor_sync(0xffffffffu, acc[j][b], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < CPW; ++j)
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) {
+          if (lgw == 0)
+            res[(b << lg) + c0 + j] = acc[j][b];
+          else
+            red[((part * NB + b) << lg) + c0 + j] = acc[j][b];
+        }
+  }
+  __syncthreads();
+  if (lgw > 0) {
+    const int t = threadIdx.x;
+    if (t < (nb << lg)) {
+      float s = 0.f;
+      for (int i = 0; i < (1 << lgw); ++i) s += red[((i * NB) << lg) + t];
+      res[t] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// the same for nb <= kStage rows, in passes of up to kChunk rows
+// (NC <= 2 * kWarps)
+__device__ __forceinline__ void matvec(const float* xs, int ldx, int nb, const float* Wt, int NC,
+                                    int K, float* red, float* res) {
+  for (int p0 = 0; p0 < nb; p0 += kChunk) {
+    const int n = min(kChunk, nb - p0);
+    const float* x = xs + p0 * ldx;
+    float* r = res + p0 * NC;
+    if (NC > kWarps) {
+      if (n == 1)
+        matvec_nb<1, 2>(x, ldx, 1, Wt, NC, K, red, r);
+      else
+        matvec_nb<kChunk, 2>(x, ldx, n, Wt, NC, K, red, r);
+    } else {
+      if (n == 1)
+        matvec_nb<1, 1>(x, ldx, 1, Wt, NC, K, red, r);
+      else
+        matvec_nb<kChunk, 1>(x, ldx, n, Wt, NC, K, red, r);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
     const float* __restrict__ g1c,      // [B, L, 4H]
     const float* __restrict__ g2c,      // [B, L, 4H]
     const uint8_t* __restrict__ keep1,  // [L, B, P] (bool)
@@ -46,98 +242,166 @@ __global__ void ar_decode_kernel(
     const float* __restrict__ wp,       // [2H, D]
     const float* __restrict__ bp,       // [D]
     float* __restrict__ out,            // [B, L, D]
-    int B, int L, int H, int P, int D, float scale) {
-  extern __shared__ float sm[];
-  float* mel = sm;        // [D] previous frame
-  float* p1 = mel + D;    // [P] prenet layer 1
-  float* pp = p1 + P;     // [P] prenet output
-  float* h1 = pp + P;     // [H] } contiguous: [h1, h2] feeds the projection
-  float* h2 = h1 + H;     // [H] }
-  float* h1n = h2 + H;    // [H] layer-1 output of this frame
-  float* part = h1n + H;  // [H / 32][D] projection partial sums
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int H4 = 4 * H;
-  const int nwarps = blockDim.x / 32;
-  const int warp = j / 32, lane = j % 32;
-  const int rows_per_warp = 2 * H / nwarps;
+    word* exchange,                     // 2 parities x [h1 | h2, mel, p1, p], zeroed
+    Dims d) {
+  extern __shared__ __align__(16) float sm[];
+  const int B = d.B, L = d.L, H = d.H, P = d.P, D = d.D, G = d.G, U = d.U;
+  const int PK = d.PK, DK = d.DK, NC = 4 * U, H2 = 2 * H, H4 = 4 * H;
+  const int lgU = log2i(U), lgNC = lgU + 2, lgPK = log2i(PK), lgDK = log2i(DK);
+  const int cta = blockIdx.x, tid = threadIdx.x, j0 = cta * U;
 
-  for (int d = j; d < D; d += blockDim.x) mel[d] = 0.f;
-  h1[j] = 0.f;
-  h2[j] = 0.f;
-  float c1 = 0.f, c2 = 0.f;
+  // shared memory: the staged vector and the sums, gate partial sums and
+  // cell states, then the resident weights, column by column
+  float* xs = sm;                                    // [kStage][max(2H, P, D)]
+  float* red = xs + kStage * max3(H2, P, D);         // [kWarps * kChunk] partial sums
+  float* res = red + kWarps * kChunk;                // [kStage][max(NC, PK, DK)]
+  float* Rs = res + kStage * max3(NC, PK, DK);       // [B][2][NC] gate sums, layer 1 | layer 2
+  float* Cs = Rs + kRows * 2 * NC;                   // [B][2][U]  cell states
+  float* WD = Cs + kRows * 2 * U;                    // [2NC][P]: w1m | w2m rows of p, own gate columns
+  float* WE = WD + 2 * NC * P;                       // [2NC][H]: w2m rows of h1' | w1m rows of h1
+  float* W2h = WE + 2 * NC * H;                      // [NC][H]:  w2m rows of h2
+  float* F1 = W2h + NC * H;                          // [PK][D] prenet 1 columns cta + c * G
+  float* F2 = F1 + PK * D;                           // [PK][P] prenet 2 columns
+  float* WP = F2 + PK * P;                           // [DK][2H] projection columns cta + c * G
+  float* BPs = WP + DK * H2;                         // [DK]
+
+  // exchange of parity q: [B][2H] h1 | h2, [B][D] mel, [B][P] p1, [B][P] p
+  const size_t per_parity = (size_t)B * (H2 + D + 2 * P);
+  auto hx = [&](int q) { return exchange + q * per_parity; };
+  auto melx = [&](int q) { return hx(q) + (size_t)B * H2; };
+  auto p1x = [&](int q) { return melx(q) + (size_t)B * D; };
+  auto px = [&](int q) { return p1x(q) + (size_t)B * P; };
+
+  // local gate column c = gate * U + u is global column gate * H + j0 + u
+  auto gcol = [&](int c) { return (c >> lgU) * H + j0 + (c & (U - 1)); };
+  auto own = [&](int c) { return j0 + (c & (U - 1)) < H; };
+
+  // one-time weight load: dst[c][r] = src[r0 + r][gate column c] for r < K
+  auto load_gates = [&](float* dst, const float* src, int r0, int K) {
+    for (int i = tid; i < K * NC; i += kThreads) {
+      const int r = i >> lgNC, c = i & (NC - 1);
+      dst[c * K + r] = own(c) ? src[(size_t)(r0 + r) * H4 + gcol(c)] : 0.f;
+    }
+  };
+  // dst[c][r] = src[r][cta + c * G] (0 past n columns) for r < K, c < 2^lg
+  auto load_cols = [&](float* dst, const float* src, int n, int K, int lg) {
+    for (int i = tid; i < K << lg; i += kThreads) {
+      const int r = i >> lg, c = i & ((1 << lg) - 1), col = cta + c * G;
+      dst[c * K + r] = col < n ? src[(size_t)r * n + col] : 0.f;
+    }
+  };
+  load_gates(WD, w1m, 0, P);
+  load_gates(WD + NC * P, w2m, 0, P);
+  load_gates(WE, w2m, P, H);
+  load_gates(WE + NC * H, w1m, P, H);
+  load_gates(W2h, w2m, P + H, H);
+  load_cols(F1, w_fc1, P, D, lgPK);
+  load_cols(F2, w_fc2, P, P, lgPK);
+  load_cols(WP, wp, D, H2, lgDK);
+  for (int c = tid; c < DK; c += kThreads) BPs[c] = cta + c * G < D ? bp[cta + c * G] : 0.f;
+  // frame 0 starts from zero state: its gate sums are the conditioning gates
+  for (int i = tid; i < B * NC; i += kThreads) {
+    const int b = i >> lgNC, c = i & (NC - 1);
+    const size_t g = (size_t)b * L * H4 + gcol(c);
+    Rs[(b * 2 + 0) * NC + c] = own(c) ? g1c[g] : 0.f;
+    Rs[(b * 2 + 1) * NC + c] = own(c) ? g2c[g] : 0.f;
+  }
+  for (int i = tid; i < B * 2 * U; i += kThreads) Cs[i] = 0.f;
   __syncthreads();
 
+  // A: mel_{t-1} = [h1, h2] @ Wp + b from frame t-1's h (tag t), published
+  // for frame t; then R2 = g2c_t + h2 @ Wh2
+  auto project = [&](int t) {
+    for (int b0 = 0; b0 < B; b0 += kStage) {
+      const int nb = min(kStage, B - b0);
+      gather(xs, hx((t - 1) & 1), H2, b0, nb, H2, t);
+      if (cta < D) {
+        matvec(xs, H2, nb, WP, DK, H2, red, res);
+        if (tid < (nb << lgDK)) {
+          const int bl = tid >> lgDK, c = tid & (DK - 1), col = cta + c * G;
+          if (col < D) {
+            const float v = res[tid] + BPs[c];
+            if (t < L) publish(melx(t & 1) + (size_t)(b0 + bl) * D + col, v, t + 1);
+            out[((size_t)(b0 + bl) * L + t - 1) * D + col] = v;
+          }
+        }
+      }
+      if (t == L) continue;
+      const int b = b0 + (tid >> lgNC), c = tid & (NC - 1);
+      const bool mine = tid < (nb << lgNC);
+      const float cond = mine && own(c) ? g2c[((size_t)b * L + t) * H4 + gcol(c)] : 0.f;
+      __syncthreads();  // res is read above
+      matvec(xs + H, H2, nb, W2h, NC, H, red, res);
+      if (mine) Rs[(b * 2 + 1) * NC + c] = cond + res[tid];
+    }
+  };
+
+  // B, C: relu(x @ F) * keep_t * s for own prenet columns (x = 0 without src)
+  auto prenet = [&](int t, const word* src, int K, const float* F, const uint8_t* keep, word* dst) {
+    for (int b0 = 0; b0 < B; b0 += kStage) {
+      const int nb = min(kStage, B - b0);
+      const int bl = tid >> lgPK, col = cta + (tid & (PK - 1)) * G;
+      const bool mine = tid < (nb << lgPK) && col < P;
+      const size_t at = (size_t)(b0 + bl) * P + col;
+      const bool kept = mine && keep[(size_t)t * B * P + at];  // loads while the input arrives
+      if (src) {
+        gather(xs, src, K, b0, nb, K, t + 1);
+      } else {
+        for (int i = tid; i < nb * K; i += kThreads) xs[i] = 0.f;
+        __syncthreads();
+      }
+      matvec(xs, K, nb, F, PK, K, red, res);
+      if (mine) publish(dst + at, kept ? fmaxf(res[tid], 0.f) * d.scale : 0.f, t + 1);
+    }
+  };
+
+  // D (layer 0), E (layer 1): gates = x @ W[:NC] + Rs[layer] -> cell
+  // update of own units -> h published (tag t + 1); then, from the same
+  // x, the other layer's partial sums x @ W[NC:]: D: R2 += p @ W2p,
+  // E: R1 = g1c_{t+1} + h1' @ Wh1.
+  auto lstm = [&](int t, const word* src, int ld, int K, const float* W, int layer) {
+    for (int b0 = 0; b0 < B; b0 += kStage) {
+      const int nb = min(kStage, B - b0);
+      const int b = b0 + (tid >> lgNC), c = tid & (NC - 1);
+      const bool mine = tid < (nb << lgNC);
+      const bool next = layer == 1 && t + 1 < L;
+      const float cond = mine && next && own(c) ? g1c[((size_t)b * L + t + 1) * H4 + gcol(c)] : 0.f;
+      gather(xs, src, ld, b0, nb, K, t + 1);
+      matvec(xs, K, nb, W, NC, K, red, res);
+      if (mine) res[tid] += Rs[(b * 2 + layer) * NC + c];
+      __syncthreads();
+      if (tid < (nb << lgU)) {
+        const int bl = tid >> lgU, u = tid & (U - 1), j = j0 + u;
+        if (j < H) {
+          const float* g = res + (bl << lgNC);
+          float* cs = Cs + ((b0 + bl) * 2 + layer) * U + u;
+          const float cn = sigmoid(g[2 * U + u] + 1.f) * *cs + sigmoid(g[u]) * tanhf(g[U + u]);
+          *cs = cn;
+          publish(hx(t & 1) + (size_t)(b0 + bl) * H2 + layer * H + j,
+                  sigmoid(g[3 * U + u]) * tanhf(cn), t + 1);
+        }
+      }
+      if (layer == 1 && !next) continue;
+      __syncthreads();
+      matvec(xs, K, nb, W + NC * K, NC, K, red, res);
+      if (mine) {
+        float* other = Rs + (b * 2 + 1 - layer) * NC + c;
+        *other = (layer == 0 ? *other : cond) + res[tid];
+      }
+    }
+  };
+
   for (int t = 0; t < L; ++t) {
-    const size_t kbase = ((size_t)t * B + b) * P;
-    for (int k = j; k < P; k += blockDim.x) {
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(mel[d], w_fc1[(size_t)d * P + k], s);
-      p1[k] = keep1[kbase + k] ? fmaxf(s, 0.f) * scale : 0.f;
+    const int q = t & 1;
+    if (t > 0) project(t);
+    if (cta < P) {
+      prenet(t, t > 0 ? melx(q) : nullptr, D, F1, keep1, p1x(q));
+      prenet(t, p1x(q), P, F2, keep2, px(q));
     }
-    __syncthreads();
-    for (int k = j; k < P; k += blockDim.x) {
-      float s = 0.f;
-      for (int m = 0; m < P; ++m) s = fmaf(p1[m], w_fc2[(size_t)m * P + k], s);
-      pp[k] = keep2[kbase + k] ? fmaxf(s, 0.f) * scale : 0.f;
-    }
-    __syncthreads();
-
-    // LSTM layer 1: gates = g1c_t + [p, h1] @ W1m
-    const size_t gbase = ((size_t)b * L + t) * H4;
-    float gi = g1c[gbase + j], gg = g1c[gbase + H + j];
-    float gf = g1c[gbase + 2 * H + j], go = g1c[gbase + 3 * H + j];
-#pragma unroll 4
-    for (int m = 0; m < P + H; ++m) {
-      const float v = m < P ? pp[m] : h1[m - P];
-      const float* r = w1m + (size_t)m * H4;
-      gi = fmaf(v, r[j], gi);
-      gg = fmaf(v, r[H + j], gg);
-      gf = fmaf(v, r[2 * H + j], gf);
-      go = fmaf(v, r[3 * H + j], go);
-    }
-    c1 = sigmoid(gf + 1.f) * c1 + sigmoid(gi) * tanhf(gg);
-    h1n[j] = sigmoid(go) * tanhf(c1);
-    __syncthreads();
-
-    // LSTM layer 2: gates = g2c_t + [p, h1', h2] @ W2m
-    gi = g2c[gbase + j];
-    gg = g2c[gbase + H + j];
-    gf = g2c[gbase + 2 * H + j];
-    go = g2c[gbase + 3 * H + j];
-#pragma unroll 4
-    for (int m = 0; m < P + 2 * H; ++m) {
-      const float v = m < P ? pp[m] : (m < P + H ? h1n[m - P] : h2[m - P - H]);
-      const float* r = w2m + (size_t)m * H4;
-      gi = fmaf(v, r[j], gi);
-      gg = fmaf(v, r[H + j], gg);
-      gf = fmaf(v, r[2 * H + j], gf);
-      go = fmaf(v, r[3 * H + j], go);
-    }
-    c2 = sigmoid(gf + 1.f) * c2 + sigmoid(gi) * tanhf(gg);
-    const float h2j = sigmoid(go) * tanhf(c2);
-    __syncthreads();  // every read of the old h1, h2 is done
-    h1[j] = h1n[j];
-    h2[j] = h2j;
-    __syncthreads();
-
-    // mel_t = [h1, h2] @ Wp + b: warp w sums rows [w*R, (w+1)*R) for all D
-    for (int d = lane; d < D; d += 32) {
-      float s = 0.f;
-      const int m0 = warp * rows_per_warp;
-      for (int m = m0; m < m0 + rows_per_warp; ++m) s = fmaf(h1[m], wp[(size_t)m * D + d], s);
-      part[warp * D + d] = s;
-    }
-    __syncthreads();
-    for (int d = j; d < D; d += blockDim.x) {
-      float s = 0.f;
-      for (int w = 0; w < nwarps; ++w) s += part[w * D + d];
-      s += bp[d];
-      mel[d] = s;
-      out[((size_t)b * L + t) * D + d] = s;
-    }
-    __syncthreads();
+    lstm(t, px(q), P, P, WD, 0);
+    lstm(t, hx(q), H2, H, WE, 1);
   }
+  project(L);
 }
 
 }  // namespace
@@ -145,21 +409,31 @@ __global__ void ar_decode_kernel(
 extern "C" int viettts_ar_decode(const void* g1c, const void* g2c, const void* keep1,
                                  const void* keep2, const void* w_fc1, const void* w_fc2,
                                  const void* w1m, const void* w2m, const void* wp,
-                                 const void* bp, void* out, int B, int L, int H, int P, int D,
+                                 const void* bp, void* out, void* exchange, int B, int L, int H,
+                                 int P, int D, int G, int U, int PK, int DK, int smem_bytes,
                                  float scale, void* stream) {
-  if (H % 32 != 0 || H > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)D + 2 * P + 3 * H + (H / 32) * D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ar_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ar_decode_kernel<<<B, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g1c), static_cast<const float*>(g2c),
-      static_cast<const uint8_t*>(keep1), static_cast<const uint8_t*>(keep2),
-      static_cast<const float*>(w_fc1), static_cast<const float*>(w_fc2),
-      static_cast<const float*>(w1m), static_cast<const float*>(w2m),
-      static_cast<const float*>(wp), static_cast<const float*>(bp), static_cast<float*>(out),
-      B, L, H, P, D, scale);
+  const size_t smem = sizeof(float) * smem_floats(H, P, D, U, PK, DK);
+  if ((size_t)smem_bytes != smem || B < 1 || B > kRows || L < 1 || G * U < H ||
+      (G - 1) * U >= H || 4 * U > 2 * kWarps || PK > 2 * kWarps || DK > 2 * kWarps ||
+      (U & (U - 1)) || (PK & (PK - 1)) || (DK & (DK - 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ar_decode_grid,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ar_decode_grid, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the CTAs spin on each other's results: all must be resident; refuse, never shrink
+  if (per_sm * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Dims d{B, L, H, P, D, G, U, PK, DK, scale};
+  void* args[] = {&g1c, &g2c, &keep1, &keep2, &w_fc1, &w_fc2, &w1m, &w2m, &wp, &bp, &out,
+                  &exchange, &d};
+  err = cudaLaunchCooperativeKernel((const void*)ar_decode_grid, dim3(G), dim3(kThreads), args,
+                                    smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -40,14 +40,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from viettts_tpu_torch.config import SIL_INDEX, WORD_END_INDEX, Config
-from viettts_tpu.text import load_lexicon, normalize_text, text_to_tokens
 from viettts_tpu_torch.checkpoint import (
     load_acoustic,
     load_duration,
     load_generator,
     load_variables,
 )
+from viettts_tpu_torch.config import SIL_INDEX, WORD_END_INDEX, Config
 from viettts_tpu_torch.models.acoustic import AcousticModel
 from viettts_tpu_torch.models.duration import DurationModel
 from viettts_tpu_torch.models.hifigan import (
@@ -56,6 +55,7 @@ from viettts_tpu_torch.models.hifigan import (
     generator_calibrate_int8,
     generator_int8_clip_stats,
 )
+from viettts_tpu_torch.text import load_lexicon, normalize_text, text_to_tokens
 from viettts_tpu_torch.types import DurationBatch
 
 DEFAULT_TOKEN_BUCKETS = (32, 64, 128, 192, 256, 384, 512)

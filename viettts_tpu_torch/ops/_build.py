@@ -37,9 +37,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
-    # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out,
-    # B, L, H, P, D, scale, stream
-    "viettts_ar_decode": [P] * 11 + [I] * 5 + [F, P],
+    # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out, exchange,
+    # B, L, H, P, D, ctas, units, prenet_cols, proj_cols, smem_bytes, scale, stream
+    "viettts_ar_decode": [P] * 12 + [I] * 10 + [F, P],
     # bf16, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
     "viettts_mrf_convt": [I, P, P, P, P] + [I] * 7 + [P],
     # w_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, y,

@@ -14,9 +14,16 @@ acoustic model is loaded (``AcousticModel.merge_decoder_weights``).
 ``ar_decode_plain`` (a Python frame loop over ``torch.matmul``) on CPU
 tensors; any other device raises.  ``ar_decode.launches`` counts kernel
 launches and ``ar_decode.plain_calls`` counts calls of the twin.
+
+The kernel is one persistent launch over a grid of co-resident CTAs, each
+holding the float32 gate columns of its hidden units in shared memory for
+the whole decode; ``plan_decode`` sizes that grid (the wrapper and the CPU
+tests both call it) and refuses shapes whose slice does not fit.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -47,6 +54,59 @@ def ar_decode_plain(
         mel = torch.cat([h1, h2], 1) @ proj_kernel + proj_bias
         out.append(mel)
     return torch.stack(out, dim=1)
+
+
+THREADS = 256  # per CTA; csrc/ar_decoder.cu kThreads
+STAGE_ROWS = 16  # batch rows staged at once; kStage
+BATCH_CHUNK = 8  # batch rows summed per matrix-vector pass; kChunk
+MAX_COLS = 2 * THREADS // 32  # columns of one CTA's matrix-vector product (2 per warp)
+MAX_ROWS = 64  # batch rows per launch; kRows (larger batches take several launches)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on sm_90 (227 KB)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    ctas: int  # grid size, at most one CTA per SM
+    units: int  # hidden units per CTA (all 4 gate columns of each, both layers)
+    prenet_cols: int  # prenet output columns per CTA (cta + i * ctas)
+    proj_cols: int  # mel projection columns per CTA (cta + i * ctas)
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def plan_decode(H: int, P: int, D: int, num_sms: int) -> DecodePlan:
+    """Grid of the decode kernel: the fewest hidden units per CTA (a power
+    of two) that keeps the grid within ``num_sms`` CTAs, the prenet and
+    projection columns spread the same way, and the shared memory that
+    holds it all (as ``smem_floats`` in ``csrc/ar_decoder.cu`` counts it).
+    Raises ValueError when a CTA's slice does not fit ``SMEM_LIMIT``."""
+    units = _pow2(-(-H // num_sms))
+    ctas = -(-H // units)
+    prenet_cols, proj_cols = _pow2(-(-P // ctas)), _pow2(-(-D // ctas))
+    nc = 4 * units
+    ncm = max(nc, prenet_cols, proj_cols)
+    floats = (
+        STAGE_ROWS * max(2 * H, P, D) + THREADS // 32 * BATCH_CHUNK + STAGE_ROWS * ncm
+        + MAX_ROWS * (2 * nc + 2 * units)
+        + (2 * P + 3 * H) * nc + (D + P) * prenet_cols + (2 * H + 1) * proj_cols
+    )
+    smem = 4 * floats
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"ar_decode kernel: H={H}, P={P}, D={D} needs {smem} bytes of shared memory per CTA "
+            f"({ctas} CTAs of {units} hidden units, whose float32 gate columns of both LSTM layers "
+            f"stay resident), above the {SMEM_LIMIT} bytes a block can use"
+        )
+    if max(4 * units, prenet_cols, proj_cols) > MAX_COLS:
+        raise ValueError(
+            f"ar_decode kernel: H={H}, P={P}, D={D} over {num_sms} SMs needs {units} hidden units, "
+            f"{prenet_cols} prenet and {proj_cols} projection columns per CTA; at most "
+            f"{MAX_COLS // 4}, {MAX_COLS} and {MAX_COLS} fit its resident-weight layout"
+        )
+    return DecodePlan(ctas, units, prenet_cols, proj_cols, smem)
 
 
 def _check(g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bias):
@@ -97,18 +157,29 @@ def ar_decode(
         return ar_decode_plain(*args, dropout_scale)
     if g1c.device.type != "cuda":
         raise ValueError(f"ar_decode: no kernel for device {g1c.device}")
-    if H % 32 != 0 or H > 1024:
-        raise ValueError(f"ar_decode kernel needs H % 32 == 0 and H <= 1024, got H={H}")
+    plan = plan_decode(H, P, D, torch.cuda.get_device_properties(g1c.device).multi_processor_count)
     out = torch.empty(B, L, D, dtype=torch.float32, device=g1c.device)
     lib = _build.load_library()
-    ar_decode.launches += 1
-    _build.check(
-        lib.viettts_ar_decode(
-            *(t.data_ptr() for t in args), out.data_ptr(),
-            B, L, H, P, D, float(dropout_scale), _build.stream_ptr(g1c.device),
-        ),
-        "ar_decode",
-    )
+    for b0 in range(0, B if L else 0, MAX_ROWS):
+        rows = slice(b0, min(b0 + MAX_ROWS, B))
+        n = rows.stop - b0
+        part = out if n == B else torch.empty(n, L, D, dtype=torch.float32, device=g1c.device)
+        sliced = [t[rows] for t in args[:2]] + [t[:, rows].contiguous() for t in args[2:4]]
+        # exchange words (float | frame tag), two frame parities of
+        # [h1 | h2, mel, p1, p]; zeroed: tag 0 is no frame
+        exchange = torch.zeros(2 * 2 * n * (2 * H + D + 2 * P), dtype=torch.float32, device=g1c.device)
+        ar_decode.launches += 1
+        with torch.cuda.device(g1c.device):
+            _build.check(
+                lib.viettts_ar_decode(
+                    *(t.data_ptr() for t in sliced + list(args[4:])), part.data_ptr(), exchange.data_ptr(),
+                    n, L, H, P, D, plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols,
+                    plan.smem_bytes, float(dropout_scale), _build.stream_ptr(g1c.device),
+                ),
+                "ar_decode",
+            )
+        if part is not out:
+            out[rows] = part
     return out
 
 

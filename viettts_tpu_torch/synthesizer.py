@@ -62,10 +62,10 @@ def main(argv=None):
 
     import numpy as np
 
+    from viettts_tpu_torch.audio import write_wav
     from viettts_tpu_torch.config import Config, apply_overrides
-    from viettts_tpu.data.audio import write_wav
-    from viettts_tpu.text import normalize_text
     from viettts_tpu_torch.infer.pipeline import Synthesizer
+    from viettts_tpu_torch.text import normalize_text
 
     cfg = apply_overrides(Config(), args.set)
     if args.quality:
@@ -113,6 +113,8 @@ def _write_stream(synth, args):
 
     import numpy as np
 
+    from viettts_tpu_torch.audio import pcm16
+
     t0 = time.perf_counter()
     mels = []
     with wave.open(str(args.output), "wb") as w:
@@ -120,7 +122,7 @@ def _write_stream(synth, args):
         w.setsampwidth(2)
         w.setframerate(args.sample_rate)
         for i, part in enumerate(synth.stream(args.text, args.silence_duration)):
-            w.writeframes((np.clip(part.wave, -1.0, 1.0) * 32767.0).astype("<i2").tobytes())
+            w.writeframes(pcm16(part.wave).tobytes())
             mels.append(part.mel)
             print(f"chunk {i}: {len(part.wave) / args.sample_rate:.2f} s of audio "
                   f"at t={time.perf_counter() - t0:.2f} s")
