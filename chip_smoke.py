@@ -13,10 +13,12 @@
    (the four default generator stages, B=2, 128 and 100 mel frames,
    ConvTranspose prologue on, conv_post epilogue on the last stage,
    ResBlock1 and ResBlock2, float32 and bfloat16 storage) and K3
-   ``fused_mrf(quantize_int8=True)`` (the same stages in bfloat16 storage,
-   static and dynamic activation scales, with the int8 codes that the two
-   sides' prologue sums flip), with both times and each kernel's roofline
-   bound (``bound_ms``: the larger of its bytes over the HBM rate and its
+   ``fused_mrf(quantize_int8=True)`` (the same stages in bfloat16 storage
+   at B=2 and at the main path's B=1, static and dynamic activation scales,
+   with the int8 codes that the two sides' float64 prologue sums flip, and
+   per stage the prologue alone, the int8 MRF convs alone and bf16 K2 on
+   the same inputs), with both times and each kernel's roofline bound
+   (``bound_ms``: the larger of its bytes over the HBM rate and its
    operations over the dense peak of their type, H100 SXM data sheet).
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
@@ -75,8 +77,8 @@ MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s
 # product counted
 PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 495.0}
 # H100 SXM at 700 W (NVIDIA data sheet): float32 outside the tensor cores
-# (K1; also the bound taken for K3's float64 prologue, the FP64 tensor
-# rate), dense int8 tensor cores (K3), HBM3 bytes per second
+# (K1, the conv_post epilogue) and the FP64 tensor cores (K3's prologue),
+# both 67 TFLOP/s; dense int8 tensor cores (K3); HBM3 bytes per second
 PEAK_F32_FLOPS, PEAK_INT8_OPS, HBM_BYTES_PER_S = 67e12, 1979e12, 3.35e12
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
@@ -219,8 +221,8 @@ def mrf_bound(cfg, B, T, route):
     multiply-adds.  bfloat16: bf16 storage, every product on the dense bf16
     tensor cores (989 TFLOP/s).  float32: 3xTF32, three TF32 products per
     product (495 TFLOP/s).  int8: bf16 storage and int8 MRF weights, the MRF
-    products at 1979 TOP/s, the float64 prologue and the conv_post epilogue
-    at 67 TFLOP/s."""
+    products at 1979 TOP/s, the float64 prologue (FP64 tensor cores) and the
+    conv_post epilogue (float32) at 67 TFLOP/s."""
     esize = {"bfloat16": 2, "float32": 4, "int8": 2}[route]
     bytes_, secs = 0.0, 0.0
     for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, T):
@@ -312,30 +314,21 @@ def rel_rms(got, want):
 
 
 def first_code_flips(x, ups, act):
-    """int8 codes of the stage's first conv input that differ between K2's
-    prologue kernel and the twin's ConvTranspose, both summing in float64
-    as on the int8 route: where kernel and twin can first part (the integer
-    dots and the later float32 steps are the same on both sides)."""
+    """int8 codes of the stage's first conv input that differ between K3's
+    float64 prologue (FP64 tensor cores) and the twin's float64
+    ConvTranspose: where kernel and twin can first part (the integer dots
+    and the later float32 steps are the same on both sides)."""
     import torch
     from torch.nn import functional as F
 
-    from viettts_tpu_torch.ops import _build
-    from viettts_tpu_torch.ops.mrf import conv_transpose_same, convt_lead_pad, convt_weight_to_torch
+    from viettts_tpu_torch.ops.mrf import conv_transpose_same, convt_f64, convt_weight_to_torch
 
     w_t, b_t, u = ups
-    B, L_in, c_in = x.shape
-    k_u, _, C = w_t.shape
-    h = torch.empty(B, L_in * u, C, device=x.device)
-    _build.check(
-        _build.load_library().viettts_mrf_convt(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(),
-            h.data_ptr(), B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), _build.stream_ptr(x.device),
-        ),
-        "prologue",
-    )
+    C = w_t.w.shape[2]
+    h = convt_f64(x.float(), w_t, b_t, u)
     zero = torch.zeros(C, dtype=torch.float64, device=x.device)
     twin = conv_transpose_same(
-        F.leaky_relu(x.float().transpose(1, 2), 0.1).double(), convt_weight_to_torch(w_t.float()).double(), zero, u
+        F.leaky_relu(x.float().transpose(1, 2), 0.1).double(), convt_weight_to_torch(w_t.w.float()).double(), zero, u
     ).float() + b_t.float()[None, :, None]
     twin = twin.transpose(1, 2)
     c127 = torch.tensor(127.0, device=x.device)
@@ -350,25 +343,40 @@ def first_code_flips(x, ups, act):
     return int((codes(h) != codes(twin)).sum().item())
 
 
-def check_fused_mrf_int8(dev, cfg, B=2, frames=(128, 100)):
+def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
+                         timed_cases=((2, 128), (1, MAIN_PATH_FRAMES))):
+    """K3 against its twin at every stage of each (B, frames) case, ResBlock1
+    and ResBlock2, static and dynamic scales, counting the first conv's int8
+    codes that kernel and twin give differently.  ResBlock1 stages are timed
+    at (2, 128) and at the main path's B=1 frame count: the stage (static
+    and dynamic) and its twin, then the split (the float64 prologue alone;
+    the int8 MRF convs alone, the stage without prologue and epilogue, with
+    their TOP/s) and bf16 K2 on the same inputs and float32 weights, stage
+    and MRF convs alone, as the yardstick."""
     import numpy as np
     import torch
 
-    from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights
+    from viettts_tpu_torch.ops.mrf import (
+        convt_f64, fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights,
+    )
 
     rng = np.random.default_rng(2)
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
+    bf16 = torch.bfloat16
     worst = {"max_abs_err": 0.0, "rel_rms": 0.0, "code_flips": 0, "codes": 0}
-    times = {"static": [0.0, 0.0], "dynamic": [0.0, 0.0]}
+    times = {}  # times[(B, T)] = per stage {name: ms or TOP/s}
     for resblock2 in (False, True):
-        for T in frames:
+        for B, T in cases:
+            timed = not resblock2 and (B, T) in timed_cases
             for i, (C_in, C, k_u, u, L_in, post) in enumerate(stage_shapes(cfg, T)):
                 w32, ups32, pst32 = stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, torch.float32)
-                x = torch.from_numpy(seeded(rng, B, L_in, C_in)).to(dev, torch.bfloat16)
+                x = torch.from_numpy(seeded(rng, B, L_in, C_in)).to(dev, bf16)
                 _, amax = mrf_walk(x.float().transpose(1, 2), w32, ks, ds, lambda j, y: y.abs().amax(), upsample=ups32)
-                w, ups, pst = prepare_mrf_weights(w32, ups32, pst32, torch.bfloat16, quantize_int8=True)
+                w, ups, pst = prepare_mrf_weights(w32, ups32, pst32, bf16, quantize_int8=True)
+                h = torch.from_numpy(seeded(rng, B, L_in * u, C)).to(dev, bf16)  # the MRF convs' input
+                row = {}
                 for mode, act in (("static", torch.stack(amax)), ("dynamic", None)):
-                    kw = dict(upsample=ups, post=pst, compute_dtype=torch.bfloat16, quantize_int8=True, act_scales=act)
+                    kw = dict(upsample=ups, post=pst, compute_dtype=bf16, quantize_int8=True, act_scales=act)
                     got = fused_mrf(x, w, ks, ds, **kw)
                     want = fused_mrf_plain(x, w, ks, ds, **kw)
                     if got.shape != want.shape or got.dtype != want.dtype:
@@ -387,12 +395,32 @@ def check_fused_mrf_int8(dev, cfg, B=2, frames=(128, 100)):
                         f"(bar {K3_REL_RMS}), first-conv codes flipped {flips} of {B * L_in * u * C}")
                     if not (torch.isfinite(got).all() and err <= bar and rel <= K3_REL_RMS):
                         raise AssertionError(f"{tag} differs from its twin: max {err}, rel-RMS {rel}")
-                    if T == frames[0] and not resblock2:
-                        ms = time_ms(lambda: fused_mrf(x, w, ks, ds, **kw))
-                        plain_ms = time_ms(lambda: fused_mrf_plain(x, w, ks, ds, **kw))
-                        times[mode][0] += ms
-                        times[mode][1] += plain_ms
-                        log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+                    if timed:
+                        sfx = "" if mode == "static" else "_dynamic"
+                        row["ms" + sfx] = time_ms(lambda: fused_mrf(x, w, ks, ds, **kw))
+                        row["plain_ms" + sfx] = time_ms(lambda: fused_mrf_plain(x, w, ks, ds, **kw))
+                        row["mrf_ms" + sfx] = time_ms(
+                            lambda: fused_mrf(h, w, ks, ds, compute_dtype=bf16, quantize_int8=True, act_scales=act))
+                if timed:
+                    xf = x.float()
+                    row["prologue_ms"] = time_ms(lambda: convt_f64(xf, ups[0], ups[1], u))
+                    row["mrf_tops"] = mrf_flop(cfg, B, L_in * u, C, False) / row["mrf_ms"] / 1e9
+                    wb, ub, pb = prepare_mrf_weights(w32, ups32, pst32, bf16)
+                    row["bf16_ms"] = time_ms(lambda: fused_mrf(x, wb, ks, ds, upsample=ub, post=pb, compute_dtype=bf16))
+                    row["bf16_mrf_ms"] = time_ms(lambda: fused_mrf(h, wb, ks, ds, compute_dtype=bf16))
+                    times.setdefault((B, T), []).append(row)
+                    log(f"K3 fused_mrf int8 stage {i} B={B} {T} frames: kernel {row['ms']:.3f} ms static, "
+                        f"{row['ms_dynamic']:.3f} dynamic (twin {row['plain_ms']:.3f} / {row['plain_ms_dynamic']:.3f}); "
+                        f"prologue alone {row['prologue_ms']:.3f} ms; MRF convs alone {row['mrf_ms']:.3f} ms = "
+                        f"{row['mrf_tops']:.1f} TOP/s ({100 * row['mrf_tops'] / (PEAK_INT8_OPS / 1e12):.1f}% of "
+                        f"the {PEAK_INT8_OPS / 1e12:.0f} TOP/s dense int8 peak), dynamic {row['mrf_ms_dynamic']:.3f} ms; "
+                        f"bf16 K2 on the same inputs {row['bf16_ms']:.3f} ms (MRF convs {row['bf16_mrf_ms']:.3f} ms)")
+    for (B, T), rows in times.items():
+        total = {key: sum(r[key] for r in rows) for key in rows[0] if key != "mrf_tops"}
+        log(f"K3 fused_mrf int8 B={B} {T} frames, 4 stages: kernel {total['ms']:.3f} ms static, "
+            f"{total['ms_dynamic']:.3f} dynamic; twin {total['plain_ms']:.3f} / {total['plain_ms_dynamic']:.3f}; "
+            f"prologues {total['prologue_ms']:.3f} ms, MRF convs {total['mrf_ms']:.3f} ms; "
+            f"bf16 K2 {total['bf16_ms']:.3f} ms")
     return worst, times
 
 
@@ -807,6 +835,14 @@ def main() -> int:
     k2_bound, k2_by = mrf_bound(cfg.hifigan, 2, 128, "bfloat16")
     k2_bound_f32, k2_by_f32 = mrf_bound(cfg.hifigan, 2, 128, "float32")
     k3_bound, k3_by = mrf_bound(cfg.hifigan, 2, 128, "int8")
+    k3_bound_b1, _ = mrf_bound(cfg.hifigan, 1, MAIN_PATH_FRAMES, "int8")
+    b1 = (1, MAIN_PATH_FRAMES)
+
+    def k3_sum(key, case=(2, 128)):
+        return sum(r[key] for r in k3_times[case])
+
+    def mrf_flop_sum(B, T):  # the MRF convs of the four ResBlock1 stages
+        return sum(mrf_flop(cfg.hifigan, B, L_in * u, C, False) for _, C, _, u, L_in, _ in stage_shapes(cfg.hifigan, T))
     kernels = [
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
@@ -835,11 +871,21 @@ def main() -> int:
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
-         "ms": k3_times["static"][0], "plain_ms": k3_times["static"][1],
-         "ms_dynamic": k3_times["dynamic"][0], "plain_ms_dynamic": k3_times["dynamic"][1],
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+         "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),
+         "ms_dynamic": k3_sum("ms_dynamic"), "plain_ms_dynamic": k3_sum("plain_ms_dynamic"),
+         "prologue_ms": k3_sum("prologue_ms"), "mrf_ms": k3_sum("mrf_ms"),
+         "mrf_tops": mrf_flop_sum(2, 128) / k3_sum("mrf_ms") / 1e9,
+         "bf16_ms": k3_sum("bf16_ms"), "bf16_mrf_ms": k3_sum("bf16_mrf_ms"),
+         "ms_b1": k3_sum("ms", b1), "ms_dynamic_b1": k3_sum("ms_dynamic", b1),
+         "plain_ms_b1": k3_sum("plain_ms", b1), "prologue_ms_b1": k3_sum("prologue_ms", b1),
+         "mrf_ms_b1": k3_sum("mrf_ms", b1), "mrf_tops_b1": mrf_flop_sum(*b1) / k3_sum("mrf_ms", b1) / 1e9,
+         "bf16_ms_b1": k3_sum("bf16_ms", b1), "bf16_mrf_ms_b1": k3_sum("bf16_mrf_ms", b1),
+         "bound_ms": k3_bound, "bound_by": k3_by, "bound_ms_b1": k3_bound_b1, "library_ms": None,
          "library": "none: no PyTorch call runs int8 convolutions",
-         "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1, bf16 storage; ms static scales"},
+         "stages": {f"B={B} T={T}": {key: [r[key] for r in rows] for key in rows[0]}
+                    for (B, T), rows in k3_times.items()},
+         "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "
+                  f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -141,13 +141,14 @@ def _imported_roots(path: Path):
 def _port_files():
     return sorted((REPO / "viettts_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_synthesis.py",
+        REPO / "scripts" / "probe_conv_pipeline.py",
     ]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     """Every module of the port, the chip smoke script and the port's
-    profiling script: no statement
+    profiling scripts: no statement
     imports jax, jaxlib, flax, optax or ``viettts_tpu`` (the
     ``viettts_tpu_torch`` package itself excepted), at any depth."""
     forbidden = {"jax", "jaxlib", "flax", "optax", "viettts_tpu"}

@@ -227,6 +227,84 @@ def test_mrf_convt_every_tile_matches_twin(cuda, dtype, k_u, u, C_in, C, tile):
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("C", [12, 72])
+@pytest.mark.parametrize("tile", range(5))
+def test_mrf_conv_int8_every_tile_matches_twin(cuda, mode, C, tile):
+    """One int8 MRF conv (bias and residual) in each tile shape of K3's
+    tensor-core kernel, against the twin's ``_conv_int8`` on the same
+    float32 input: bitwise equal, since the integer dot is exact and every
+    float32 step runs in the same order.  C = 12 takes the scalar loads (and
+    32-channel chunks in tile 2), C = 72 a partial 64-channel chunk; the
+    static scale is 0.8 of the input's amax, so that some inputs clip."""
+    rng = np.random.RandomState(6)
+    B, L, k, d = 2, 203, 7, 3
+    x = _w(rng, B, L, C).to(cuda)
+    w = _w(rng, k, C, C, s=0.5 / np.sqrt(k * C)).to(cuda)
+    b = _w(rng, C, s=0.05).to(cuda)
+    res = _w(rng, B, L, C).to(cuda)
+    q = mrf.quantize_weight_int8(w)
+    inp = F.leaky_relu(x, 0.1)
+    if mode == "static":
+        act = 0.8 * inp.abs().amax()
+        amax, stride = act.reshape(1), 0
+    else:
+        act = None
+        amax, stride = inp.abs().amax(dim=(1, 2)).contiguous(), 1
+    want = mrf._conv_int8(inp.transpose(1, 2), q.codes, q.scales, b, d, act).transpose(1, 2) + res
+    y = torch.empty_like(x)
+    lib = _build.load_library()
+    _build.check(
+        lib.viettts_mrf_conv_int8(
+            0, x.data_ptr(), q.kmajor.data_ptr(), q.scales.data_ptr(), b.data_ptr(), amax.data_ptr(),
+            stride, int(act is None), res.data_ptr(), y.data_ptr(), None, B, L, C, C, k, d, 0, tile, 1.0,
+            _build.stream_ptr(x.device),
+        ),
+        "int8 conv",
+    )
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+
+
+def _int8_codes(t, act):
+    """The int8 codes of lrelu(t) [B, L, C] at the amax ``act`` (static) or
+    at each batch row's amax (``act`` None), as the twin quantizes."""
+    y = F.leaky_relu(t, 0.1)
+    c127 = torch.tensor(127.0, device=t.device)
+    if act is not None:
+        return torch.round(torch.clamp(y * (c127 / act.clamp_min(1e-12)), -127.0, 127.0))
+    return torch.round(y * (c127 / y.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)))
+
+
+@pytest.mark.parametrize("k_u,u,C_in,C", [(16, 8, 48, 24), (4, 2, 20, 12)])
+@pytest.mark.parametrize("tile", range(5))
+def test_mrf_convt_f64_every_tile_matches_twin(cuda, k_u, u, C_in, C, tile):
+    """The int8 route's ConvTranspose prologue (float64 sums on the FP64
+    tensor cores) in each tile shape, against the twin's float64
+    ConvTranspose rounded once to float32: the products are exact in
+    float64 and only the order of the float64 sums differs, so the outputs
+    are equal but where a sum lies within ~1e-16 of a float32 rounding
+    boundary, and the int8 codes of the first conv's input are equal."""
+    rng = np.random.RandomState(7)
+    B, L_in = 2, 37
+    x = _w(rng, B, L_in, C_in).to(cuda)
+    w = _w(rng, k_u, C_in, C, s=(k_u * C_in / u) ** -0.5).to(cuda)
+    b = _w(rng, C, s=0.05).to(cuda)
+    _, (w_t, b_t, _), _ = mrf.prepare_mrf_weights([], (w, b, u), quantize_int8=True)
+    got = mrf.convt_f64(x, w_t, b_t, u, tile=tile)
+    zero = torch.zeros(C, dtype=torch.float64, device=cuda)
+    want = mrf.conv_transpose_same(
+        F.leaky_relu(x, 0.1).transpose(1, 2).double(), mrf.convt_weight_to_torch(w).double(), zero, u
+    ).float() + b[None, :, None]
+    want = want.transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, L_in * u, C)
+    torch.testing.assert_close(got, want, rtol=2.0 ** -22, atol=1e-7)
+    act = F.leaky_relu(want, 0.1).abs().amax()
+    for a in (act, 0.5 * act, None):
+        assert torch.equal(_int8_codes(got, a), _int8_codes(want, a))
+
+
 @pytest.mark.parametrize("mode", ["static", "dynamic", "static_4x"])
 @pytest.mark.parametrize(
     "B,L_in,C_in,C,k_u,u,post,resblock2",

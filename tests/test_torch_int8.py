@@ -128,7 +128,8 @@ def test_int8_weights_are_quantized_from_float32():
     want = mrf.quantize_weight_int8(w1)
     torch.testing.assert_close(weights[0][0].codes, want.codes, rtol=0, atol=0)
     torch.testing.assert_close(weights[0][0].scales, want.scales, rtol=0, atol=0)
-    assert upsample[0].dtype == torch.bfloat16  # the prologue keeps bf16 storage
+    assert isinstance(upsample[0], mrf.F64Conv)
+    assert upsample[0].w.dtype == torch.bfloat16  # the prologue keeps bf16 storage
 
 
 def test_cpu_int8_takes_the_plain_twin():
@@ -159,6 +160,77 @@ def test_wrapper_rejects_mismatched_int8_arguments():
         mrf.fused_mrf(xt, w32, KERNEL_SIZES, DILATIONS, act_scales=torch.ones(mrf.n_convs(w32)))
     with pytest.raises(ValueError, match="quantize from float32"):
         mrf.quantize_weight_int8(torch.ones(3, 4, 4, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_weights_carry_the_kernel_layouts(dtype):
+    """``prepare_mrf_weights(quantize_int8=True)``: W1/W2 also carry their
+    codes K-major, [D, k, C_out, C_in], for the kernel's int8 dots, and the
+    upsample weight its float64 copy [k, C_out, C_in] for the FP64 prologue,
+    exactly the stored values (float32: the float32 weights themselves)."""
+    _, weights, ups, _ = _case(12, 1, 8, 24, 12, (16, 8), False)
+    tw, tu, _ = mrf.prepare_mrf_weights(
+        _to(weights, torch.from_numpy), _to(ups, torch.from_numpy), None, dtype, quantize_int8=True,
+    )
+    for blk in tw:
+        for w in (blk[0], blk[2]):
+            assert w.kmajor.dtype == torch.int8 and w.kmajor.is_contiguous()
+            assert w.kmajor.shape == w.codes.shape[:2] + (12, 12)
+            assert torch.equal(w.kmajor, w.codes.transpose(-1, -2))
+    w_t = tu[0]
+    assert isinstance(w_t, mrf.F64Conv) and w_t.w.dtype == dtype
+    assert w_t.kmajor.dtype == torch.float64 and w_t.kmajor.is_contiguous()
+    assert w_t.kmajor.shape == (16, 12, 24)
+    assert torch.equal(w_t.kmajor.transpose(-1, -2), w_t.w.double())
+    if dtype == torch.float32:
+        assert torch.equal(w_t.kmajor.transpose(-1, -2).float(), torch.from_numpy(ups[0]))
+
+
+def _on(tree, device):
+    """A prepared weight tree (tuples, NamedTuples, tensors) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_on(t, device) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_on(t, device) for t in tree)
+    return tree
+
+
+@pytest.mark.parametrize("fault", [None, "no_kmajor", "kmajor_shape", "kmajor_dtype", "no_f64", "f64_shape"])
+def test_wrapper_checks_the_kernel_layouts(fault):
+    """A mis-shaped or mistyped kernel layout is refused everywhere; a
+    missing one only where a kernel would run (any device but the CPU:
+    ``meta`` stands in for the card here, and with every layout in place it
+    gets as far as "no kernel for device")."""
+    x, weights, ups, _ = _case(13, 1, 8, 24, 12, (16, 8), False)
+    tw, tu, _ = mrf.prepare_mrf_weights(
+        _to(weights, torch.from_numpy), _to(ups, torch.from_numpy), quantize_int8=True,
+    )
+    w1 = tw[0][0]
+    if fault == "no_kmajor":
+        w1 = w1._replace(kmajor=None)
+    elif fault == "kmajor_shape":
+        w1 = w1._replace(kmajor=w1.kmajor[:, :1].contiguous())
+    elif fault == "kmajor_dtype":
+        w1 = w1._replace(kmajor=w1.kmajor.float())
+    tw = [(w1,) + tuple(tw[0][1:])] + list(tw[1:])
+    if fault == "no_f64":
+        tu = (tu[0].w,) + tuple(tu[1:])
+    elif fault == "f64_shape":
+        tu = (tu[0]._replace(kmajor=tu[0].kmajor.transpose(-1, -2).contiguous()),) + tuple(tu[1:])
+    xt = torch.from_numpy(x)
+    refused = {"no_kmajor": "no K-major codes", "kmajor_shape": "K-major codes", "kmajor_dtype": "kmajor is torch.float32",
+               "no_f64": "must be F64Conv", "f64_shape": "float64 K-major weight"}.get(fault)
+    if fault in ("no_kmajor", "no_f64", None):
+        # the twin needs no kernel layout
+        mrf.fused_mrf(xt, tw, KERNEL_SIZES, DILATIONS, upsample=tu, quantize_int8=True)
+        with pytest.raises(ValueError, match=refused or "no kernel for device meta"):
+            mrf.fused_mrf(_on(xt, "meta"), _on(tw, "meta"), KERNEL_SIZES, DILATIONS,
+                          upsample=_on(tu, "meta"), quantize_int8=True)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            mrf.fused_mrf(xt, tw, KERNEL_SIZES, DILATIONS, upsample=tu, quantize_int8=True)
 
 
 # 16 mel frames: the smallest length at which JAX runs every stage of this

@@ -1,37 +1,50 @@
-// The int8 MRF conv of a HiFi-GAN generator stage (K3), and the per-row
-// amax reduce its dynamic mode needs.
+// The int8 route of a HiFi-GAN generator stage (K3): its 18 MRF convs on
+// the int8 tensor cores, its ConvTranspose prologue on the FP64 tensor
+// cores, and the per-row amax reduce that the dynamic scales need.
 //
 // Replaces the quantize_int8 mode of the TPU kernel
 // viettts_tpu/ops/mrf.py::fused_mrf (_mrf_kernel, mrf.py:280-357 in the
 // kernel, :568-600 on the host), which ran each of a stage's 18 MRF convs
 // as int8 x int8 -> int32 MXU passes over space-to-depth packed tiles.
-// Here each conv is a tiled direct conv, the same call shape as K2's
-// conv_kernel (mrf.cu), with the same modes for residual and block mean:
+// Both convs here run in K2's implicit-GEMM pipeline (mma_conv_kernel,
+// mrf_common.cuh), with the same tiles, shifted windows, cp.async ring and
+// k-groups:
 //
-//   q[l, ci] = rint(lrelu(x[l, ci]) * inv)     (static: clipped to +-127)
-//   v[l, co] = float(sum_{t, ci} q[l + (t - (k-1)/2) * dil, ci] * w[t, ci, co])
-//              * mult[co] + bias[co] (+ res[l, co])
+// * MRF conv (Int8Mma, mma.sync m16n8k32 s8 x s8 -> s32):
+//     q[l, ci] = rint(lrelu(x[l, ci]) * inv)     (static: clipped to +-127)
+//     v[l, co] = float(sum_{t, ci} q[l + (t - (k-1)/2) * dil, ci] * w[t, ci, co])
+//                * mult[co] + bias[co] (+ res[l, co])
+//   static:  a = max(act, 1e-12), inv = 127 / a, mult = scale[co] * (a / 127)
+//   dynamic: a = amax of |lrelu(x)| over the batch row, inv = 127 / max(a, 1e-30),
+//            mult = (a * (1/127)) * scale[co]
+//   in exactly the float32 operations and order of the TPU kernel and of the
+//   plain twin (ops/mrf.py::_conv_int8): explicit _rn intrinsics keep nvcc
+//   from contracting the dequant multiply and the bias add into one FMA,
+//   and rounding is half to even (__float2int_rn, as jnp.round), never
+//   roundf.  The window is quantized as it is staged into shared memory, so
+//   activations cross device memory in float32 once per conv, as in K2.
+//   The int32 sums are exact (|sum| <= k * C_in * 127^2 < 2^31 for k * C_in
+//   below 133,000; the default's largest is 11 * 256), so a conv
+//   fed the same float32 input gives bitwise the twin's output.  ldmatrix
+//   .trans moves 16-bit elements only, so the weight codes come K-major,
+//   [k, C_out, C_in] (Int8Conv.kmajor, made once on the host).
+// * ConvTranspose prologue (F64Mma, mma.sync m16n8k8 f64): the u
+//   interleaved stride-1 convs of K2's float prologue, with A =
+//   double(lrelu(x)), float64 weights [k, C_out, C_in] (F64Conv.kmajor, an
+//   exact conversion) and float64 sums, rounded once to float32 and then
+//   added to the bias.  A float32 x float32 product is exact in float64,
+//   so only the order of the float64 sums differs from the twin's: ~1e-16
+//   relative, far below a float32 ulp, and kernel and twin give the first
+//   conv's input the same int8 codes (TF32 splits keep 22 of 24 bits and
+//   would flip some).
 //
-// static:  a = max(act, 1e-12), inv = 127 / a, mult = scale[co] * (a / 127)
-// dynamic: a = amax of |lrelu(x)| over the batch row, inv = 127 / max(a, 1e-30),
-//          mult = (a * (1/127)) * scale[co]
-//
-// in exactly the float32 operations and order of the TPU kernel and of the
-// plain twin (ops/mrf.py::_conv_int8): explicit _rn intrinsics keep nvcc
-// from contracting the dequant multiply and the bias add into one FMA, and
-// rounding is half to even (__float2int_rn, as jnp.round), never roundf.
-// The integer dot is exact, so the kernel differs from the twin only where
-// an upstream float32 value (the prologue's sums) rounds differently and
-// flips an int8 code.
-//
-// What bounds it on the H100: the same narrow convs as K2 with a 4x denser
-// inner product: each thread accumulates a 4 x 4 int32 register tile with
-// __dp4a (four int8 products per instruction on the CUDA cores), from
-// codes packed four input channels to a 32-bit word in shared memory.
-// The input window is quantized as it is loaded (SAME zero padding at the
-// true sequence edges stays a zero code), so activations cross device
-// memory in float32 once per conv, as in K2.  Tensor-core int8
-// (mma.sync / wgmma) is later work.
+// What bounds it on the H100: the MRF convs' 2 * B * L * C^2 * 126
+// operations at the dense int8 rate (1,979 TOP/s), the prologue's
+// 2 * B * L * C * C_in * k/u at the FP64 tensor rate (67 TFLOP/s); bytes
+// are small (each conv reads and writes one float32 [B, L, C] tensor,
+// which the stage keeps in L2).  The per-iteration overhead of the
+// pipeline (barriers, the window's conversion) is the same as K2's bf16
+// route, whose MRF tensor work an int8 k32 step halves.
 
 #include <cstdint>
 
@@ -39,22 +52,15 @@
 
 namespace {
 
-using viettts::fit_smem;
-using viettts::from_f;
+using viettts::ConvArgs;
+using viettts::F64Mma;
+using viettts::Int8Mma;
+using viettts::launch_mma_conv;
+using viettts::launch_tile;
 using viettts::lrelu;
-using viettts::NT;
-using viettts::TL;
-using viettts::TN;
+using viettts::pick_tile;
 
-constexpr int QK = 32;       // input channels per shared-memory stage
-constexpr int QW = QK / 4;   // ... as packed 32-bit words of four codes
-constexpr float INV127 = (float)(1.0 / 127.0);  // the f32 constant JAX uses
-constexpr int RT = 256;      // amax reduce: threads per block
-
-// Packs the int8 codes of up to four consecutive input channels.
-__device__ __forceinline__ int pack4(int word, int q, int j) {
-  return word | ((q & 0xff) << (8 * j));
-}
+constexpr int RT = 256;  // amax reduce: threads per block
 
 // amax[b] = max(amax[b], max_i |lrelu(x[b, i])|) over the n values of row b.
 // amax must start at 0: non-negative floats order like their bit patterns.
@@ -77,140 +83,44 @@ __global__ void __launch_bounds__(RT) absmax_kernel(const float* __restrict__ x,
   }
 }
 
-// mode 0: y = v;  mode 1: y += v;  mode 2: out = ((y ? y : 0) + v) / div.
-// res may alias y (each element is read and written by one thread); x never does.
-// act[b * act_stride] is the activation amax of batch row b (stride 0: one
-// calibrated value for all rows).
-template <typename TO>
-__global__ void __launch_bounds__(NT) conv_int8_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-    const float* __restrict__ bias, const float* __restrict__ act, int act_stride, int dynamic,
-    const float* res, float* y, TO* out, int L, int C_in, int C_out, int k, int dil, int mode,
-    float div) {
-  extern __shared__ int smq[];
-  const int win = TL + (k - 1) * dil;
-  int* xs = smq;               // [win][QW] codes of lrelu(x)
-  int* ws = smq + win * QW;    // [k][QW][TN] weight codes
-  const int b = blockIdx.z;
-  const int l0 = blockIdx.x * TL;
-  const int c0n = blockIdx.y * TN;
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
-  const int half = (k - 1) / 2 * dil;
-  const float* xb = x + (size_t)b * L * C_in;
-  const float a_raw = act[(size_t)b * act_stride];
-  const float a = dynamic ? a_raw : fmaxf(a_raw, 1e-12f);
-  const float inv = __fdiv_rn(127.f, dynamic ? fmaxf(a, 1e-30f) : a);
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int c0 = 0; c0 < C_in; c0 += QK) {
-    __syncthreads();
-    for (int e = tid; e < win * QW; e += NT) {
-      const int r = e / QW, kw = e % QW;
-      const int l = l0 - half + r;
-      int word = 0;
-      if (l >= 0 && l < L) {
-        const float* xr = xb + (size_t)l * C_in;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ci = c0 + 4 * kw + j;
-          if (ci < C_in) {
-            float v = __fmul_rn(lrelu(xr[ci], 0.1f), inv);
-            if (!dynamic) v = fminf(fmaxf(v, -127.f), 127.f);
-            word = pack4(word, __float2int_rn(v), j);
-          }
-        }
-      }
-      xs[e] = word;
-    }
-    for (int e = tid; e < k * QW * TN; e += NT) {
-      const int t = e / (QW * TN), kw = (e / TN) % QW, n = e % TN;
-      const int co = c0n + n;
-      int word = 0;
-      if (co < C_out) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ci = c0 + 4 * kw + j;
-          if (ci < C_in) word = pack4(word, w[((size_t)t * C_in + ci) * C_out + co], j);
-        }
-      }
-      ws[e] = word;
-    }
-    __syncthreads();
-    for (int t = 0; t < k; ++t) {
-      const int* xt = xs + t * dil * QW;
-      const int* wt = ws + t * QW * TN;
-#pragma unroll
-      for (int kw = 0; kw < QW; ++kw) {
-        int av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = xt[(ty + 32 * i) * QW + kw];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = wt[kw * TN + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = c0n + tx + 8 * j;
-    if (co >= C_out) continue;
-    const float mult = dynamic ? __fmul_rn(__fmul_rn(a, INV127), scale[co])
-                               : __fmul_rn(scale[co], __fdiv_rn(a, 127.f));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int l = l0 + ty + 32 * i;
-      if (l >= L) continue;
-      const size_t o = ((size_t)b * L + l) * C_out + co;
-      float v = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), mult), bias[co]);
-      if (res) v = __fadd_rn(v, res[o]);
-      if (mode == 0) {
-        y[o] = v;
-      } else if (mode == 1) {
-        y[o] = __fadd_rn(y[o], v);
-      } else {
-        out[o] = from_f<TO>(__fdiv_rn(y ? __fadd_rn(y[o], v) : v, div));
-      }
-    }
-  }
-}
-
-template <typename TO>
-int launch_conv_int8(const void* x, const void* w, const void* scale, const void* bias,
-                     const void* act, int act_stride, int dynamic, const void* res, void* y,
-                     void* out, int B, int L, int C_in, int C_out, int k, int dil, int mode,
-                     float div, cudaStream_t s) {
-  const size_t smem = sizeof(int) * ((size_t)(TL + (k - 1) * dil) * QW + (size_t)k * QW * TN);
-  cudaError_t err = fit_smem(conv_int8_kernel<TO>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + TL - 1) / TL, (C_out + TN - 1) / TN, B);
-  conv_int8_kernel<TO><<<grid, NT, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(act), act_stride, dynamic, static_cast<const float*>(res),
-      static_cast<float*>(y), static_cast<TO*>(out), L, C_in, C_out, k, dil, mode, div);
-  return (int)cudaGetLastError();
+// tile < 0 picks the tile shape from the problem size, else indexes TILES.
+// Convs of at most 32 input channels take 32-channel chunks in the tile
+// whose single k-group takes a whole chunk (the last stage's pick); a
+// tile that splits the k-steps between two groups needs two k32 steps a
+// chunk, so it takes 64-channel chunks, half zeros.
+int launch_int8(int tile, const ConvArgs& a, cudaStream_t s) {
+  if (tile < 0) tile = pick_tile(a.B * a.u, a.L_in, a.C_out);
+  if (a.C_in <= 32 && tile == 2) return launch_mma_conv<Int8Mma<32>, 128, 32, 32, 16, 1>(a, s);
+  return launch_tile<Int8Mma<64>>(tile, a, s);
 }
 
 }  // namespace
 
+// One int8 MRF conv (SAME, dilation dil) on the tensor cores.  x float32
+// [B, L, C_in]; w the int8 codes [k, C_out, C_in]; scale [C_out]; act: the
+// activation amax of batch row b at act[b * act_stride] (dynamic: this
+// row's, else the calibrated one); mode 0: y = v;  1: y += v;  2: out = (y ?
+// y + v : v) / div, bf16 if out_bf16 else float32.  res may alias y.
 extern "C" int viettts_mrf_conv_int8(int out_bf16, const void* x, const void* w,
                                      const void* scale, const void* bias, const void* act,
                                      int act_stride, int dynamic, const void* res, void* y,
                                      void* out, int B, int L, int C_in, int C_out, int k,
-                                     int dil, int mode, float div, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    return launch_conv_int8<__nv_bfloat16>(x, w, scale, bias, act, act_stride, dynamic, res, y,
-                                           out, B, L, C_in, C_out, k, dil, mode, div, s);
-  return launch_conv_int8<float>(x, w, scale, bias, act, act_stride, dynamic, res, y, out, B, L,
-                                 C_in, C_out, k, dil, mode, div, s);
+                                     int dil, int mode, int tile, float div, void* stream) {
+  const ConvArgs a{x, w, bias, res, y, out, out_bf16, B, L, 1, (k - 1) / 2 * dil, C_in, C_out,
+                   k, dil, mode, div, scale, act, act_stride, dynamic};
+  return launch_int8(tile, a, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 route's ConvTranspose prologue on the FP64 tensor cores, as u
+// interleaved stride-1 convs.  x float32 [B, L_in, C_in]; w float64
+// [k, C_out, C_in]; y float32 [B, L_in * u, C_out] = float(float64 sum) +
+// bias.  tile < 0 picks the tile shape from the problem size.
+extern "C" int viettts_mrf_convt_f64(const void* x, const void* w, const void* bias, void* y,
+                                     int B, int L_in, int C_in, int C_out, int k, int u,
+                                     int pad_a, int tile, void* stream) {
+  const ConvArgs a{x, w, bias, nullptr, y, nullptr, 0, B, L_in, u, pad_a, C_in, C_out, k, 1, 0, 1.f};
+  if (tile < 0) tile = pick_tile(B * u, L_in, C_out);
+  return launch_tile<F64Mma>(tile, a, static_cast<cudaStream_t>(stream));
 }
 
 // amax [B] float32, zeroed by the caller; x [B, n] float32.
@@ -220,4 +130,22 @@ extern "C" int viettts_mrf_absmax(const void* x, void* amax, int B, long long n,
   absmax_kernel<<<dim3((unsigned)blocks, B), RT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(amax), n);
   return (int)cudaGetLastError();
+}
+
+// A stage's int8 MRF convs (plan rows of viettts::PLAN_FIELDS, see there),
+// each as viettts_mrf_conv_int8 with the tile picked by shape, after
+// filling its act[b] with the amax of its input's row b where dynamic
+// (act zeroed by the caller); stops at the first error.
+extern "C" int viettts_mrf_conv_int8_plan(int out_bf16, int B, int L, int C, float div, int n,
+                                          const void* plan, void* stream) {
+  const long long* rows = static_cast<const long long*>(plan);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < n; ++i) {
+    const ConvArgs a = viettts::plan_conv(rows + (size_t)i * viettts::PLAN_FIELDS, out_bf16, B, L, C, div);
+    int err = 0;
+    if (a.dynamic) err = viettts_mrf_absmax(a.x, const_cast<void*>(a.act), B, (long long)L * C, stream);
+    if (err == 0) err = launch_int8(-1, a, s);
+    if (err != 0) return err;
+  }
+  return 0;
 }

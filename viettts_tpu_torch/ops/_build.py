@@ -35,29 +35,39 @@ NVCC_FLAGS = (
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-# C signatures of the entry points in csrc/ (all return a cudaError_t as int)
+LL = ctypes.c_longlong
+# C signatures of the extern "C" entry points in csrc/ (tests/test_torch_build.py
+# holds the two in step); all return a cudaError_t as int but those in RESTYPES
 SIGNATURES = {
     # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out, exchange,
     # B, L, H, P, D, ctas, units, prenet_cols, proj_cols, smem_bytes, scale, stream
     "viettts_ar_decode": [P] * 12 + [I] * 10 + [F, P],
-    # bf16, x, w, bias, y, B, L_in, C_in, C_out, k, u, pad_a, stream
-    "viettts_mrf_convt": [I, P, P, P, P] + [I] * 7 + [P],
     # w_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, y,
     # B, L_in, C_in, C_out, k, u, pad_a, tile (-1: by shape), stream
     "viettts_mrf_convt_mma": [I, P, P, P, P] + [I] * 8 + [P],
     # w_bf16, out_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, res, y, out,
     # B, L, C_in, C_out, k, dilation, mode, tile (-1: by shape), div, stream
     "viettts_mrf_conv": [I, I] + [P] * 6 + [I] * 8 + [F, P],
+    # w_bf16, out_bf16, B, L, C, div, n, plan (n rows of PLAN_FIELDS int64), stream
+    "viettts_mrf_conv_plan": [I] * 5 + [F, I, P, P],
     # w_bf16, x, w, bias, out, B, L, C, C_post, k, stream
     "viettts_mrf_post": [I, P, P, P, P] + [I] * 5 + [P],
-    # out_bf16, x, w, scale, bias, act, act_stride, dynamic, res, y, out,
-    # B, L, C_in, C_out, k, dilation, mode, div, stream
-    "viettts_mrf_conv_int8": [I] + [P] * 5 + [I, I] + [P] * 3 + [I] * 7 + [F, P],
-    # x, amax, B, n, stream
-    "viettts_mrf_absmax": [P, P, I, ctypes.c_longlong, P],
     # x_bf16, y_f32, n, stream
-    "viettts_mrf_to_f32": [P, P, ctypes.c_longlong, P],
+    "viettts_mrf_to_f32": [P, P, LL, P],
+    # code -> its name
+    "viettts_error_string": [I],
+    # out_bf16, x, w (int8 [k, C_out, C_in]), scale, bias, act, act_stride, dynamic,
+    # res, y, out, B, L, C_in, C_out, k, dilation, mode, tile (-1: by shape), div, stream
+    "viettts_mrf_conv_int8": [I] + [P] * 5 + [I, I] + [P] * 3 + [I] * 8 + [F, P],
+    # x, w (float64 [k, C_out, C_in]), bias, y, B, L_in, C_in, C_out, k, u, pad_a,
+    # tile (-1: by shape), stream
+    "viettts_mrf_convt_f64": [P] * 4 + [I] * 8 + [P],
+    # out_bf16, B, L, C, div, n, plan (n rows of PLAN_FIELDS int64), stream
+    "viettts_mrf_conv_int8_plan": [I] * 4 + [F, I, P, P],
+    # x, amax, B, n, stream
+    "viettts_mrf_absmax": [P, P, I, LL, P],
 }
+RESTYPES = {"viettts_error_string": ctypes.c_char_p}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
@@ -125,9 +135,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.viettts_error_string.argtypes = [I]
-    lib.viettts_error_string.restype = ctypes.c_char_p
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

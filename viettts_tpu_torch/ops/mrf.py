@@ -25,10 +25,12 @@ dots did; ``fused_mrf_plain(bf16_dots=True)`` rounds the same way.
 ``quantize_int8=True`` runs the 18 MRF convs as int8 x int8 -> int32 dots
 (kernel K3, the TPU kernel's ``quantize_int8`` mode): W1/W2 are
 ``Int8Conv`` codes with per-output-channel scales, quantized once from the
-float32 weights by ``prepare_mrf_weights(quantize_int8=True)``; the
+float32 weights by ``prepare_mrf_weights(quantize_int8=True)``, which also
+lays the codes out K-major for the kernel's int8 tensor-core dots; the
 epilogue, biases, residuals and the block mean stay as on the float route,
-and the prologue sums in float64 (rounded once to float32), so that the
-kernel and the twin give its output the same int8 codes.  Each conv's
+and the prologue sums in float64 (rounded once to float32; the kernel's on
+the FP64 tensor cores, from the ``F64Conv`` weights), so that the kernel
+and the twin give its output the same int8 codes.  Each conv's
 input ``lrelu(x)`` is quantized with one scale: ``act_scales`` [n_convs]
 (calibrated amaxes in flat conv order, ``mrf_walk``) clips at a fixed
 scale; without it the scale is the amax of the conv input over each batch
@@ -39,13 +41,15 @@ of 128 lanes); longer inputs differ from JAX by design.
 
 ``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``) on CUDA
 tensors and ``fused_mrf_plain`` on CPU tensors; any other device raises.
-``fused_mrf.launches`` counts stages that launched K2 kernels,
-``fused_mrf.int8_launches`` stages that launched K3, and
+``fused_mrf.launches`` counts stages that launched K2 kernels (on the int8
+route: the epilogue or a bf16 input's cast), ``fused_mrf.int8_launches``
+stages that launched K3 (the int8 MRF convs and the float64 prologue), and
 ``fused_mrf.plain_calls`` calls of the twin.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +60,7 @@ from viettts_tpu_torch.ops import _build
 LRELU_SLOPE = 0.1
 POST_LRELU_SLOPE = 0.01  # torch's default slope, as upstream HiFi-GAN uses
 MAX_POST_CHANNELS = 4  # the epilogue kernel keeps one accumulator per channel
+PLAN_FIELDS = 13  # int64 fields of a conv in a launch plan (csrc/mrf_common.cuh)
 
 
 class Tf32Conv(NamedTuple):
@@ -84,18 +89,33 @@ def tf32_split(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_round(w - hi)], dim=1).transpose(-1, -2).contiguous()
 
 
+class F64Conv(NamedTuple):
+    """The int8 route's ConvTranspose weight: ``w`` [k, C_in, C_out] in the
+    storage dtype (what the twin reads) and ``kmajor`` float64 [k, C_out,
+    C_in], ``w`` converted exactly and transposed for the kernel's float64
+    tensor-core dots (whose B tile rows must be contiguous in C_in)."""
+
+    w: torch.Tensor
+    kmajor: torch.Tensor
+
+
 def _dense(w):
-    """The float weight tensor of a W1/W2 entry (a tensor or a ``Tf32Conv``)."""
-    return w.w if isinstance(w, Tf32Conv) else w
+    """The float weight tensor of an entry (a tensor, a ``Tf32Conv`` or an
+    ``F64Conv``)."""
+    return w.w if isinstance(w, (Tf32Conv, F64Conv)) else w
 
 
 class Int8Conv(NamedTuple):
     """A resblock's stacked convs quantized to int8: ``codes`` int8
     [D, k, C_in, C_out] and per-output-channel ``scales`` float32 [D, C_out],
-    so that ``w ~= codes * scales``."""
+    so that ``w ~= codes * scales``; ``kmajor`` int8 [D, k, C_out, C_in],
+    the codes in the layout of the kernel's int8 dots (``ldmatrix`` cannot
+    transpose 8-bit elements, so the B tile rows must be contiguous in
+    C_in).  The twin reads ``codes``; the kernel needs ``kmajor``."""
 
     codes: torch.Tensor
     scales: torch.Tensor
+    kmajor: Optional[torch.Tensor] = None
 
 
 def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
@@ -106,8 +126,8 @@ def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
     if w.dtype != torch.float32:
         raise ValueError(f"quantize_weight_int8: quantize from float32 weights, got {w.dtype}")
     s = torch.clamp_min(w.abs().amax(dim=(-3, -2)), 1e-12) / _f32(127.0, w)
-    codes = torch.clamp(torch.round(w / s[..., None, None, :]), -127.0, 127.0)
-    return Int8Conv(codes.to(torch.int8).contiguous(), s.contiguous())
+    codes = torch.clamp(torch.round(w / s[..., None, None, :]), -127.0, 127.0).to(torch.int8)
+    return Int8Conv(codes.contiguous(), s.contiguous(), codes.transpose(-1, -2).contiguous())
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -293,8 +313,9 @@ def prepare_mrf_weights(
     """Cast a float32 weight set to what ``fused_mrf`` takes: weights in the
     storage dtype, biases in float32, all contiguous.  ``quantize_int8``
     turns W1/W2 into ``Int8Conv``, quantized from the float32 values (the
-    TPU kernel packs and quantizes in float32, never from bf16); on the
-    float32 route they become ``Tf32Conv`` (split once here, not per call)."""
+    TPU kernel packs and quantizes in float32, never from bf16), and the
+    upsample weight into ``F64Conv``; on the float32 route they become
+    ``Tf32Conv`` (split once here, not per call)."""
     store = storage_dtype(compute_dtype)
 
     def w(t):
@@ -314,7 +335,10 @@ def prepare_mrf_weights(
     weights = [(w(w1), b(b1), w(w2), b(b2)) for w1, b1, w2, b2 in weights]
     if upsample is not None:
         w_t = _dense(upsample[0])
-        if store == torch.float32 and not quantize_int8:
+        if quantize_int8:
+            w_t = w_t.to(store).contiguous()
+            w_t = F64Conv(w_t, w_t.double().transpose(-1, -2).contiguous())
+        elif store == torch.float32:
             w_t = w_t.float().contiguous()
             w_t = Tf32Conv(w_t, tf32_split(w_t[None])[0])
         else:
@@ -326,7 +350,10 @@ def prepare_mrf_weights(
 
 
 def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_int8, act_scales):
-    """Validate shapes, dtypes, devices and contiguity; returns (L, C)."""
+    """Validate shapes, dtypes, devices and contiguity; returns (L, C).  The
+    kernels' layouts (``Int8Conv.kmajor``, ``F64Conv``) are checked where
+    present and required on every device but the CPU."""
+    kernel = x.device.type != "cpu"
     if x.dim() != 3 or x.dtype != store:
         raise ValueError(f"fused_mrf: x must be [B, L, C] {store}, got {tuple(x.shape)} {x.dtype}")
     if len(weights) != len(kernel_sizes) or len(dilations) != len(kernel_sizes):
@@ -343,6 +370,15 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_
             if tuple(w_t.split.shape) != (2, k_u, C, c_in):
                 raise ValueError(f"fused_mrf: upsample TF32 split {tuple(w_t.split.shape)}, want {(2, k_u, C, c_in)}")
             tensors += [("upsample split", w_t.split, torch.float32)]
+        if quantize_int8:
+            if isinstance(w_t, F64Conv):
+                if tuple(w_t.kmajor.shape) != (k_u, C, c_in):
+                    raise ValueError(f"fused_mrf: upsample float64 K-major weight {tuple(w_t.kmajor.shape)}, "
+                                     f"want {(k_u, C, c_in)}")
+                tensors += [("upsample kmajor", w_t.kmajor, torch.float64)]
+            elif kernel:
+                raise ValueError("fused_mrf kernel: the int8 route's upsample weight must be F64Conv "
+                                 "(prepare_mrf_weights)")
     else:
         L, C = x.shape[1], x.shape[2]
     for blk, k in enumerate(kernel_sizes):
@@ -371,6 +407,14 @@ def _check(x, weights, kernel_sizes, dilations, upsample, post, store, quantize_
                     raise ValueError(f"fused_mrf: block {blk} {name} scales {tuple(w.scales.shape)}, want {(n, C)}")
                 tensors += [(f"{name}[{blk}] codes", w.codes, torch.int8),
                             (f"{name}[{blk}] scales", w.scales, torch.float32)]
+                if w.kmajor is not None:
+                    if tuple(w.kmajor.shape) != (n, k, C, C):
+                        raise ValueError(f"fused_mrf: block {blk} {name} K-major codes {tuple(w.kmajor.shape)}, "
+                                         f"want {(n, k, C, C)}")
+                    tensors += [(f"{name}[{blk}] kmajor", w.kmajor, torch.int8)]
+                elif kernel:
+                    raise ValueError(f"fused_mrf kernel: block {blk} {name} has no K-major codes "
+                                     "(quantize_weight_int8)")
             else:
                 tensors += [(f"{name}[{blk}]", _dense(w), store)]
                 if isinstance(w, Tf32Conv):
@@ -449,33 +493,32 @@ def _fused_mrf_cuda(
     bf = int(store == torch.bfloat16)
     B = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
-    # K3 replaces the MRF convs; K2 still runs the prologue, the epilogue
-    # and a bf16 input's cast
-    if not quantize_int8 or upsample is not None or post is not None or store != torch.float32:
+    # K3 runs the int8 route's MRF convs and its prologue; K2 still runs
+    # the epilogue and a bf16 input's cast
+    if not quantize_int8 or post is not None or store != torch.float32:
         fused_mrf.launches += 1
 
     if upsample is not None:
         w_t, b_t, u = upsample
-        k_u, c_in, _ = _dense(w_t).shape
-        h = torch.empty(B, L, C, **f32)
-        pad_a = convt_lead_pad(k_u, u)
-        if quantize_int8:  # CUDA cores, float64 sums: the int8 codes depend on them
-            code = lib.viettts_mrf_convt(
-                bf, x.data_ptr(), w_t.data_ptr(), b_t.data_ptr(), h.data_ptr(),
-                B, x.shape[1], c_in, C, k_u, u, pad_a, stream,
-            )
-        else:  # tensor cores, u interleaved stride-1 convs of a float32 input
-            xf = x
-            if store == torch.bfloat16:
-                xf = torch.empty(x.shape, **f32)
-                _build.check(lib.viettts_mrf_to_f32(x.data_ptr(), xf.data_ptr(), x.numel(), stream),
-                             "fused_mrf prologue input cast")
+        # tensor cores, u interleaved stride-1 convs of a float32 input
+        xf = x
+        if store == torch.bfloat16:
+            xf = torch.empty(x.shape, **f32)
+            _build.check(lib.viettts_mrf_to_f32(x.data_ptr(), xf.data_ptr(), x.numel(), stream),
+                         "fused_mrf prologue input cast")
+        if quantize_int8:  # float64 sums: the int8 codes depend on them
+            h = convt_f64(xf, w_t, b_t, u)
+        else:
+            k_u, c_in, _ = _dense(w_t).shape
+            h = torch.empty(B, L, C, **f32)
             wk = w_t.split if isinstance(w_t, Tf32Conv) else w_t
-            code = lib.viettts_mrf_convt_mma(
-                bf, xf.data_ptr(), wk.data_ptr(), b_t.data_ptr(), h.data_ptr(),
-                B, x.shape[1], c_in, C, k_u, u, pad_a, -1, stream,
+            _build.check(
+                lib.viettts_mrf_convt_mma(
+                    bf, xf.data_ptr(), wk.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+                    B, x.shape[1], c_in, C, k_u, u, convt_lead_pad(k_u, u), -1, stream,
+                ),
+                "fused_mrf prologue",
             )
-        _build.check(code, "fused_mrf prologue")
     elif store == torch.float32:
         h = x  # read only: the MRF never writes its trunk
     else:
@@ -500,38 +543,37 @@ def _fused_mrf_cuda(
     def other(t):
         return bufs[1] if t is bufs[0] else bufs[0]
 
-    def conv(inp, w, b, j, k, d, res, y, mode=0, out_ptr=None):
+    # address of row j of a contiguous tensor: each tensor's base and row
+    # stride are read once per call
+    addr = {}
+
+    def row(t, j=0):
+        if t is None:
+            return 0
+        a = addr.get(id(t))
+        if a is None:
+            a = addr[id(t)] = (t.data_ptr(), t.stride(0) * t.element_size())
+        return a[0] + j * a[1]
+
+    # the stage's convs go to the card as one launch plan (one host call:
+    # a call per conv costs about a small conv's device time), rows as in
+    # csrc/mrf_common.cuh (PLAN_FIELDS)
+    plan = []
+
+    def conv(inp, w, b, j, k, d, res, y, mode=0, out_ptr=0):
         # mode 0: y = v; 1: y += v; 2: out = ((y or 0) + v) / n_blocks,
         # where v = conv_k,d(lrelu(inp)) + b (+ res)
         nonlocal index
-        res_ptr = None if res is None else res.data_ptr()
-        y_ptr = None if y is None else y.data_ptr()
         if not quantize_int8:
-            wj = w.split[j] if isinstance(w, Tf32Conv) else w[j]
-            _build.check(
-                lib.viettts_mrf_conv(
-                    bf, out_bf, inp.data_ptr(), wj.data_ptr(), b[j].data_ptr(), res_ptr,
-                    y_ptr, out_ptr, B, L, C, C, k, d, mode, -1, float(n_blocks), stream,
-                ),
-                "fused_mrf conv",
-            )
+            wj = row(w.split if isinstance(w, Tf32Conv) else w, j)
+            plan.extend((row(inp), wj, row(b, j), row(res), row(y), out_ptr, 0, 0, k, d, mode, 0, 0))
             return
         if amax is None:
-            act, act_stride, dynamic = act_scales[index], 0, 0
+            act, act_stride, dynamic = row(act_scales, index), 0, 0
         else:
-            act, act_stride, dynamic = amax[index], 1, 1
-            _build.check(
-                lib.viettts_mrf_absmax(inp.data_ptr(), act.data_ptr(), B, L * C, stream),
-                "fused_mrf int8 amax",
-            )
-        _build.check(
-            lib.viettts_mrf_conv_int8(
-                out_bf, inp.data_ptr(), w.codes[j].data_ptr(), w.scales[j].data_ptr(),
-                b[j].data_ptr(), act.data_ptr(), act_stride, dynamic, res_ptr, y_ptr, out_ptr,
-                B, L, C, C, k, d, mode, float(n_blocks), stream,
-            ),
-            "fused_mrf int8 conv",
-        )
+            act, act_stride, dynamic = row(amax, index), 1, 1
+        plan.extend((row(inp), row(w.kmajor, j), row(b, j), row(res), row(y), out_ptr,
+                     row(w.scales, j), act, k, d, mode, act_stride, dynamic))
         index += 1
 
     for blk, k in enumerate(kernel_sizes):
@@ -557,6 +599,14 @@ def _fused_mrf_cuda(
             else:
                 conv(src, w, b, j, k, dil, cur, acc, mode=2, out_ptr=out.data_ptr())
 
+    rows = (ctypes.c_longlong * len(plan))(*plan)
+    n = len(plan) // PLAN_FIELDS
+    if quantize_int8:
+        code = lib.viettts_mrf_conv_int8_plan(out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows), stream)
+    else:
+        code = lib.viettts_mrf_conv_plan(bf, out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows), stream)
+    _build.check(code, "fused_mrf int8 convs" if quantize_int8 else "fused_mrf convs")
+
     if post is None:
         return out
     w_p, b_p = post
@@ -570,6 +620,30 @@ def _fused_mrf_cuda(
         "fused_mrf epilogue",
     )
     return wave
+
+
+def convt_f64(x: torch.Tensor, w_t: F64Conv, b_t: torch.Tensor, u: int, tile: int = -1) -> torch.Tensor:
+    """The int8 route's ConvTranspose prologue on the card's FP64 tensor
+    cores (``csrc/mrf_int8.cu``): x float32 [B, L_in, C_in] (CUDA) ->
+    float32 [B, L_in * u, C], ``float(sum of lrelu(x) * w in float64) + b``,
+    the twin's prologue with its float64 sums in another order.  ``tile``
+    indexes the kernel's tile shapes (-1: picked from the problem size).
+    Counts nothing: ``fused_mrf`` counts the stage."""
+    k_u, c_in, C = w_t.w.shape
+    B, L_in, _ = x.shape
+    if x.dtype != torch.float32 or x.device.type != "cuda" or not x.is_contiguous() or x.shape[2] != c_in:
+        raise ValueError(f"convt_f64: x must be a contiguous CUDA float32 [B, L, {c_in}], "
+                         f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    lib = _build.load_library()
+    h = torch.empty(B, L_in * u, C, dtype=torch.float32, device=x.device)
+    _build.check(
+        lib.viettts_mrf_convt_f64(
+            x.data_ptr(), w_t.kmajor.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+            B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), tile, _build.stream_ptr(x.device),
+        ),
+        "fused_mrf int8 prologue",
+    )
+    return h
 
 
 fused_mrf.launches = 0
