@@ -29,7 +29,8 @@
       on the ``--quality`` float32 route (K1, K2);
    b. the int8 route (K1, K2's prologue and epilogue, K3): the CLI with
       ``--stream`` (dynamic scales), ``Synthesizer.warmup()`` (calibration),
-      ``synthesize``, ``synthesize_batch`` and ``stream``, then the port's
+      ``synthesize``, ``synthesize_batch`` and ``stream`` (time to first
+      audio: the median of 3 streams), then the port's
       server (``viettts_tpu_torch.serve`` with ``--warmup
       --int8-probe-every 1``) answering /tts twice, /tts/stream once and
       /stats, which must carry ``int8_max_clip_fraction``.
@@ -37,7 +38,17 @@
    and the card must agree with the CPU (plain twins): a float32 synthesis,
    and the int8 vocoder, with the card's scales, on the same mel, which
    must also stay within int8 quantization error of the float32 vocoder.
-4. A JSON line of per-kernel results, then the last line
+4. The training slice: a synthetic aligned corpus of 96 utterances, then
+   ``viettts_tpu_torch.train.duration.train`` (20 steps, B=64, 256 tokens,
+   validation and a checkpoint every 10) and ``.acoustic.train`` (6 steps,
+   B=64, 768 frames) at the default width on the card, each with ms/step
+   (first step, then the median), first and last loss (finite), peak
+   device memory, and FLOPs per step with their bound at the float32
+   peak; both checkpoints read back by the port's ``load_variables`` into a
+   Synthesizer with the seeded vocoder, which synthesizes on the card (K1,
+   K2, counted); and one step of each trainer at a small config on the card
+   against the CPU, TF32 off, within 1e-4.
+5. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -652,22 +663,28 @@ def int8_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
     for i, r in enumerate(results):
         check_result(r, f"synthesize_batch[{i}] (int8)")
     audio_s = sum(len(r.wave) for r in results) / sr
-    t0 = time.perf_counter()
-    first_s, chunks = None, []
-    for chunk in synth.stream(STREAM_TEXT):
-        first_s = first_s or time.perf_counter() - t0
-        check_result(chunk, f"stream chunk {len(chunks)} (int8)")
-        chunks.append(chunk)
-    stream_s = time.perf_counter() - t0
-    if len(chunks) < 2:
-        raise AssertionError(f"stream gave {len(chunks)} chunk(s) for a multi-sentence text")
+    firsts, totals = [], []
+    for _ in range(3):  # time to first audio: the median of 3 streams
+        t0 = time.perf_counter()
+        first_s, chunks = None, []
+        for chunk in synth.stream(STREAM_TEXT):
+            first_s = first_s or time.perf_counter() - t0
+            check_result(chunk, f"stream chunk {len(chunks)} (int8)")
+            chunks.append(chunk)
+        totals.append(time.perf_counter() - t0)
+        firsts.append(first_s)
+        if len(chunks) < 2:
+            raise AssertionError(f"stream gave {len(chunks)} chunk(s) for a multi-sentence text")
+    first_s, stream_s = float(np.median(firsts)), float(np.median(totals))
     stats = {"b1_latency_s": float(np.median(lat)), "b1_audio_s": len(res.wave) / sr,
              "b4_s_audio_per_s": audio_s / float(np.median(walls)), "b4_audio_s": audio_s,
              "warmup_s": warmup_s, "stream_chunks": len(chunks), "stream_first_chunk_s": first_s,
-             "stream_total_s": stream_s, "stream_audio_s": sum(len(c.wave) for c in chunks) / sr}
+             "stream_first_chunk_samples_s": firsts, "stream_total_s": stream_s,
+             "stream_audio_s": sum(len(c.wave) for c in chunks) / sr}
     log(f"main path int8: B=1 latency {stats['b1_latency_s'] * 1e3:.1f} ms for {stats['b1_audio_s']:.2f} s of audio; "
         f"batch-4 throughput {stats['b4_s_audio_per_s']:.1f} s-audio/s; stream {len(chunks)} chunks, "
-        f"first after {first_s * 1e3:.1f} ms, all {stats['stream_audio_s']:.2f} s of audio in {stream_s * 1e3:.1f} ms")
+        f"first after {first_s * 1e3:.1f} ms (median of 3: {[round(1e3 * f, 1) for f in firsts]}), "
+        f"all {stats['stream_audio_s']:.2f} s of audio in {stream_s * 1e3:.1f} ms")
 
     server = serve.build_server(["--host", "127.0.0.1", "--port", "0", "--ckpt-dir", str(ckpt_dir),
                                  "--device", device, "--warmup", "--int8-probe-every", "1", *int8])
@@ -768,6 +785,317 @@ def reference_check(cfg, ckpt_dir: Path, device="cuda"):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the training slice
+# ---------------------------------------------------------------------------
+
+# A synthetic aligned corpus (this script's own copy of the renderer of
+# scripts/validate_e2e_training.py, which imports jax): each vowel a
+# harmonic tone at its own pitch, consonants noise or hum, per-phoneme
+# mean durations, MFA-style TextGrids with words and phones tiers.
+CORPUS_SR = 16000
+VOWELS = {"a": 240.0, "e": 360.0, "i": 480.0, "o": 600.0, "u": 720.0}
+CONSONANTS = ("b", "m", "t", "s")
+DUR_MEAN = {**{v: 0.18 for v in VOWELS}, "b": 0.08, "m": 0.10, "t": 0.06, "s": 0.09}
+WORDS = [c + v for c in CONSONANTS for v in VOWELS] + ["bami", "tasu", "mibo", "sute", "bota", "misa"]
+CORPUS_UTTERANCES = 96  # 91 train / 5 val at train_split 0.95: one batch of 64
+DURATION_STEPS, ACOUSTIC_STEPS = 20, 6
+TRAIN_REL = 1e-4  # card against CPU, one step, of each leaf's largest value
+
+
+def render_phoneme(ph, dur_s, rng):
+    import numpy as np
+
+    n = int(round(dur_s * CORPUS_SR))
+    t = np.arange(n) / CORPUS_SR
+    if ph in VOWELS:
+        f0 = VOWELS[ph]
+        sig = sum((0.5 / h) * np.sin(2 * np.pi * f0 * h * t) for h in (1, 2, 3))
+        env = np.minimum(1.0, np.minimum(t, t[::-1] + 1e-9) / 0.02)
+        return sig * env
+    if ph == "s":
+        return 0.25 * np.convolve(rng.randn(n), [1, -0.95], mode="same")
+    if ph == "t":
+        return 0.5 * rng.randn(n) * np.exp(-t / 0.015)
+    return 0.4 * np.sin(2 * np.pi * 120.0 * t) * np.exp(-t / 0.08)
+
+
+def render_sentence(words, rng, jitter=0.15):
+    import numpy as np
+
+    intervals = [("sil", 0.15 + 0.1 * rng.rand())]
+    for k, w in enumerate(words):
+        for ph in w:
+            intervals.append((ph, DUR_MEAN[ph] * (1.0 + jitter * (2 * rng.rand() - 1))))
+        if k < len(words) - 1 and rng.rand() < 0.3:
+            intervals.append(("sil", 0.1 + 0.1 * rng.rand()))
+    intervals.append(("sil", 0.15 + 0.1 * rng.rand()))
+    parts = [np.zeros(int(round(d * CORPUS_SR))) if ph == "sil" else render_phoneme(ph, d, rng)
+             for ph, d in intervals]
+    wav = np.concatenate(parts)
+    return 0.7 * wav / max(np.abs(wav).max(), 1e-6), intervals
+
+
+def textgrid_for(words, intervals):
+    def fmt(items):
+        rows, t = [], 0.0
+        for i, (text, d) in enumerate(items):
+            rows.append(f"        intervals [{i + 1}]:\n            xmin = {t:.6f}\n"
+                        f"            xmax = {t + d:.6f}\n            text = \"{text}\"\n")
+            t += d
+        return "".join(rows), t
+
+    word_items, i, wi = [], 0, 0
+    while i < len(intervals):
+        if intervals[i][0] == "sil":
+            word_items.append(("", intervals[i][1]))
+            i += 1
+            continue
+        span = 0.0
+        for _ in words[wi]:
+            span += intervals[i][1]
+            i += 1
+        word_items.append((words[wi], span))
+        wi += 1
+    ptxt, total = fmt(intervals)
+    wtxt, _ = fmt(word_items)
+    tier = '        class = "IntervalTier"\n        name = "{}"\n        xmin = 0\n        xmax = {:.6f}\n'
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\n'
+            f"xmin = 0\nxmax = {total:.6f}\ntiers? <exists>\nsize = 2\nitem []:\n"
+            "    item [1]:\n" + tier.format("words", total) + f"        intervals: size = {len(word_items)}\n{wtxt}"
+            "    item [2]:\n" + tier.format("phones", total) + f"        intervals: size = {len(intervals)}\n{ptxt}")
+
+
+def build_corpus(d: Path, n_utts=CORPUS_UTTERANCES, seed=0):
+    import numpy as np
+
+    from viettts_tpu_torch.audio import write_wav
+
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(n_utts):
+        words = [WORDS[rng.randint(len(WORDS))] for _ in range(rng.randint(3, 7))]
+        wav, intervals = render_sentence(words, rng)
+        write_wav(d / f"utt{i:03d}.wav", wav.astype(np.float32), CORPUS_SR)
+        (d / f"utt{i:03d}.TextGrid").write_text(textgrid_for(words, intervals))
+
+
+def duration_step_flop(cfg):
+    """Multiply-adds x 2 of one duration step from the shapes: encoder
+    convs, both LSTM directions (input and recurrent projections), the two
+    dense heads; backward counted as twice the forward."""
+    B, T, C = cfg.train.batch_size, cfg.data.max_phoneme_seq_len, cfg.duration.lstm_dim
+    fwd = 3 * 2 * B * T * 3 * C * C + 2 * 2 * (2 * B * T * C * 4 * C) + 2 * B * T * (2 * C * C + C)
+    return 3.0 * fwd
+
+
+def acoustic_step_flop(cfg):
+    """As ``duration_step_flop`` for the acoustic step: the log-mel DFT and
+    filterbank (no backward), encoder, Gaussian upsampling, prenet, both
+    decoder layers' input gates, the 3 recurrent products a frame, the
+    projection and the 5 postnet convs."""
+    B, Tt = cfg.train.batch_size, cfg.data.max_phoneme_seq_len
+    d, a = cfg.dsp, cfg.acoustic
+    L = cfg.data.max_wave_len // d.hop_length
+    C, P, H, D, Q = a.encoder_dim, a.prenet_dim, a.decoder_dim, a.mel_dim, a.postnet_dim
+    nf = d.n_fft // 2 + 1
+    mel = 2 * B * L * d.n_fft * nf * 2 + 2 * B * L * nf * D
+    enc = 3 * 2 * B * Tt * 3 * C * C + 2 * 2 * (2 * B * Tt * C * 4 * C)
+    dec = (2 * B * L * Tt * 2 * C + 2 * B * L * (D * P + P * P) + 2 * 2 * B * L * (2 * C + P) * 4 * H
+           + L * 3 * 2 * B * H * 4 * H + 2 * B * L * 2 * H * D)
+    post = 2 * B * L * 5 * (D * Q + 3 * Q * Q + Q * D)
+    return float(mel) + 3.0 * (enc + dec + post)
+
+
+def run_trainer(name, module, cfg):
+    """One trainer at ``cfg``: per-step seconds and losses (each step waits
+    for the device), peak device memory, FLOPs and their bound."""
+    import numpy as np
+    import torch
+
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    module.train(cfg, device="cuda", step_log=steps)
+    wall = time.perf_counter() - t0
+    ms = [1e3 * s for s, _ in steps]
+    losses = [loss for _, loss in steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} trainer: non-finite loss {losses}")
+    flop = duration_step_flop(cfg) if name == "duration" else acoustic_step_flop(cfg)
+    bound_ms = 1e3 * flop / PEAK_F32_FLOPS
+    stats = {"steps": len(steps), "first_step_ms": ms[0], "median_ms": float(np.median(ms[1:])),
+             "ms": ms, "first_loss": losses[0], "last_loss": losses[-1],
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "flop_per_step": flop,
+             "bound_ms": bound_ms, "bound_by": "operations (float32 peak)", "wall_s": wall}
+    log(f"train {name}: {len(steps)} steps, first {ms[0]:.1f} ms, then median {stats['median_ms']:.1f} ms/step; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak memory {stats['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+        f"{flop / 1e12:.3f} TFLOP/step, bound {bound_ms:.1f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"({100 * bound_ms / stats['median_ms']:.1f}% of it); {wall:.1f} s in all")
+    return stats
+
+
+def train_phase(cfg, tmp: Path):
+    """Both trainers at the default width on a synthetic corpus, with
+    PyTorch's TF32 defaults (cuDNN convs TF32, matmuls float32): the
+    duration trainer 20 steps with validation and a checkpoint every 10,
+    the acoustic trainer 6 steps (B=64, 768 frames) with validation every
+    3.  Returns their stats and the checkpoint directory."""
+    import dataclasses
+
+    import torch
+
+    from viettts_tpu_torch.train import acoustic, duration
+
+    corpus, out = tmp / "corpus", tmp / "trained"
+    t0 = time.perf_counter()
+    build_corpus(corpus)
+    log(f"train: synthetic corpus of {CORPUS_UTTERANCES} utterances in {time.perf_counter() - t0:.1f} s")
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        base = cfg.replace(data_dir=corpus, ckpt_dir=out)
+        stats = {
+            "duration": run_trainer("duration", duration, base.replace(train=dataclasses.replace(
+                cfg.train, num_training_steps=DURATION_STEPS, val_interval=10, ckpt_interval=10))),
+            "acoustic": run_trainer("acoustic", acoustic, base.replace(train=dataclasses.replace(
+                cfg.train, num_training_steps=ACOUSTIC_STEPS, val_interval=3))),
+        }
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for kind in ("duration", "acoustic"):
+        if not (out / f"{kind}_latest_ckpt.pickle").exists():
+            raise AssertionError(f"the {kind} trainer wrote no checkpoint")
+    return stats, out
+
+
+def round_trip(cfg, trained: Path):
+    """The trainers' checkpoints, read by the port's ``load_variables``,
+    into a Synthesizer with the seeded vocoder: one sentence on the card
+    (K1 and K2 on trained weights)."""
+    import pickle
+
+    from viettts_tpu_torch.checkpoint import NATIVE_FORMAT, load_variables
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    with open(trained / "hifigan_latest_ckpt.pickle", "wb") as f:
+        pickle.dump({"format": NATIVE_FORMAT, "step": 0, "variables": seeded_variables(cfg)["hifigan"]}, f)
+    for kind in ("duration", "acoustic"):
+        variables = load_variables(trained / f"{kind}_latest_ckpt.pickle", kind)
+        if sorted(variables) != ["batch_stats", "params"]:
+            raise AssertionError(f"{kind} checkpoint holds {sorted(variables)}")
+    synth = Synthesizer(cfg.replace(ckpt_dir=trained), device="cuda")
+    res = synth.synthesize(SENTENCE)
+    check_result(res, "synthesize (trained checkpoints)")
+    log(f"train round trip: {len(res.wave) / cfg.dsp.sample_rate:.2f} s of audio from the trained checkpoints")
+    return {"audio_s": len(res.wave) / cfg.dsp.sample_rate, "frames": res.mel.shape[0]}
+
+
+def _seed_values(model, seed):
+    """Seeded values for every parameter and statistic: matrices at
+    1/sqrt(fan_in), biases ~0.05, BatchNorm scales and variances near 1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict(keep_vars=True).items():
+            noise = torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+            if "running_var" in name or ("bns." in name and name.endswith("weight")):
+                t.copy_(1.0 + 0.1 * noise.abs())
+            elif t.dim() >= 2:  # conv (O, I, W): fan_in I * W; matrices: the larger side
+                t.copy_(noise / np.sqrt(t[0].numel() if t.dim() == 3 else max(t.shape)))
+            else:
+                t.copy_(0.05 * noise)
+
+
+def _one_step(kind, cfg, batch, device, lr):
+    import torch
+
+    from viettts_tpu_torch.data.loader import to_device
+    from viettts_tpu_torch.models.acoustic import AcousticModel
+    from viettts_tpu_torch.models.duration import DurationModel
+    from viettts_tpu_torch.models.layers import batch_stats
+    from viettts_tpu_torch.ops.mel import LogMelSpectrogram
+    from viettts_tpu_torch.train import acoustic, duration
+    from viettts_tpu_torch.train.common import init_train_state, make_optimizer, make_update_fn
+
+    model = (DurationModel(cfg.duration) if kind == "duration" else AcousticModel(cfg.acoustic))
+    _seed_values(model, 0)
+    model.to(device)
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    if kind == "duration":
+        loss_fn = duration.make_loss_fn(model, 0.0, train=True)
+    else:
+        loss_fn = acoustic.make_loss_fn(model, LogMelSpectrogram(cfg.dsp).to(device), cfg.dsp.hop_length, train=True)
+    opt = make_optimizer(lr)
+    state = init_train_state(dict(model.named_parameters()), batch_stats(model), opt,
+                             torch.Generator(device).manual_seed(0))
+    state, loss = make_update_fn(loss_fn, opt)(state, [to_device(batch, torch.device(device))])
+    return float(loss), {k: v.detach().cpu() for k, v in {**state.params, **state.batch_stats}.items()}, before
+
+
+def train_card_vs_cpu():
+    """One training step of each model at a small config (widths 32-64, 8
+    mels, B=4, 16 tokens, 48 frames; every dropout and zoneout off), on
+    the card and on the CPU, TF32 off for matmuls and cuDNN convs: loss,
+    parameters and batch statistics after the step within 1e-4 of each
+    leaf's largest value.  Adam's first step is ``lr * g / (|g| + 1e-8)``,
+    so an element whose gradient is near zero moves by a fraction of lr
+    that rounding decides; at the trainers' lr of 1e-4 that stays below
+    the bar.  A conv bias that feeds a BatchNorm has a zero gradient in
+    exact arithmetic, which Adam scales to a full step of either sign:
+    there each side must have moved by at most the learning rate."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.config import AcousticModelConfig, Config, DspConfig, DurationModelConfig
+    from viettts_tpu_torch.types import AcousticBatch, DurationBatch
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the card-vs-CPU step")
+    cfg = Config(
+        dsp=DspConfig(n_fft=256, hop_length=64, win_length=256, mel_dim=8),
+        duration=DurationModelConfig(vocab_size=96, lstm_dim=32, dropout_rate=0.0),
+        acoustic=AcousticModelConfig(vocab_size=96, encoder_dim=32, decoder_dim=64, prenet_dim=32,
+                                     postnet_dim=32, mel_dim=8, encoder_dropout_rate=0.0,
+                                     prenet_dropout_rate=0.0, postnet_dropout_rate=0.0,
+                                     prenet_dropout_at_inference=False, zoneout_rate=0.0),
+    )
+    rng = np.random.default_rng(4)
+    B, T, frames, lr = 4, 16, 48, 1e-4  # the trainers' default learning rate
+    lengths = np.asarray([16, 13, 9, 5], np.int32)
+    toks = rng.integers(4, 96, (B, T)).astype(np.int32)
+    durs = rng.uniform(0.02, 0.06, (B, T)).astype(np.float32)
+    toks[:, 2] = 3
+    for i, n in enumerate(lengths):
+        toks[i, n:], durs[i, n:] = 0, 0.0
+    wavs = (rng.standard_normal((B, frames * 64)) * 3000).astype(np.int16)
+    wav_lengths = np.asarray([frames * 64, 2800, 2000, 1200], np.int32)
+    batches = {"duration": DurationBatch(toks, lengths, durs),
+               "acoustic": AcousticBatch(toks, lengths, durs, wavs, wav_lengths, None)}
+    errs = {}
+    for kind, batch in batches.items():
+        loss_card, card, before = _one_step(kind, cfg, batch, "cuda", lr)
+        loss_cpu, cpu, _ = _one_step(kind, cfg, batch, "cpu", lr)
+        worst = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        if not (np.isfinite(loss_card) and worst <= TRAIN_REL):
+            raise AssertionError(f"{kind} step: loss {loss_card} on the card, {loss_cpu} on the CPU")
+        for name, want in cpu.items():
+            if name.endswith("bias") and "convs" in name and not name.startswith("postnet_convs.4"):
+                moved = max((side - before[name]).abs().max().item() for side in (card[name], want))
+                if moved > lr * 1.01:
+                    raise AssertionError(f"{kind} step: zero-gradient bias {name} moved {moved}")
+                continue
+            rel = (card[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+            if rel > TRAIN_REL:
+                raise AssertionError(f"{kind} step: {name} differs by {rel:.2e} of its largest value")
+        errs[kind] = worst
+        log(f"train card vs CPU, {kind}: one step, worst relative difference {worst:.2e} (bar {TRAIN_REL})")
+    return errs
+
+
 def main() -> int:
     import torch
 
@@ -825,6 +1153,11 @@ def main() -> int:
         launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
+        train, trained = train_phase(cfg, tmp)
+        zero_counts()
+        train["round_trip"] = round_trip(cfg, trained)
+        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf"])
+        train["card_vs_cpu"] = train_card_vs_cpu()
 
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -846,7 +1179,7 @@ def main() -> int:
     kernels = [
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
-         "launches_int8_path": launches_int8["ar_decode"],
+         "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],
          "max_abs_err": k1_err, "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the fed-back decode",
@@ -854,7 +1187,7 @@ def main() -> int:
          "shape": "B=1 L=512 H=512 P=256 D=80 f32"},
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
-         "launches_int8_path": launches_int8["fused_mrf"],
+         "launches_int8_path": launches_int8["fused_mrf"], "launches_round_trip": launches_trained["fused_mrf"],
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
@@ -887,7 +1220,7 @@ def main() -> int:
          "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
-    log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref}))
+    log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -62,7 +62,7 @@ def profile_once(fn, trace: Path | None):
               for name, keys in PORT_KERNELS.items()}
     groups["other"] = total - sum(groups.values())
     return {"wall_ms": wall_ms, "device_ms": total, "busy_share": total / wall_ms,
-            "groups_ms": groups, "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:10]]}
+            "device_entries": sum(n for _, _, n in rows), "groups_ms": groups, "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:10]]}
 
 
 def main(argv=None) -> int:

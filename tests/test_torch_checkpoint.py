@@ -6,7 +6,9 @@
   own class instead of importing jax.
 * The port's modules hold exactly the JAX models' parameters.
 * With ``jax``, ``flax``, ``optax`` and the JAX package made unimportable,
-  the port imports and synthesizes on the CPU in a subprocess.
+  the port imports every module, synthesizes, reads a JAX trainer's
+  optimizer state and trains the duration model on the CPU in a
+  subprocess.
 """
 
 import json
@@ -245,6 +247,18 @@ int8 = Synthesizer(
 int8.warmup(token_buckets=(32,))  # calibrates the static int8 scales
 res8 = int8.synthesize("xin chào các bạn")
 int8.int8_clip_stats(mel=res8.mel)
+
+# a JAX trainer's optimizer state reads as the port's stand-ins, and the
+# port's duration trainer runs 2 steps on the CPU and writes its checkpoint
+from viettts_tpu_torch.checkpoint import ScaleByAdamState, load_pickle
+from viettts_tpu_torch.train import duration
+
+adam = load_pickle(sys.argv[2])["opt_state"][1][0]
+ckpt_dir = sys.argv[4]
+duration.main(["--data-dir", sys.argv[3], "--ckpt-dir", ckpt_dir, "--device", "cpu",
+               "--set", "train.batch_size=4", "--set", "train.num_training_steps=2",
+               "--set", "duration.lstm_dim=16", "--set", "data.max_phoneme_seq_len=64"])
+trained = load_pickle(ckpt_dir + "/duration_latest_ckpt.pickle")
 print(json.dumps({
     "jax_loaded": any(n.split(".")[0] in ("jax", "flax", "optax", "viettts_tpu") for n in sys.modules),
     "samples": len(res.wave), "frames": res.mel.shape[0],
@@ -252,6 +266,8 @@ print(json.dumps({
     "int8_finite": bool(np.isfinite(res8.wave).all()),
     "int8_probed": int8.last_clip_stats is not None,
     "trainer_ckpt_keys": sorted(trainer_vars),
+    "adam_state": isinstance(adam, ScaleByAdamState),
+    "trained": [trained["step"], type(trained["opt_state"][1][0]).__name__],
 }))
 """
 
@@ -261,9 +277,17 @@ def test_port_runs_with_jax_unimportable(native_dir, tmp_path):
     with open(cfg_path, "wb") as f:
         pickle.dump(port_config(_cfg(native_dir)), f)
     _trainer_checkpoint(native_dir, trainer_path)
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        from validate_e2e_training import build_corpus
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    corpus, trained_dir = tmp_path / "corpus", tmp_path / "trained"
+    corpus.mkdir()
+    build_corpus(corpus, n_utts=12, seed=0)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_SCRIPT, str(cfg_path), str(trainer_path)],
+        [sys.executable, "-c", _NO_JAX_SCRIPT, str(cfg_path), str(trainer_path), str(corpus), str(trained_dir)],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -272,3 +296,4 @@ def test_port_runs_with_jax_unimportable(native_dir, tmp_path):
     assert out["finite"] and out["frames"] > 0 and out["samples"] == out["frames"] * 256
     assert out["int8_finite"] and out["int8_probed"]
     assert out["trainer_ckpt_keys"] == ["batch_stats", "params"]
+    assert out["adam_state"] and out["trained"] == [2, "ScaleByAdamState"]

@@ -141,7 +141,8 @@ def _imported_roots(path: Path):
 def _port_files():
     return sorted((REPO / "viettts_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_synthesis.py",
-        REPO / "scripts" / "probe_conv_pipeline.py",
+        REPO / "scripts" / "probe_conv_pipeline.py", REPO / "scripts" / "stream_first_audio.py",
+        REPO / "scripts" / "profile_torch_training.py", REPO / "scripts" / "time_vocoder_stages.py",
     ]
 
 

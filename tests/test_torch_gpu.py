@@ -369,3 +369,33 @@ def test_fused_mrf_int8_bare_static_is_exact(cuda):
     got = mrf.fused_mrf(x, tw, kernel_sizes, dilations, **kw)
     want = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The training slice on the card against the CPU (no kernel of the port:
+# eager PyTorch, TF32 off for matmuls and cuDNN convs).
+# ---------------------------------------------------------------------------
+
+
+def test_training_step_on_card_matches_cpu(cuda):
+    """One step of each trainer at a small config, on the card and on the
+    CPU (``chip_smoke.train_card_vs_cpu``): loss, parameters and batch
+    statistics within 1e-4 of each leaf's largest value."""
+    import chip_smoke
+
+    errs = chip_smoke.train_card_vs_cpu()
+    assert sorted(errs) == ["acoustic", "duration"] and max(errs.values()) <= chip_smoke.TRAIN_REL
+
+
+def test_log_mel_on_card_matches_cpu(cuda):
+    from viettts_tpu_torch.config import DspConfig
+    from viettts_tpu_torch.ops.mel import LogMelSpectrogram
+
+    rng = np.random.RandomState(2)
+    y = torch.from_numpy((rng.randn(3, 256 * 50) * 0.3).astype(np.float32))
+    y[2, 6000:] = 0
+    fn = LogMelSpectrogram(DspConfig())
+    want = fn(y)
+    got = fn.to(cuda)(y.to(cuda)).cpu()
+    assert got.shape == want.shape == (3, 50, 80)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -185,3 +185,88 @@ def test_wrapper_rejects_mismatched_storage():
         mrf.fused_mrf(torch.from_numpy(x), tw, KERNEL_SIZES, DILATIONS, compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="is torch.bfloat16, want torch.float32"):
         mrf.fused_mrf(torch.from_numpy(x), tw, KERNEL_SIZES, DILATIONS)
+
+
+class _DeviceRecorder:
+    """Stands in for ``torch.cuda.device``: records the device each wrapper
+    enters and which library calls ran while it was entered."""
+
+    def __init__(self):
+        self.entered, self.current, self.calls = [], None, []
+
+    def __call__(self, device):
+        recorder = self
+
+        class Ctx:
+            def __enter__(self):
+                recorder.entered.append(device)
+                recorder.current = device
+
+            def __exit__(self, *exc):
+                recorder.current = None
+
+        return Ctx()
+
+    def library(self):
+        recorder = self
+
+        class Lib:
+            def __getattr__(self, name):
+                def call(*args):
+                    recorder.calls.append((name, recorder.current))
+                    return 0
+
+                return call
+
+        return Lib()
+
+
+def test_fused_mrf_launches_under_the_inputs_device(monkeypatch):
+    """The stage wrapper runs every library call with its input's device
+    current (the library launches on the current device and keeps its
+    shared-memory opt-ins and SM counts per device).  On the CPU the
+    library is a recorder and the input a CPU tensor: the wrapper must
+    enter exactly ``x.device``."""
+    rec = _DeviceRecorder()
+    monkeypatch.setattr(torch.cuda, "device", rec)
+    monkeypatch.setattr(mrf._build, "load_library", rec.library)
+    monkeypatch.setattr(mrf._build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(mrf.fused_mrf, "launches", 0)
+    x, weights, ups, pst = _case(5, 1, 16, 8, 4, (4, 2), True)
+    tw, tu, tp = mrf.prepare_mrf_weights(
+        _to(weights, torch.from_numpy), _to(ups, torch.from_numpy), _to(pst, torch.from_numpy),
+        compute_dtype=torch.bfloat16,
+    )
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    mrf._fused_mrf_cuda(xb, tw, KERNEL_SIZES, DILATIONS, tu, tp, torch.bfloat16, 32, 4, False, None)
+    assert rec.entered == [xb.device]
+    names = [name for name, _ in rec.calls]
+    assert names == ["viettts_mrf_to_f32", "viettts_mrf_convt_mma", "viettts_mrf_conv_plan", "viettts_mrf_post"]
+    assert all(device == xb.device for _, device in rec.calls)
+
+
+def test_convt_f64_launches_under_the_inputs_device(monkeypatch):
+    """The int8 route's prologue wrapper enters its input's device: an
+    input that claims to live on ``cuda:1`` (a stand-in; allocations go to
+    the CPU) gets its launch with ``cuda:1`` current."""
+    rec = _DeviceRecorder()
+    monkeypatch.setattr(torch.cuda, "device", rec)
+    monkeypatch.setattr(mrf._build, "load_library", rec.library)
+    monkeypatch.setattr(mrf._build, "stream_ptr", lambda device: 0)
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *shape, device=None, **kw: real_empty(*shape, **kw))
+    dev = torch.device("cuda", 1)
+
+    class OnCard:
+        dtype, device, shape = torch.float32, dev, (2, 5, 3)
+
+        def is_contiguous(self):
+            return True
+
+        def data_ptr(self):
+            return 0
+
+    w = torch.zeros(4, 3, 6)
+    h = mrf.convt_f64(OnCard(), mrf.F64Conv(w, w.double()), torch.zeros(6), 2)
+    assert h.shape == (2, 10, 6)
+    assert rec.entered == [dev] and rec.calls == [("viettts_mrf_convt_f64", dev)]

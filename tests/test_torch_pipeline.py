@@ -322,3 +322,32 @@ def test_cuda_device_without_gpu_fails_loudly(ckpt_dir):
         pytest.skip("a GPU is present: the no-GPU failure cannot be shown")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_pipeline.Synthesizer(port_config(_cfg(ckpt_dir)), device="cuda")
+
+
+def test_stream_yields_chunk_0_before_dispatching_chunk_1(ckpt_dir):
+    """stream() fetches and yields chunk 0 as soon as it is dispatched;
+    from chunk 1 on one chunk stays in flight (chunk i+1 is dispatched
+    before chunk i is fetched)."""
+    cfg = _cfg(ckpt_dir).replace(data=DataConfig(max_phoneme_seq_len=16))
+    port = torch_pipeline.Synthesizer(port_config(cfg), device="cpu")
+    log = []
+
+    def dispatch(token_rows, toks, lengths, dur_s):
+        i = sum(1 for event in log if event[0] == "dispatch")
+        log.append(("dispatch", i))
+        return i
+
+    def finalize(handle):
+        log.append(("finalize", handle))
+        return [handle]
+
+    port._dispatch, port._finalize = dispatch, finalize
+    for chunk in port.stream(LONG_TEXT, lead_tokens=12):
+        log.append(("yield", chunk))
+    n = sum(1 for event in log if event[0] == "yield")
+    assert n >= 3
+    want = [("dispatch", 0), ("finalize", 0), ("yield", 0), ("dispatch", 1)]
+    for i in range(2, n):
+        want += [("dispatch", i), ("finalize", i - 1), ("yield", i - 1)]
+    want += [("finalize", n - 1), ("yield", n - 1)]
+    assert log == want

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the Vietnamese TTS inference path.
+"""PyTorch/CUDA port of the Vietnamese TTS system: the inference path and
+the duration and acoustic trainers.
 
 The package mirrors ``viettts_tpu``'s module layout (``ops/``, ``models/``,
-``infer/``, ``synthesizer.py``, ``serve.py``) so each counterpart is easy
-to find.  It
+``data/``, ``train/``, ``infer/``, ``synthesizer.py``, ``serve.py``) so each
+counterpart is easy to find.  It
 imports ``torch`` and nothing of ``jax``, ``flax``, ``optax`` or the JAX
 package: it keeps its own copies of the framework-free parts it needs
 (``config.py``, ``text/``, ``audio.py``, the batcher and HTTP front end

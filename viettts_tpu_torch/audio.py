@@ -1,15 +1,39 @@
-"""16-bit PCM WAV output of the port: ``write_wav`` (as
-``viettts_tpu/data/audio.py`` writes) and the server's in-memory
-``wav_bytes``.  Float samples are clipped to [-1, 1] and scaled by 32767,
-truncating."""
+"""16-bit PCM WAV I/O of the port: ``read_wav`` and ``write_wav`` (as
+``viettts_tpu/data/audio.py`` reads and writes them) and the server's
+in-memory ``wav_bytes``.  Float samples are clipped to [-1, 1] and scaled
+by 32767, truncating."""
 
 from __future__ import annotations
 
 import io
 import wave
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
+
+
+def read_wav(path: str | Path) -> Tuple[int, np.ndarray]:
+    """Read a WAV file -> (sample_rate, samples [S] or [S, C]) through
+    scipy when it reads the file, else as 16-bit PCM with ``wave``."""
+    try:
+        from scipy.io import wavfile
+
+        sr, data = wavfile.read(str(path))
+        return int(sr), np.asarray(data)
+    except Exception:
+        with wave.open(str(path), "rb") as w:
+            sr = w.getframerate()
+            n = w.getnframes()
+            ch = w.getnchannels()
+            width = w.getsampwidth()
+            raw = w.readframes(n)
+        if width != 2:
+            raise ValueError(f"only 16-bit PCM supported, got width={width}")
+        data = np.frombuffer(raw, dtype="<i2")
+        if ch > 1:
+            data = data.reshape(-1, ch)
+        return sr, data
 
 
 def pcm16(wave_f32) -> np.ndarray:

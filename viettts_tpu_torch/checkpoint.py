@@ -6,20 +6,25 @@ Everything here is numpy until the bridge copies a tree into a module:
 * ``load_variables`` reads a native ``viettts_tpu/v1`` pickle or one of the
   three reference haiku pickles and returns the JAX package's variable
   tree ({"params": ..., "batch_stats": ...}) with numpy leaves.  Native
-  pickles name the JAX package's ``LSTMParams`` class; ``_PortUnpickler``
-  maps it to this module's numpy NamedTuple, so reading never imports jax.
+  pickles name the JAX package's ``LSTMParams`` class and, in training
+  checkpoints, optax's optimizer-state classes; ``_PortUnpickler`` maps
+  them to this module's NamedTuples (``JAX_GLOBALS``), so reading never
+  imports jax or optax.
 * ``load_duration`` / ``load_acoustic`` / ``load_generator`` copy such a
   tree into the port's modules, converting layouts: conv kernels
   (W, I, O) -> (O, I, W); ConvTranspose (W, I, O) -> (I, O, W) mirrored on
   W; dense kernels [in, out] -> ``nn.Linear`` [out, in]; LSTMs keep the
-  fused JAX layout.
+  fused JAX layout.  ``jax_location`` names the place of every tensor of
+  the duration and acoustic modules in that tree, and ``jax_tree`` /
+  ``named_from_jax`` convert both ways (the trainers' checkpoints).
 """
 
 from __future__ import annotations
 
 import pickle
+import re
 from pathlib import Path
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +40,39 @@ class LSTMParams(NamedTuple):
     b: np.ndarray  # [4H]
 
 
+# Stand-ins for the optax states of the JAX trainers' optimizer,
+# ``chain(clip_by_global_norm, adamw)``: its state is (EmptyState(),
+# (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState() or, with a
+# learning-rate schedule, ScaleByScheduleState(count))).
+
+
+class EmptyState(NamedTuple):
+    """optax's empty state (clipping, weight decay, a constant scale)."""
+
+
+class ScaleByAdamState(NamedTuple):
+    count: Any  # int32 scalar: updates taken
+    mu: Any  # first moments, a tree like the params
+    nu: Any  # second moments
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: Any  # int32 scalar: schedule steps taken
+
+
+# the global each stand-in is pickled under, as the JAX package pickles it
+JAX_GLOBALS = {
+    LSTMParams: ("viettts_tpu.ops.rnn", "LSTMParams"),
+    EmptyState: ("optax._src.base", "EmptyState"),
+    ScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
+    ScaleByScheduleState: ("optax._src.transform", "ScaleByScheduleState"),
+}
+_OPTAX_BY_NAME = {cls.__name__: cls for cls, (module, _) in JAX_GLOBALS.items() if module.startswith("optax")}
+
+
 class _Opaque(tuple):
-    """Inert stand-in for optimizer-state classes in training checkpoints
-    (``optax`` NamedTuples): the port reads only ``variables``."""
+    """Inert stand-in for any other optax state class: the port reads the
+    optimizer state of its own trainers' optimizer only."""
 
     def __new__(cls, *args):
         return tuple.__new__(cls, args)
@@ -49,7 +84,7 @@ class _PortUnpickler(pickle.Unpickler):
             return LSTMParams
         root = module.split(".")[0]
         if root == "optax":
-            return _Opaque
+            return _OPTAX_BY_NAME.get(name, _Opaque)
         if root in ("jax", "jaxlib", "flax", "viettts_tpu"):
             raise pickle.UnpicklingError(
                 f"checkpoint holds {module}.{name}, which the torch port cannot "
@@ -209,6 +244,88 @@ def load_variables(path: str | Path, kind: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# Layout map of the duration and acoustic modules.
+# ---------------------------------------------------------------------------
+
+# (port tensor name, collection, JAX path with "/" or "." between keys,
+# layout): "conv" kernels are (O, I, W) here and (W, I, O) there, "dense"
+# ``nn.Linear`` weights [out, in] here and [in, out] there; both are their
+# own inverse.  The acoustic model keeps its dense kernels in the JAX layout.
+_LAYOUT: Tuple[Tuple[str, str, str, Any], ...] = (
+    (r"(encoder\.)embed\.weight", "params", r"\1embed/embedding", None),
+    (r"(encoder\.c|postnet_c)onvs\.(\d)\.weight", "params", r"\1onv_\2/kernel", "conv"),
+    (r"(encoder\.c|postnet_c)onvs\.(\d)\.bias", "params", r"\1onv_\2/bias", None),
+    (r"(encoder\.b|postnet_b)ns\.(\d)\.weight", "params", r"\1n_\2/scale", None),
+    (r"(encoder\.b|postnet_b)ns\.(\d)\.bias", "params", r"\1n_\2/bias", None),
+    (r"(encoder\.b|postnet_b)ns\.(\d)\.running_mean", "batch_stats", r"\1n_\2/mean", None),
+    (r"(encoder\.b|postnet_b)ns\.(\d)\.running_var", "batch_stats", r"\1n_\2/var", None),
+    (r"(encoder\.lstm_fwd|encoder\.lstm_bwd)\.(w_i|w_h|b)", "params", r"\1/\2", None),
+    (r"lstm([12])\.(w_i|w_h|b)", "params", r"decoder_lstm\1/\2", None),
+    (r"(proj_[01])\.weight", "params", r"\1/kernel", "dense"),
+    (r"(proj_[01])\.bias", "params", r"\1/bias", None),
+    (r"(prenet_fc[12])", "params", r"\1/kernel", None),
+    (r"proj_kernel", "params", "projection/kernel", None),
+    (r"proj_bias", "params", "projection/bias", None),
+)
+
+
+def jax_location(name: str) -> Tuple[str, Tuple[str, ...], Any]:
+    """(collection, path, layout) in the JAX package's variable tree of a
+    duration or acoustic module's parameter or statistic ``name``."""
+    for pattern, collection, template, layout in _LAYOUT:
+        m = re.fullmatch(pattern, name)
+        if m:
+            return collection, tuple(m.expand(template).replace(".", "/").split("/")), layout
+    raise KeyError(f"no JAX counterpart for {name!r}")
+
+
+def _relayout(a, layout):
+    """Between the port's layout and the JAX one (each is its own inverse)."""
+    if layout == "conv":
+        return a.permute(2, 1, 0) if isinstance(a, torch.Tensor) else np.transpose(a, (2, 1, 0))
+    if layout == "dense":
+        return a.t() if isinstance(a, torch.Tensor) else np.transpose(a)
+    return a
+
+
+def _get(tree, path: Sequence[str]):
+    for key in path:
+        tree = getattr(tree, key) if isinstance(tree, tuple) else tree[key]
+    return tree
+
+
+def jax_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port tensors by name -> {collection: tree} in the JAX package's
+    layout, numpy float32 leaves, ``LSTMParams`` where it has them."""
+    out: Dict[str, Any] = {}
+    for name, t in named.items():
+        collection, path, layout = jax_location(name)
+        node = out.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(_relayout(t.detach().float().cpu().numpy(), layout))
+
+    def wrap(node):
+        if not isinstance(node, dict):
+            return node
+        if set(node) == set(LSTMParams._fields):
+            return LSTMParams(**node)
+        return {k: wrap(v) for k, v in node.items()}
+
+    return {k: wrap(v) for k, v in out.items()}
+
+
+def named_from_jax(trees: Mapping[str, Any], names: Sequence[str]) -> Dict[str, np.ndarray]:
+    """The inverse of ``jax_tree``: {collection: tree} -> numpy arrays in
+    the port's layout for each of ``names``."""
+    out = {}
+    for name in names:
+        collection, path, layout = jax_location(name)
+        out[name] = np.ascontiguousarray(_relayout(np.asarray(_get(trees[collection], path), np.float32), layout))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Weight bridge: numpy trees in the JAX layout -> module state.
 # ---------------------------------------------------------------------------
 
@@ -232,53 +349,26 @@ def _put_conv(conv, entry) -> None:
     _put(conv.bias, entry["bias"])
 
 
-def _put_bn(bn, params, stats) -> None:
-    _put(bn.weight, params["scale"])
-    _put(bn.bias, params["bias"])
-    _put(bn.running_mean, stats["mean"])
-    _put(bn.running_var, stats["var"])
-
-
-def _put_lstm(lstm, p) -> None:
-    _put(lstm.w_i, p.w_i)
-    _put(lstm.w_h, p.w_h)
-    _put(lstm.b, p.b)
+def load_module(model, variables, prefix: str = "") -> None:
+    """Copy a duration or acoustic variable tree into ``model``'s
+    parameters and BatchNorm statistics (every tensor of its state dict);
+    ``prefix`` names a submodule, as ``"encoder."`` for a ``TokenEncoder``
+    and its {"params": {"encoder": ...}, ...} tree."""
+    state = {prefix + k: v for k, v in model.state_dict(keep_vars=True).items()}
+    for name, src in named_from_jax(variables, list(state)).items():
+        _put(state[name], src)
 
 
 def _put_encoder(enc, params, stats) -> None:
-    _put(enc.embed.weight, params["embed"]["embedding"])
-    for i in range(3):
-        _put_conv(enc.convs[i], params[f"conv_{i}"])
-        _put_bn(enc.bns[i], params[f"bn_{i}"], stats[f"bn_{i}"])
-    _put_lstm(enc.lstm_fwd, params["lstm_fwd"])
-    _put_lstm(enc.lstm_bwd, params["lstm_bwd"])
-
-
-def _put_dense(linear, entry) -> None:
-    _put(linear.weight, entry["kernel"], lambda t: t.t())
-    _put(linear.bias, entry["bias"])
+    load_module(enc, {"params": {"encoder": params}, "batch_stats": {"encoder": stats}}, "encoder.")
 
 
 def load_duration(model, variables) -> None:
-    p, s = variables["params"], variables["batch_stats"]
-    _put_encoder(model.encoder, p["encoder"], s["encoder"])
-    _put_dense(model.proj_0, p["proj_0"])
-    _put_dense(model.proj_1, p["proj_1"])
+    load_module(model, variables)
 
 
 def load_acoustic(model, variables) -> None:
-    p, s = variables["params"], variables["batch_stats"]
-    _put_encoder(model.encoder, p["encoder"], s["encoder"])
-    _put_lstm(model.lstm1, p["decoder_lstm1"])
-    _put_lstm(model.lstm2, p["decoder_lstm2"])
-    _put(model.prenet_fc1, p["prenet_fc1"]["kernel"])
-    _put(model.prenet_fc2, p["prenet_fc2"]["kernel"])
-    _put(model.proj_kernel, p["projection"]["kernel"])
-    _put(model.proj_bias, p["projection"]["bias"])
-    for i in range(5):
-        _put_conv(model.postnet_convs[i], p[f"postnet_conv_{i}"])
-    for i in range(4):
-        _put_bn(model.postnet_bns[i], p[f"postnet_bn_{i}"], s[f"postnet_bn_{i}"])
+    load_module(model, variables)
     model.merge_decoder_weights()
 
 

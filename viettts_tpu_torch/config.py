@@ -222,18 +222,29 @@ class TrainConfig:
     seed: int = 42
     val_interval: int = 10
     ckpt_interval: int = 1000
-    # Data-parallel mesh axis size; -1 = all available devices.
+    # Data-parallel mesh axis size; -1 = all available devices.  The port
+    # trains on one device: it takes -1 or 1 only.
     num_devices: int = -1
     # ZeRO/FSDP-style parameter+optimizer sharding across the data axis
-    # (large leaves split, XLA inserts all-gathers/reduce-scatters).
+    # (large leaves split, XLA inserts all-gathers/reduce-scatters).  Not
+    # in the port: it takes False only.
     fsdp: bool = False
     # Opt-in bf16 mixed precision: f32 master params, forward/backward
     # compute in bfloat16 (params cast at the loss boundary).
     mixed_precision: bool = False
     # Training-checkpoint backend: "pickle" (single atomic file, the
     # reference's contract) or "orbax" (sharded tensorstore directory, for
-    # multi-host runs where one pickle is impractical).
+    # multi-host runs where one pickle is impractical; the port's trainers
+    # refuse it: Orbax is a JAX library).
     checkpoint_format: str = "pickle"
+
+    def __post_init__(self):
+        if self.num_devices not in (-1, 1) or self.fsdp:
+            raise ValueError(
+                f"train.num_devices={self.num_devices}, train.fsdp={self.fsdp}: the torch port "
+                "trains on one device (num_devices -1 or 1, fsdp false); data-parallel "
+                "training is ROADMAP item 7 (DDP)"
+            )
 
 
 @dataclass(frozen=True)

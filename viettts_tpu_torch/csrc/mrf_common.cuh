@@ -31,6 +31,7 @@
 // re-zeroed intermediates.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -51,18 +52,45 @@ cudaError_t fit_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Host-side results kept per CUDA device: function attributes and device
+// properties belong to one device, and a process may launch on several.
+constexpr int MAX_DEVICES = 64;
+
+// The current device, or -1 past MAX_DEVICES or on an error.
+inline int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return -1;
+  return dev;
+}
+
 // Opt a kernel in to the most dynamic shared memory a block may have on
-// this device: once per kernel instead of an API call per launch (a
-// stage launches 18 convs); a launch that needs more is refused.
+// device dev.
 template <typename K>
-cudaError_t opt_in_smem(K kernel) {
-  int dev = 0, bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+cudaError_t opt_in_smem(K kernel, int dev) {
+  int bytes = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err;
+}
+
+// opt_in_smem once per device instead of an API call per launch (a stage
+// launches 18 convs); a launch that needs more is refused.  ``state`` is
+// the kernel's own array of MAX_DEVICES flags (0: not yet, else error + 1),
+// a static of the launcher instantiated for that kernel: kernels of one
+// signature share a function-pointer type, so a static in here would be
+// shared by all of them.  Two threads racing on the first launch both opt
+// in, which is harmless.
+template <typename K>
+cudaError_t opt_in_smem_once(K kernel, std::atomic<int>* state) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  int s = state[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    s = (int)opt_in_smem(kernel, dev) + 1;
+    state[dev].store(s, std::memory_order_release);
+  }
+  return (cudaError_t)(s - 1);
 }
 
 // --- tensor-core building blocks (sm_80+ PTX, m16n8k8 f64 sm_90) ---------
@@ -637,13 +665,15 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * KS * 32)
       }
 }
 
+// The current device's SM count, read once per device (132 if unknown).
 inline int sm_count() {
-  static int n = 0;
+  static std::atomic<int> count[MAX_DEVICES];
+  const int dev = current_device();
+  if (dev < 0) return 132;
+  int n = count[dev].load(std::memory_order_relaxed);
   if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0) n = 132;
+    count[dev].store(n, std::memory_order_relaxed);
   }
   return n;
 }
@@ -667,7 +697,8 @@ int launch_mma_conv(const ConvArgs& a, cudaStream_t s) {
   constexpr int NTH = (BM / WM) * (BN / WN) * KS * 32;
   auto kernel = mma_conv_kernel<T, BM, BN, WM, WN, KS>;
   const size_t smem = conv_smem_bytes<T, BM, BN, KS>(BM + ((a.k + a.u - 1) / a.u - 1) * a.dil);
-  static const cudaError_t opted = opt_in_smem(kernel);
+  static std::atomic<int> opted_on[MAX_DEVICES];
+  const cudaError_t opted = opt_in_smem_once(kernel, opted_on);
   if (opted != cudaSuccess) return (int)opted;
   ConvArgs args = a;
   args.vec_x = a.C_in % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;

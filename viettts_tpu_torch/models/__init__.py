@@ -1,1 +1,2 @@
-"""The port's models (inference only)."""
+"""The port's models: inference, and the training forward of the duration
+and acoustic models."""

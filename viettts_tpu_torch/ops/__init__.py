@@ -1,1 +1,2 @@
-"""Tensor ops of the port: LSTM primitives and the two kernel wrappers."""
+"""Tensor ops of the port: LSTM primitives, the log-mel front-end and the
+two kernel wrappers."""

@@ -50,6 +50,7 @@ stages that launched K3 (the int8 MRF convs and the float64 prologue), and
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -485,6 +486,20 @@ def fused_mrf(
     )
 
 
+def _on_input_device(fn):
+    """Run a wrapper that launches kernels with the input's CUDA device
+    current: the library launches on the current device and keeps its
+    per-device state (shared-memory opt-ins, SM counts) for it."""
+
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kwargs):
+        with torch.cuda.device(x.device):
+            return fn(x, *args, **kwargs)
+
+    return wrapped
+
+
+@_on_input_device
 def _fused_mrf_cuda(
     x, weights, kernel_sizes, dilations, upsample, post, store, L, C, quantize_int8, act_scales
 ):
@@ -636,13 +651,14 @@ def convt_f64(x: torch.Tensor, w_t: F64Conv, b_t: torch.Tensor, u: int, tile: in
                          f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     lib = _build.load_library()
     h = torch.empty(B, L_in * u, C, dtype=torch.float32, device=x.device)
-    _build.check(
-        lib.viettts_mrf_convt_f64(
-            x.data_ptr(), w_t.kmajor.data_ptr(), b_t.data_ptr(), h.data_ptr(),
-            B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), tile, _build.stream_ptr(x.device),
-        ),
-        "fused_mrf int8 prologue",
-    )
+    with torch.cuda.device(x.device):
+        _build.check(
+            lib.viettts_mrf_convt_f64(
+                x.data_ptr(), w_t.kmajor.data_ptr(), b_t.data_ptr(), h.data_ptr(),
+                B, L_in, c_in, C, k_u, u, convt_lead_pad(k_u, u), tile, _build.stream_ptr(x.device),
+            ),
+            "fused_mrf int8 prologue",
+        )
     return h
 
 

@@ -25,6 +25,18 @@ class LSTM(nn.Module):
         self.w_h = nn.Parameter(torch.zeros(hidden_dim, 4 * hidden_dim))
         self.b = nn.Parameter(torch.zeros(4 * hidden_dim))
 
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """The JAX package's init (haiku's ``hk.Linear`` on ``[x, h]``): the
+        fused [D + H, 4H] weight truncated-normal at +-2 sigma with sigma =
+        1/sqrt(D + H), zero bias."""
+        w = torch.empty(self.w_i.shape[0] + self.w_h.shape[0], self.w_i.shape[1])
+        std = w.shape[0] ** -0.5
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        self.w_i.copy_(w[: self.w_i.shape[0]])
+        self.w_h.copy_(w[self.w_i.shape[0] :])
+        self.b.zero_()
+
 
 def apply_gates(
     gates: torch.Tensor, c: torch.Tensor
@@ -51,7 +63,9 @@ def unroll_lstm(
     """
     B, L, _ = xs.shape
     H = params.w_h.shape[0]
-    x_proj = xs @ params.w_i + params.b  # [B, L, 4H]
+    # [B, H] frames by unbind: the backward of L selects would zero-fill
+    # and sum L full-size gradients
+    x_proj = (xs @ params.w_i + params.b).unbind(1)
     h = xs.new_zeros(B, H)
     c = xs.new_zeros(B, H)
     hs = [None] * L
@@ -59,7 +73,7 @@ def unroll_lstm(
         if reset_mask is not None:
             keep = (~reset_mask[:, t]).unsqueeze(-1).to(xs.dtype)
             h, c = h * keep, c * keep
-        h, c = apply_gates(x_proj[:, t] + h @ params.w_h, c)
+        h, c = apply_gates(x_proj[t] + h @ params.w_h, c)
         hs[t] = h
     return torch.stack(hs, dim=1)
 

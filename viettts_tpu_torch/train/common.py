@@ -1,0 +1,294 @@
+"""Shared trainer machinery (counterpart of ``viettts_tpu/train/common.py``):
+the train state, the optimizer, the loss wrappers and the update step.
+
+* The optimizer is optax's ``chain(clip_by_global_norm(max_norm),
+  adamw(lr, weight_decay))`` written out over the parameter dict, with
+  optax's arithmetic: gradients are scaled by ``max_norm / g_norm`` only
+  when ``g_norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds
+  1e-6 to the norm and scales always), bias-corrected moments,
+  ``u = m_hat / (sqrt(v_hat) + 1e-8) + wd * p`` on every leaf, then
+  ``p -= lr * u``.  Its state converts to and from optax's tree
+  (``opt_state_to_optax`` / ``opt_state_from_optax``).
+* ``mixed_precision_loss`` casts parameters and batch statistics to
+  bfloat16 at the loss boundary, as the JAX package does (not
+  ``torch.autocast``); the float32 masters get the gradients.
+* ``make_update_fn`` takes ``steps_per_update`` optimizer steps a call
+  and returns their mean loss.  Parameters and statistics are updated in
+  place, so the modules they belong to always hold the current weights.
+
+The JAX package's data-parallel mesh is not ported: the port's
+``TrainConfig`` refuses more than one device (multi-GPU is later work).
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from pathlib import Path
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from viettts_tpu_torch.checkpoint import (
+    EmptyState,
+    ScaleByAdamState,
+    ScaleByScheduleState,
+    jax_tree,
+    named_from_jax,
+)
+from viettts_tpu_torch.config import Config
+from viettts_tpu_torch.data.loader import prefetch_to_device
+
+Tensors = Dict[str, torch.Tensor]
+Schedule = Callable[[int], float]
+# loss_fn(params, batch_stats, generator, batch) -> (loss, new_batch_stats)
+LossFn = Callable[..., Tuple[torch.Tensor, Tensors]]
+
+
+class AdamWState(NamedTuple):
+    count: int  # optax ScaleByAdamState.count: updates taken
+    mu: Tensors  # first moments, by parameter name
+    nu: Tensors  # second moments
+    schedule_count: Optional[int]  # ScaleByScheduleState.count; None at a constant rate
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Tensors  # the model's parameters (float32 masters), by name
+    batch_stats: Tensors  # its BatchNorm running statistics, by buffer name
+    opt_state: AdamWState
+    rng: torch.Generator
+
+
+def exponential_decay(
+    init_value: float, transition_steps: int, decay_rate: float, staircase: bool = False
+) -> Schedule:
+    """``optax.exponential_decay``: ``init * rate ** (count / steps)``, the
+    exponent floored with ``staircase``, in float32."""
+
+    def schedule(count: int) -> float:
+        if count <= 0:
+            return float(np.float32(init_value))
+        p = np.float32(count) / np.float32(transition_steps)
+        if staircase:
+            p = np.floor(p)
+        return float(np.float32(init_value) * np.power(np.float32(decay_rate), p))
+
+    return schedule
+
+
+class ClipAdamW:
+    """Global-norm clipping, then AdamW, over a dict of parameters."""
+
+    def __init__(
+        self,
+        learning_rate: Union[float, Schedule],
+        max_grad_norm: float = 1.0,
+        weight_decay: float = 1e-4,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+    ):
+        self.learning_rate = learning_rate
+        self.max_grad_norm = max_grad_norm
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Tensors) -> AdamWState:
+        zeros = {k: torch.zeros_like(p, memory_format=torch.contiguous_format) for k, p in params.items()}
+        return AdamWState(
+            count=0,
+            mu=zeros,
+            nu={k: torch.zeros_like(z) for k, z in zeros.items()},
+            schedule_count=0 if callable(self.learning_rate) else None,
+        )
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: AdamWState, params: Tensors) -> AdamWState:
+        """Apply one step to ``params`` in place; returns the new state
+        (its moment tensors updated in place too)."""
+        b1, b2 = self.b1, self.b2
+        g_norm = torch.stack([torch.sum(g * g) for g in grads.values()]).sum().sqrt()
+        keep = g_norm < self.max_grad_norm
+        count = state.count + 1
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        if state.schedule_count is None:
+            step_size = -self.learning_rate
+            schedule_count = None
+        else:
+            step_size = -self.learning_rate(state.schedule_count)
+            schedule_count = state.schedule_count + 1
+        for name, p in params.items():
+            g = grads[name]
+            g = torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+            mu, nu = state.mu[name], state.nu[name]
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
+            p.copy_(p + step_size * u)
+        return state._replace(count=count, schedule_count=schedule_count)
+
+
+def make_optimizer(
+    learning_rate: Union[float, Schedule], max_grad_norm: float = 1.0, weight_decay: float = 1e-4
+) -> ClipAdamW:
+    """The reference's optimizer chain: global-norm clip + AdamW."""
+    return ClipAdamW(learning_rate, max_grad_norm, weight_decay)
+
+
+def opt_state_to_optax(state: AdamWState) -> Tuple:
+    """optax's tree of ``chain(clip_by_global_norm, adamw)``, numpy leaves
+    in the JAX layout (``checkpoint.JAX_GLOBALS`` pickles the classes
+    under optax's names)."""
+    lr_state = EmptyState() if state.schedule_count is None else ScaleByScheduleState(
+        np.asarray(state.schedule_count, np.int32)
+    )
+    adam = ScaleByAdamState(
+        np.asarray(state.count, np.int32), jax_tree(state.mu)["params"], jax_tree(state.nu)["params"]
+    )
+    return (EmptyState(), (adam, EmptyState(), lr_state))
+
+
+def opt_state_from_optax(tree: Tuple, params: Tensors) -> AdamWState:
+    """The inverse of ``opt_state_to_optax``, moments on ``params``' devices."""
+    _, (adam, _, lr_state) = tree
+    names = list(params)
+
+    def moments(t):
+        arrays = named_from_jax({"params": t}, names)
+        return {k: torch.from_numpy(arrays[k]).to(params[k].device) for k in names}
+
+    return AdamWState(
+        count=int(adam.count),
+        mu=moments(adam.mu),
+        nu=moments(adam.nu),
+        schedule_count=int(lr_state.count) if isinstance(lr_state, ScaleByScheduleState) else None,
+    )
+
+
+def _cast(tree: Tensors, src: torch.dtype, dst: torch.dtype) -> Tensors:
+    return {k: v.to(dst) if v.dtype == src else v for k, v in tree.items()}
+
+
+def mixed_precision_loss(loss_fn: LossFn) -> LossFn:
+    """bf16 mixed precision by casting at the loss boundary: parameters and
+    statistics go in as bfloat16 (the cast is differentiable, so the
+    float32 masters get float32 gradients), the updated statistics and the
+    loss come back as float32."""
+
+    def wrapped(params, batch_stats, generator, batch):
+        loss, new_stats = loss_fn(
+            _cast(params, torch.float32, torch.bfloat16),
+            _cast(batch_stats, torch.float32, torch.bfloat16),
+            generator,
+            batch,
+        )
+        return loss.float(), _cast(new_stats, torch.bfloat16, torch.float32)
+
+    return wrapped
+
+
+def make_update_fn(loss_fn: LossFn, optimizer: ClipAdamW) -> Callable[[TrainState, Sequence[Any]], Tuple[TrainState, torch.Tensor]]:
+    """``update(state, batches)``: one optimizer step per batch of
+    ``batches`` (``steps_per_update`` of them); returns the new state and
+    the mean loss, a tensor on the device (reading it waits for the
+    device)."""
+
+    def one_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        names = list(state.params)
+        loss, new_stats = loss_fn(state.params, state.batch_stats, state.rng, batch)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        opt_state = optimizer.update(dict(zip(names, grads)), state.opt_state, state.params)
+        with torch.no_grad():
+            for k, v in new_stats.items():
+                state.batch_stats[k].copy_(v)
+        return state._replace(step=state.step + 1, opt_state=opt_state), loss.detach()
+
+    def update(state: TrainState, batches: Sequence[Any]) -> Tuple[TrainState, torch.Tensor]:
+        losses = []
+        for batch in batches:
+            state, loss = one_step(state, batch)
+            losses.append(loss)
+        return state, torch.stack(losses).mean()
+
+    return update
+
+
+def init_train_state(
+    params: Tensors,
+    batch_stats: Tensors,
+    optimizer: ClipAdamW,
+    rng: torch.Generator,
+    step: int = 0,
+) -> TrainState:
+    return TrainState(step, params, batch_stats, optimizer.init(params), rng)
+
+
+class MetricAverager:
+    """Mean of the last ``maxlen`` scalar losses (tensors are read only
+    when the mean is asked for)."""
+
+    def __init__(self, maxlen: int):
+        self._dq = deque(maxlen=maxlen)
+
+    def add(self, value) -> None:
+        self._dq.append(value)
+
+    def mean(self) -> float:
+        if not self._dq:
+            return float("nan")
+        return sum(float(v) for v in self._dq) / len(self._dq)
+
+
+def resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available; pass --device cpu to train on the CPU"
+        )
+    return device
+
+
+def run_steps(cfg: Config, state: TrainState, train_iter, device, update, step_log, on_interval) -> TrainState:
+    """The trainers' loop: ``steps_per_update`` batches uploaded one update
+    ahead, ``on_interval(state, step, steps_done, loss)`` after each update.
+    With a ``step_log`` list each update waits for the device and appends
+    (its seconds, its mean loss)."""
+    spu = cfg.train.steps_per_update
+    batches = prefetch_to_device(iter(lambda: [next(train_iter) for _ in range(spu)], None), device)
+    start = step = state.step
+    for steps_done in itertools.count(spu, spu):
+        if step >= cfg.train.num_training_steps:
+            break
+        tick = time.perf_counter()
+        state, loss = update(state, next(batches))
+        if step_log is not None:
+            step_log.append((time.perf_counter() - tick, float(loss)))
+        step = start + steps_done
+        on_interval(state, step, steps_done, loss)
+    return state
+
+
+def parse_args(description: str, argv=None):
+    """``--data-dir``, ``--ckpt-dir``, ``--set K=V`` and ``--device`` ->
+    (config, device)."""
+    from argparse import ArgumentParser
+
+    from viettts_tpu_torch.config import apply_overrides
+
+    parser = ArgumentParser(description=description)
+    parser.add_argument("--data-dir", type=Path, default=None)
+    parser.add_argument("--ckpt-dir", type=Path, default=None)
+    parser.add_argument("--set", action="append", default=[], metavar="K=V")
+    parser.add_argument("--device", default="cuda", help="torch device (default cuda; cpu to train on the CPU)")
+    args = parser.parse_args(argv)
+    cfg = apply_overrides(Config(), args.set)
+    if args.data_dir:
+        cfg = cfg.replace(data_dir=args.data_dir)
+    if args.ckpt_dir:
+        cfg = cfg.replace(ckpt_dir=args.ckpt_dir)
+    Path(cfg.ckpt_dir).mkdir(parents=True, exist_ok=True)
+    return cfg, args.device
