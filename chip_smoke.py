@@ -48,7 +48,23 @@
    Synthesizer with the seeded vocoder, which synthesizes on the card (K1,
    K2, counted); and one step of each trainer at a small config on the card
    against the CPU, TF32 off, within 1e-4.
-5. A JSON line of per-kernel results, then the last line
+5. The vocoder half of the training recipe on the card, on the same
+   corpus: ``tools.zero_silence_segments``, then
+   ``viettts_tpu_torch.train.hifigan.train`` at the default width
+   (``HifiGanConfig()``: generator 512 channels, MPD periods 2/3/5/7/11 at
+   base 32, MSD 3 scales at base 128; segment 8192, B=64) for 6 steps with
+   an in-loop checkpoint every 3, each step's ms, losses, peak memory and
+   FLOPs with their bound; ``tools.gta.generate_gta`` on the acoustic
+   checkpoint of phase 4; 2 more GAN steps in GTA mode, resuming that
+   checkpoint in a second directory; one GAN step at a small config on the
+   card against the CPU (losses and spectral ``u`` within 1e-4, TF32 off).
+   The GAN-trained vocoder then serves ``SENTENCE`` with phase 4's
+   duration and acoustic checkpoints on the float32, bf16 and int8 routes
+   (int8 calibrated by ``warmup()``), counted: K1, K2 and K3 must launch
+   and no plain twin may run; bf16 and int8 are logged against float32 on
+   the same mel (rel-RMS, max abs; a few-step generator, not trained
+   weights).
+6. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -969,26 +985,169 @@ def train_phase(cfg, tmp: Path):
     return stats, out
 
 
-def round_trip(cfg, trained: Path):
-    """The trainers' checkpoints, read by the port's ``load_variables``,
-    into a Synthesizer with the seeded vocoder: one sentence on the card
-    (K1 and K2 on trained weights)."""
-    import pickle
+def gan_step_flop(cfg):
+    """FLOPs (2 x multiply-adds) of one GAN step from the shapes: the
+    generator (conv_pre, each stage's ConvTranspose and MRF convs,
+    conv_post), the MPD and MSD convs and the log-mel DFT and filterbank,
+    per waveform.  The generator runs forward and backward (3x its
+    forward); the discriminators forward and backward on both waveforms in
+    the discriminator step (3x each), then forward on the real one (1x)
+    and forward and backward to their input, weights frozen, on the
+    generated one (2x); the mel of the real audio once, of the generated
+    one forward and backward to the input (2x)."""
+    h, d = cfg.hifigan, cfg.dsp
+    B, S = cfg.train.batch_size, h.segment_size
+    L, C = S // d.hop_length, h.upsample_initial_channel
+    mel = L * (d.n_fft * (d.n_fft // 2 + 1) * 2 + (d.n_fft // 2 + 1) * d.mel_dim)
+    gen = L * d.mel_dim * C * 7
+    convs = 2 if h.resblock == "1" else 1
+    for u, k in zip(h.upsample_rates, h.upsample_kernel_sizes):
+        gen += L * C * (C // 2) * k  # ConvTranspose: each input sample meets k taps
+        L, C = L * u, C // 2
+        gen += sum(L * C * C * rk * len(rd) * convs for rk, rd in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
+    gen += L * C * 7
+    disc = 0
+    bc = h.mpd_base_channels
+    for p in h.mpd_periods:
+        H, chans = -(-S // p), (1, bc, 4 * bc, 16 * bc, 32 * bc)
+        for c_in, c_out in zip(chans[:-1], chans[1:]):
+            H = (H - 1) // 3 + 1
+            disc += H * p * c_in * c_out * 5
+        disc += H * p * (32 * bc * 32 * bc * 5 + 32 * bc * 3)
+    T, bc = S, h.msd_base_channels
+    for i in range(h.msd_scales):
+        T = T if i == 0 else T // 2 + 1
+        t, c_in = T, 1
+        for f, k, st, g, pad in ((1, 15, 1, 1, 7), (1, 41, 2, 4, 20), (2, 41, 2, 16, 20), (4, 41, 4, 16, 20),
+                                 (8, 41, 4, 16, 20), (8, 41, 1, 16, 20), (8, 5, 1, 1, 2)):
+            t = (t + 2 * pad - k) // st + 1
+            disc += t * f * bc * (c_in // g) * k
+            c_in = f * bc
+        disc += t * c_in * 3
+    return 2.0 * B * (3 * gen + (3 + 1) * disc + (3 + 2) * disc + mel + 2 * mel)
 
-    from viettts_tpu_torch.checkpoint import NATIVE_FORMAT, load_variables
+
+GAN_STEPS, GAN_CKPT_INTERVAL, GTA_STEPS = 6, 3, 2
+
+
+def run_gan(name, cfg, steps, **kw):
+    """``train.hifigan.train`` to ``steps`` on the card: per-step ms and
+    losses (each step waits for the device), peak memory, FLOPs and their
+    bound at the float32 and TF32 peaks."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.train import hifigan
+
+    log_ = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hifigan.train(cfg, num_steps=steps, device="cuda", step_log=log_, log_every=GAN_CKPT_INTERVAL, **kw)
+    wall = time.perf_counter() - t0
+    ms = [1e3 * s for s, _ in log_]
+    losses = {k: [m[k] for _, m in log_] for k in ("disc_loss", "gen_loss", "mel_l1", "adv", "fm")}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"GAN {name}: non-finite loss {losses}")
+    flop = gan_step_flop(cfg)
+    median = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+    stats = {"steps": len(ms), "first_step_ms": ms[0], "median_ms": median, "ms": ms,
+             "first": {k: v[0] for k, v in losses.items()}, "last": {k: v[-1] for k, v in losses.items()},
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "flop_per_step": flop,
+             "bound_ms_f32": 1e3 * flop / PEAK_F32_FLOPS, "bound_ms_tf32": 1e3 * flop / (PEAK_TFLOPS["float32"] * 1e12),
+             "wall_s": wall}
+    log(f"GAN {name}: {len(ms)} steps, first {ms[0]:.1f} ms, then median {median:.1f} ms/step; "
+        + "; ".join(f"{k} {losses[k][0]:.4f} -> {losses[k][-1]:.4f}" for k in ("disc_loss", "gen_loss", "mel_l1"))
+        + f"; peak memory {stats['max_memory_allocated_bytes'] / 2**30:.2f} GiB; {flop / 1e12:.3f} TFLOP/step, "
+        f"bound {stats['bound_ms_f32']:.1f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+        f"{stats['bound_ms_tf32']:.1f} ms at {PEAK_TFLOPS['float32']:.0f} TF32; {wall:.1f} s in all")
+    return stats
+
+
+def gan_phase(cfg, corpus: Path, trained: Path, tmp: Path):
+    """The vocoder half of the recipe on the card, TF32 on in cuDNN as in
+    the train phase: silence zeroing, 6 GAN steps (audio only) with a
+    checkpoint every 3, the GTA export from the trained acoustic model, and
+    2 GTA steps resuming that checkpoint in a second directory.  Returns
+    the stats and the GAN-trained vocoder checkpoint."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.checkpoint import load_pickle
+    from viettts_tpu_torch.tools import gta, zero_silence_segments
+
+    wavs, gta_dir, audio_dir, ft_dir = tmp / "wavs_zeroed", tmp / "gta", tmp / "gan", tmp / "gan_gta"
+    zero_silence_segments.main(["-i", str(corpus), "-o", str(wavs)])
+    base = cfg.replace(train=dataclasses.replace(cfg.train, ckpt_interval=GAN_CKPT_INTERVAL))
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        stats = {"audio": run_gan("audio-only", base.replace(ckpt_dir=audio_dir), GAN_STEPS, wav_dir=wavs)}
+        t0 = time.perf_counter()
+        n = gta.generate_gta(gta_dir, cfg.replace(data_dir=corpus, ckpt_dir=trained), device="cuda")
+        mels = [np.load(f) for f in sorted(gta_dir.glob("*.npy"))]
+        if n != CORPUS_UTTERANCES or len(mels) != n or not all(np.isfinite(m).all() and m.shape[0] == 80 for m in mels):
+            raise AssertionError(f"GTA export wrote {n} files, {len(mels)} readable and finite")
+        stats["gta_export"] = {"files": n, "s": time.perf_counter() - t0, "frames": sum(m.shape[1] for m in mels)}
+        log(f"GTA export: {n} mels, {stats['gta_export']['frames']} frames, in {stats['gta_export']['s']:.1f} s")
+        ft_dir.mkdir()
+        shutil.copy(audio_dir / "hifigan_latest_ckpt.pickle", ft_dir / "hifigan_latest_ckpt.pickle")
+        stats["gta"] = run_gan("GTA finetune", base.replace(ckpt_dir=ft_dir), GAN_STEPS + GTA_STEPS,
+                               wav_dir=wavs, gta_dir=gta_dir)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    ckpt = ft_dir / "hifigan_latest_ckpt.pickle"
+    step = load_pickle(ckpt)["step"]
+    if stats["gta"]["steps"] != GTA_STEPS or step != GAN_STEPS + GTA_STEPS:
+        raise AssertionError(f"GTA finetune took {stats['gta']['steps']} steps to step {step}")
+    return stats, ckpt
+
+
+def round_trip(cfg, trained: Path, vocoder: Path, gan_steps: int):
+    """The trainers' checkpoints, read by the port's ``load_variables``,
+    into Synthesizers with the GAN-trained vocoder: ``SENTENCE`` on the
+    card on the float32, bf16 and int8 routes (K1, K2, K3 on trained
+    weights; int8 calibrated by ``warmup()``), and the bf16 and int8
+    vocoders against float32 on the float32 route's mel."""
+    import shutil
+
+    import torch
+
+    from viettts_tpu_torch.checkpoint import load_variables
+    from viettts_tpu_torch.config import apply_overrides
     from viettts_tpu_torch.infer.pipeline import Synthesizer
 
-    with open(trained / "hifigan_latest_ckpt.pickle", "wb") as f:
-        pickle.dump({"format": NATIVE_FORMAT, "step": 0, "variables": seeded_variables(cfg)["hifigan"]}, f)
+    shutil.copy(vocoder, trained / "hifigan_latest_ckpt.pickle")
     for kind in ("duration", "acoustic"):
         variables = load_variables(trained / f"{kind}_latest_ckpt.pickle", kind)
         if sorted(variables) != ["batch_stats", "params"]:
             raise AssertionError(f"{kind} checkpoint holds {sorted(variables)}")
-    synth = Synthesizer(cfg.replace(ckpt_dir=trained), device="cuda")
-    res = synth.synthesize(SENTENCE)
-    check_result(res, "synthesize (trained checkpoints)")
-    log(f"train round trip: {len(res.wave) / cfg.dsp.sample_rate:.2f} s of audio from the trained checkpoints")
-    return {"audio_s": len(res.wave) / cfg.dsp.sample_rate, "frames": res.mel.shape[0]}
+    if sorted(load_variables(trained / "hifigan_latest_ckpt.pickle", "hifigan")) != ["params"]:
+        raise AssertionError("the GAN checkpoint holds no folded inference params")
+    out, waves, mel = {}, {}, None
+    for route in ("float32", "bfloat16", "int8"):
+        synth = Synthesizer(apply_overrides(cfg.replace(ckpt_dir=trained), [f"hifigan.inference_dtype={route}"]),
+                            device="cuda")
+        if route == "int8":
+            synth.warmup()
+        res = synth.synthesize(SENTENCE)
+        check_result(res, f"synthesize ({route}, trained checkpoints)")
+        if mel is None:
+            mel = res.mel[None]
+        waves[route] = torch.from_numpy(synth.vocode(mel))
+        out[route] = {"audio_s": len(res.wave) / cfg.dsp.sample_rate, "frames": res.mel.shape[0]}
+    for route in ("bfloat16", "int8"):
+        out[route]["vs_f32_rel_rms"] = rel_rms(waves[route], waves["float32"])
+        out[route]["vs_f32_max_abs"] = float((waves[route] - waves["float32"]).abs().max())
+    out["float32"]["wave_rms"] = float(waves["float32"].pow(2).mean().sqrt())
+    log(f"train round trip ({gan_steps}-step GAN vocoder, not trained weights): {out['float32']['audio_s']:.2f} s "
+        f"of audio on each route; on the float32 route's {mel.shape[1]}-frame mel, wave rms "
+        f"{out['float32']['wave_rms']:.3e}; bf16 vs f32 rel-RMS {out['bfloat16']['vs_f32_rel_rms']:.3e}, max abs "
+        f"{out['bfloat16']['vs_f32_max_abs']:.3e}; int8 vs f32 rel-RMS {out['int8']['vs_f32_rel_rms']:.3e}, "
+        f"max abs {out['int8']['vs_f32_max_abs']:.3e}")
+    return out
 
 
 def _seed_values(model, seed):
@@ -1096,6 +1255,48 @@ def train_card_vs_cpu():
     return errs
 
 
+GAN_REL = 1e-4  # card against CPU, one GAN step: losses and spectral u
+
+
+def _gan_one_step(cfg, audio, device):
+    """One GAN step from the trainer's seeded cold init on ``device``:
+    metrics and the new spectral state."""
+    import torch
+
+    from viettts_tpu_torch.train.hifigan import build_gan
+
+    state, step = build_gan(cfg, device, cfg.hifigan.learning_rate)
+    state, metrics = step(state, None, torch.from_numpy(audio).to(device))
+    return {k: float(v) for k, v in metrics.items()}, {k: v.cpu() for k, v in state.spectral.items()}
+
+
+def gan_card_vs_cpu():
+    """One GAN step at a small config (generator 32 channels, one
+    ResBlock1; MPD periods 2/3 at base 4; MSD 2 scales at base 16; B=4,
+    segment 1024) on the card and on the CPU, TF32 off: every loss and the
+    new spectral ``u`` within 1e-4 (relative; ``u`` of its largest)."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.config import Config, HifiGanConfig, TrainConfig
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the card-vs-CPU GAN step")
+    cfg = Config(hifigan=HifiGanConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                                       resblock_dilation_sizes=((1, 3),), segment_size=1024, mpd_periods=(2, 3),
+                                       mpd_base_channels=4, msd_scales=2, msd_base_channels=16),
+                 train=TrainConfig(batch_size=4))
+    audio = (np.random.default_rng(5).standard_normal((4, 1024)) * 0.3).astype(np.float32)
+    card, u_card = _gan_one_step(cfg, audio, "cuda")
+    cpu, u_cpu = _gan_one_step(cfg, audio, "cpu")
+    errs = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    errs["u"] = max(float((u_card[k] - u_cpu[k]).abs().max() / u_cpu[k].abs().max()) for k in u_cpu)
+    log(f"GAN card vs CPU: one step, " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bar {GAN_REL})")
+    if not all(np.isfinite(card[k]) for k in card) or max(errs.values()) > GAN_REL:
+        raise AssertionError(f"GAN step: card {card}, CPU {cpu}, relative differences {errs}")
+    return errs
+
+
 def main() -> int:
     import torch
 
@@ -1154,10 +1355,12 @@ def main() -> int:
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
         train, trained = train_phase(cfg, tmp)
+        train["gan"], vocoder = gan_phase(cfg, tmp / "corpus", trained, tmp)
         zero_counts()
-        train["round_trip"] = round_trip(cfg, trained)
-        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf"])
+        train["round_trip"] = round_trip(cfg, trained, vocoder, GAN_STEPS + GTA_STEPS)
+        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
         train["card_vs_cpu"] = train_card_vs_cpu()
+        train["gan_card_vs_cpu"] = gan_card_vs_cpu()
 
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -1202,6 +1405,7 @@ def main() -> int:
          "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1; ms in bf16"},
         {"name": "fused_mrf_int8", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_int8.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
+         "launches_round_trip": launches_trained["fused_mrf_int8"],
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a training step spends its time on the card: ``torch.profiler``
-over one optimizer step of the port's duration trainer (B=64, 256 tokens)
-and of its acoustic trainer (B=64, 768 frames), at the full default width,
-after two warm-up steps, on ``chip_smoke.py``'s synthetic corpus, with
-PyTorch's TF32 defaults (cuDNN convs TF32, matmuls float32).
+over one optimizer step of the port's duration trainer (B=64, 256 tokens),
+of its acoustic trainer (B=64, 768 frames) and of its HiFi-GAN trainer
+(B=64, segment 8192, MPD + MSD), at the full default width, after two
+warm-up steps, on ``chip_smoke.py``'s synthetic corpus, with PyTorch's
+TF32 defaults (cuDNN convs TF32, matmuls float32).
 
     python3 scripts/profile_torch_training.py [--out DIR]
 
@@ -67,6 +68,21 @@ def one_step(kind, cfg, device):
     return update, state, batch
 
 
+def gan_step(cfg, device):
+    """(step, state, batch) of the GAN trainer at ``cfg``, audio-only,
+    warmed up by two steps."""
+    from viettts_tpu_torch.data.loader import to_device
+    from viettts_tpu_torch.train.hifigan import VocoderDataset, build_gan
+
+    state, step = build_gan(cfg, device, cfg.hifigan.learning_rate)
+    ds = VocoderDataset(cfg.data_dir, cfg.hifigan.segment_size, cfg.dsp.hop_length)
+    batch = to_device(next(ds.batches(cfg.train.batch_size, seed=cfg.train.seed)), device)
+    for _ in range(2):
+        state, metrics = step(state, *batch)
+        float(metrics["gen_loss"])
+    return step, state, batch
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -95,6 +111,14 @@ def main(argv=None) -> int:
                   f"({100 * res['busy_share']:.0f}% busy), {res['device_entries']} device entries", flush=True)
             for row in res["top"]:
                 print(f"    {row['ms']:8.3f} ms  {row['calls']:6d}x  {row['name']}")
+        step, state, batch = gan_step(cfg, device)
+        trace = None if args.out is None else args.out / "trace_train_hifigan.json"
+        res = profile_once(lambda: float(step(state, *batch)[1]["gen_loss"]), trace)
+        results["hifigan"] = res
+        print(f"train hifigan: wall {res['wall_ms']:.1f} ms (profiler on), device {res['device_ms']:.1f} ms "
+              f"({100 * res['busy_share']:.0f}% busy), {res['device_entries']} device entries", flush=True)
+        for row in res["top"]:
+            print(f"    {row['ms']:8.3f} ms  {row['calls']:6d}x  {row['name']}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi, "profile": {k: {kk: vv for kk, vv in v.items() if kk not in ("top", "groups_ms")}

@@ -387,6 +387,17 @@ def test_training_step_on_card_matches_cpu(cuda):
     assert sorted(errs) == ["acoustic", "duration"] and max(errs.values()) <= chip_smoke.TRAIN_REL
 
 
+def test_gan_step_on_card_matches_cpu(cuda):
+    """One HiFi-GAN step (discriminator then generator step) at a small
+    config, on the card and on the CPU (``chip_smoke.gan_card_vs_cpu``):
+    every loss and the new spectral ``u`` within 1e-4."""
+    import chip_smoke
+
+    errs = chip_smoke.gan_card_vs_cpu()
+    assert sorted(errs) == ["adv", "disc_loss", "fm", "gen_loss", "mel_l1", "u"]
+    assert max(errs.values()) <= chip_smoke.GAN_REL
+
+
 def test_log_mel_on_card_matches_cpu(cuda):
     from viettts_tpu_torch.config import DspConfig
     from viettts_tpu_torch.ops.mel import LogMelSpectrogram

@@ -17,6 +17,10 @@ Everything here is numpy until the bridge copies a tree into a module:
   fused JAX layout.  ``jax_location`` names the place of every tensor of
   the duration and acoustic modules in that tree, and ``jax_tree`` /
   ``named_from_jax`` convert both ways (the trainers' checkpoints).
+* ``gan_tree`` / ``named_from_gan_tree`` do the same for the GAN
+  trainer's trees: the weight-normalized generator's ``{v, g, bias}``,
+  the discriminators' ``{"mpd": ..., "msd": ...}`` and the spectral
+  state, Conv2d kernels (O, I, kh, kw) -> (kh, kw, I, O).
 """
 
 from __future__ import annotations
@@ -373,6 +377,11 @@ def load_acoustic(model, variables) -> None:
 
 
 def load_generator(model, variables) -> None:
+    """Copy generator params (plain or ``{v, g}``, folded here) into a
+    plain ``Generator``; a weight-normalized one loads through
+    ``named_from_gan_tree``."""
+    if model.use_wn:
+        raise ValueError("load_generator fills a plain Generator (use_wn=False)")
     p = fold_weight_norm(variables["params"])
     _put_conv(model.conv_pre, p["conv_pre"])
     _put_conv(model.conv_post, p["conv_post"])
@@ -391,3 +400,70 @@ def load_generator(model, variables) -> None:
                 _put_conv(rb.convs1[j], block[f"convs_{j}"])
     model.clear_fused_weights()
 
+
+
+# ---------------------------------------------------------------------------
+# The GAN trainer's trees.
+# ---------------------------------------------------------------------------
+
+
+def gan_path(name: str, resblock2: bool = False) -> Tuple[str, ...]:
+    """The path in the JAX package's GAN trees (``gen_params``,
+    ``disc_params``, ``spectral``) of a port tensor: the weight-normalized
+    generator's ``resblocks.3.convs1.2.v`` is ``resblock_3/convs1_2/v``
+    (``convs_2`` in a ResBlock2) and ``ups.0.g`` is ``ups_0/g``; the
+    discriminators' names (``mpd.disc_p2.conv_0.v``) and the spectral
+    state's (``disc_s0.conv_0.u``) are their paths."""
+    m = re.fullmatch(r"resblocks\.(\d+)\.convs([12])\.(\d+)\.(\w+)", name)
+    if m:
+        r, c, j, leaf = m.groups()
+        return (f"resblock_{r}", f"convs_{j}" if resblock2 else f"convs{c}_{j}", leaf)
+    return tuple(re.sub(r"^ups\.(\d+)\.", r"ups_\1.", name).split("."))
+
+
+def _gan_layout(path: Sequence[str], ndim: int):
+    if path[-1] not in ("v", "kernel"):
+        return None
+    if path[0].startswith("ups_"):
+        return "convt"
+    return "conv2d" if ndim == 4 else "conv"
+
+
+def _gan_to_jax(a: np.ndarray, layout) -> np.ndarray:
+    if layout == "convt":  # (I, O, W) -> (W, I, O), mirrored on W
+        return np.flip(np.transpose(a, (2, 0, 1)), 0)
+    if layout == "conv2d":  # (O, I, kh, kw) -> (kh, kw, I, O)
+        return np.transpose(a, (2, 3, 1, 0))
+    return np.transpose(a, (2, 1, 0)) if layout == "conv" else a
+
+
+def _gan_from_jax(a: np.ndarray, layout) -> np.ndarray:
+    if layout == "convt":
+        return np.transpose(np.flip(a, 0), (1, 2, 0))
+    if layout == "conv2d":
+        return np.transpose(a, (3, 2, 0, 1))
+    return np.transpose(a, (2, 1, 0)) if layout == "conv" else a
+
+
+def gan_tree(named: Mapping[str, torch.Tensor], resblock2: bool = False) -> Dict[str, Any]:
+    """Port tensors by name -> the JAX package's nested tree, numpy
+    float32 leaves in its layout."""
+    out: Dict[str, Any] = {}
+    for name, t in named.items():
+        path = gan_path(name, resblock2)
+        a = t.detach().float().cpu().numpy()
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(_gan_to_jax(a, _gan_layout(path, a.ndim)))
+    return out
+
+
+def named_from_gan_tree(tree, names: Sequence[str], resblock2: bool = False) -> Dict[str, np.ndarray]:
+    """The inverse of ``gan_tree`` for each of ``names``."""
+    out = {}
+    for name in names:
+        path = gan_path(name, resblock2)
+        a = np.asarray(_get(tree, path), np.float32)
+        out[name] = np.array(_gan_from_jax(a, _gan_layout(path, a.ndim)), order="C")  # a writable copy
+    return out

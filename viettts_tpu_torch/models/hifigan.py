@@ -1,11 +1,15 @@
-"""HiFi-GAN generator, inference only (counterpart of the ``Generator`` and
-the fused serving path in ``viettts_tpu/models/hifigan.py``).
+"""HiFi-GAN generator (counterpart of the ``Generator`` and the fused
+serving path in ``viettts_tpu/models/hifigan.py``).
 
 Mel [B, T, n_mels] -> conv_pre -> 4 stages of [leaky_relu ->
 ConvTranspose(stride u, SAME) -> mean of the multi-receptive-field
 resblocks] -> leaky_relu(0.01) -> conv_post -> tanh: [B, T * 256, 1].
 
-``Generator.forward`` is the plain float32 formulation with torch convs.
+``Generator.forward`` is the plain formulation with torch convs.  With
+``use_wn=True`` every conv is weight-normalized (``WNConv``: ``{v, g,
+bias}``, folded in the parameters' dtype), as the GAN trainer trains it;
+``dtype`` is the compute dtype (bfloat16 under mixed precision: convs,
+bias adds and activations in it, ``tanh`` in float32).
 ``generator_apply_fused`` is the serving path: every stage, ConvTranspose
 prologue included and the tail fused into the last one, goes through
 ``fused_mrf`` (kernel K2 on CUDA), with float32 or bfloat16 storage, and
@@ -35,59 +39,112 @@ from viettts_tpu_torch.ops.mrf import (
 )
 
 
-def _same_conv(c_in: int, c_out: int, k: int, dilation: int = 1) -> nn.Conv1d:
-    return nn.Conv1d(c_in, c_out, k, dilation=dilation, padding=dilation * (k - 1) // 2)
+def weight_norm(v: torch.Tensor, g: torch.Tensor, out_axis: int = 0) -> torch.Tensor:
+    """``g * v / max(||v||, 1e-12)``, the norm over every axis of ``v`` but
+    ``out_axis`` (the output channels), in ``v``'s dtype."""
+    dims = [d for d in range(v.dim()) if d != out_axis]
+    norm = torch.linalg.vector_norm(v, dim=dims, keepdim=True)
+    shape = [1] * v.dim()
+    shape[out_axis] = -1
+    return v * (g.view(shape) / norm.clamp_min(1e-12))
+
+
+class WNConv(nn.Module):
+    """A weight-normalized conv: parameters ``v`` (torch's layout: (O, I/g,
+    k...) for Conv1d/Conv2d, ``out_axis=1`` for ConvTranspose1d's (I, O,
+    k)), ``g`` and ``bias`` [O], and the hyper-parameters as ``nn.ConvNd``
+    names them.  ``weight`` is the folded kernel (``weight_norm``);
+    ``forward`` runs a Conv1d or Conv2d in the input's dtype."""
+
+    def __init__(self, shape, out_axis: int = 0, stride=1, padding=0, dilation=1, groups: int = 1):
+        super().__init__()
+        self.v = nn.Parameter(torch.zeros(shape))
+        self.g = nn.Parameter(torch.ones(shape[out_axis]))
+        self.bias = nn.Parameter(torch.zeros(shape[out_axis]))
+        self.out_axis = out_axis
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return weight_norm(self.v, self.g, self.out_axis)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(self, x)
+
+
+def conv(module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s Conv1d or Conv2d (an ``nn.ConvNd`` or a ``WNConv``) in
+    ``x``'s dtype: the conv, then the bias added in that dtype, as the JAX
+    package's convs do (``preferred_element_type`` = the compute dtype)."""
+    w = module.weight.to(x.dtype)
+    fn = F.conv1d if w.dim() == 3 else F.conv2d
+    y = fn(x, w, None, module.stride, module.padding, module.dilation, module.groups)
+    return y + module.bias.to(x.dtype).view(-1, *([1] * (w.dim() - 2)))
+
+
+def _same_conv(c_in: int, c_out: int, k: int, dilation: int = 1, use_wn: bool = False) -> nn.Module:
+    pad = dilation * (k - 1) // 2
+    if use_wn:
+        return WNConv((c_out, c_in, k), padding=pad, dilation=dilation)
+    return nn.Conv1d(c_in, c_out, k, dilation=dilation, padding=pad)
 
 
 class ResBlock(nn.Module):
     """ResBlock1 (``convs1``/``convs2``: dilated conv then dilation-1 conv per
     dilation) or ResBlock2 (``convs1`` only: one dilated conv)."""
 
-    def __init__(self, channels: int, k: int, dilations, two_convs: bool):
+    def __init__(self, channels: int, k: int, dilations, two_convs: bool, use_wn: bool = False):
         super().__init__()
         self.dilations = tuple(dilations)
-        self.convs1 = nn.ModuleList(_same_conv(channels, channels, k, d) for d in dilations)
+        self.convs1 = nn.ModuleList(_same_conv(channels, channels, k, d, use_wn) for d in dilations)
         self.convs2 = (
-            nn.ModuleList(_same_conv(channels, channels, k) for _ in dilations)
+            nn.ModuleList(_same_conv(channels, channels, k, 1, use_wn) for _ in dilations)
             if two_convs else None
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i, conv in enumerate(self.convs1):
-            y = conv(F.leaky_relu(x, LRELU_SLOPE))
+        for i, c in enumerate(self.convs1):
+            y = conv(c, F.leaky_relu(x, LRELU_SLOPE))
             if self.convs2 is not None:
-                y = self.convs2[i](F.leaky_relu(y, LRELU_SLOPE))
+                y = conv(self.convs2[i], F.leaky_relu(y, LRELU_SLOPE))
             x = y + x
         return x
 
 
 class Generator(nn.Module):
-    def __init__(self, cfg: HifiGanConfig):
+    def __init__(self, cfg: HifiGanConfig, use_wn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.use_wn = use_wn
+        self.dtype = dtype
         c0 = cfg.upsample_initial_channel
-        self.conv_pre = _same_conv(cfg.mel_dim, c0, 7)
+        self.conv_pre = _same_conv(cfg.mel_dim, c0, 7, 1, use_wn)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             ch = c0 // (2 ** (i + 1))
             # padding is applied by conv_transpose_same (JAX SAME semantics)
-            self.ups.append(nn.ConvTranspose1d(2 * ch, ch, k, stride=u))
+            self.ups.append(
+                WNConv((2 * ch, ch, k), out_axis=1, stride=u) if use_wn
+                else nn.ConvTranspose1d(2 * ch, ch, k, stride=u)
+            )
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-                self.resblocks.append(ResBlock(ch, rk, rd, cfg.resblock == "1"))
-        self.conv_post = _same_conv(c0 // 2 ** len(cfg.upsample_rates), 1, 7)
+                self.resblocks.append(ResBlock(ch, rk, rd, cfg.resblock == "1", use_wn))
+        self.conv_post = _same_conv(c0 // 2 ** len(cfg.upsample_rates), 1, 7, 1, use_wn)
         self._fused: Dict[Tuple, List] = {}
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """Plain float32 generator: [B, T, n_mels] -> [B, T * 256, 1]."""
+        """Plain generator in ``self.dtype``: [B, T, n_mels] -> float32
+        [B, T * 256, 1]."""
         cfg = self.cfg
+        dt = self.dtype
         n = len(cfg.resblock_kernel_sizes)
-        x = self.conv_pre(mel.float().transpose(1, 2))
+        x = conv(self.conv_pre, mel.to(dt).transpose(1, 2))
         for i, (ups, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
-            x = conv_transpose_same(F.leaky_relu(x, LRELU_SLOPE), ups.weight, ups.bias, u)
+            x = conv_transpose_same(F.leaky_relu(x, LRELU_SLOPE), ups.weight.to(dt), ups.bias.to(dt), u)
             x = sum(self.resblocks[i * n + j](x) for j in range(n)) / n
-        x = self.conv_post(F.leaky_relu(x, POST_LRELU_SLOPE))
-        return torch.tanh(x).transpose(1, 2)
+        x = conv(self.conv_post, F.leaky_relu(x, POST_LRELU_SLOPE))
+        return torch.tanh(x.float()).transpose(1, 2)
 
     def clear_fused_weights(self) -> None:
         """Drop the cached kernel-layout weights (after loading new ones)."""

@@ -1,2 +1,3 @@
-"""The port's trainers: ``python -m viettts_tpu_torch.train.duration`` and
-``python -m viettts_tpu_torch.train.acoustic``."""
+"""The port's trainers: ``python -m viettts_tpu_torch.train.duration``,
+``python -m viettts_tpu_torch.train.acoustic`` and
+``python -m viettts_tpu_torch.train.hifigan``."""

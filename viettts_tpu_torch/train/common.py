@@ -7,7 +7,8 @@ the train state, the optimizer, the loss wrappers and the update step.
   when ``g_norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds
   1e-6 to the norm and scales always), bias-corrected moments,
   ``u = m_hat / (sqrt(v_hat) + 1e-8) + wd * p`` on every leaf, then
-  ``p -= lr * u``.  Its state converts to and from optax's tree
+  ``p -= lr * u``; with ``max_grad_norm=None`` it is ``adamw`` alone, as
+  the GAN trainer uses it.  Its state converts to and from optax's tree
   (``opt_state_to_optax`` / ``opt_state_from_optax``).
 * ``mixed_precision_loss`` casts parameters and batch statistics to
   bfloat16 at the loss boundary, as the JAX package does (not
@@ -80,12 +81,13 @@ def exponential_decay(
 
 
 class ClipAdamW:
-    """Global-norm clipping, then AdamW, over a dict of parameters."""
+    """Global-norm clipping (none with ``max_grad_norm=None``), then AdamW,
+    over a dict of parameters."""
 
     def __init__(
         self,
         learning_rate: Union[float, Schedule],
-        max_grad_norm: float = 1.0,
+        max_grad_norm: Optional[float] = 1.0,
         weight_decay: float = 1e-4,
         b1: float = 0.9,
         b2: float = 0.999,
@@ -110,8 +112,9 @@ class ClipAdamW:
         """Apply one step to ``params`` in place; returns the new state
         (its moment tensors updated in place too)."""
         b1, b2 = self.b1, self.b2
-        g_norm = torch.stack([torch.sum(g * g) for g in grads.values()]).sum().sqrt()
-        keep = g_norm < self.max_grad_norm
+        if self.max_grad_norm is not None:
+            g_norm = torch.stack([torch.sum(g * g) for g in grads.values()]).sum().sqrt()
+            keep = g_norm < self.max_grad_norm
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
@@ -123,7 +126,8 @@ class ClipAdamW:
             schedule_count = state.schedule_count + 1
         for name, p in params.items():
             g = grads[name]
-            g = torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+            if self.max_grad_norm is not None:
+                g = torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
             mu, nu = state.mu[name], state.nu[name]
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
@@ -139,26 +143,36 @@ def make_optimizer(
     return ClipAdamW(learning_rate, max_grad_norm, weight_decay)
 
 
-def opt_state_to_optax(state: AdamWState) -> Tuple:
-    """optax's tree of ``chain(clip_by_global_norm, adamw)``, numpy leaves
-    in the JAX layout (``checkpoint.JAX_GLOBALS`` pickles the classes
-    under optax's names)."""
+def _params_tree(named: Tensors) -> Any:
+    return jax_tree(named)["params"]
+
+
+def _params_named(tree: Any, names: Sequence[str]) -> Dict[str, np.ndarray]:
+    return named_from_jax({"params": tree}, names)
+
+
+def opt_state_to_optax(state: AdamWState, clipped: bool = True, to_tree=_params_tree) -> Tuple:
+    """optax's tree of ``chain(clip_by_global_norm, adamw)`` (of ``adamw``
+    alone when not ``clipped``), numpy leaves in the JAX layout
+    (``checkpoint.JAX_GLOBALS`` pickles the classes under optax's names);
+    ``to_tree`` lays the moments out as the parameters' tree."""
     lr_state = EmptyState() if state.schedule_count is None else ScaleByScheduleState(
         np.asarray(state.schedule_count, np.int32)
     )
-    adam = ScaleByAdamState(
-        np.asarray(state.count, np.int32), jax_tree(state.mu)["params"], jax_tree(state.nu)["params"]
-    )
-    return (EmptyState(), (adam, EmptyState(), lr_state))
+    adam = ScaleByAdamState(np.asarray(state.count, np.int32), to_tree(state.mu), to_tree(state.nu))
+    adamw = (adam, EmptyState(), lr_state)
+    return (EmptyState(), adamw) if clipped else adamw
 
 
-def opt_state_from_optax(tree: Tuple, params: Tensors) -> AdamWState:
-    """The inverse of ``opt_state_to_optax``, moments on ``params``' devices."""
-    _, (adam, _, lr_state) = tree
+def opt_state_from_optax(tree: Tuple, params: Tensors, from_tree=_params_named) -> AdamWState:
+    """The inverse of ``opt_state_to_optax`` (either tree), moments on
+    ``params``' devices; ``from_tree(tree, names)`` -> numpy arrays by
+    name."""
+    adam, _, lr_state = tree[1] if isinstance(tree[0], EmptyState) else tree
     names = list(params)
 
     def moments(t):
-        arrays = named_from_jax({"params": t}, names)
+        arrays = from_tree(t, names)
         return {k: torch.from_numpy(arrays[k]).to(params[k].device) for k in names}
 
     return AdamWState(
