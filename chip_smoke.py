@@ -64,7 +64,25 @@
    and no plain twin may run; bf16 and int8 are logged against float32 on
    the same mel (rel-RMS, max abs; a few-step generator, not trained
    weights).
-6. A JSON line of per-kernel results, then the last line
+6. The multi-device layer on the one card: (a) in one NCCL group of one
+   rank: one update of the duration and acoustic trainers at the small
+   config against the same without a group (1e-6 of each leaf), then the
+   duration, acoustic and GAN trainers at the
+   default width on the same corpus for 2 steps each, without a process
+   group and under a one-rank NCCL group joined by
+   ``parallel.initialize_distributed`` (``file://`` store), with ``fsdp``
+   off and (duration, acoustic) on: every loss within 1e-6 of the run
+   without a group, ms/step logged beside phases 4 and 5 (TF32 off and
+   deterministic algorithms in these runs); (b) ``Synthesizer(devices=
+   ["cuda:0", "cuda:0"])`` with prenet dropout off on the float32, bf16
+   and int8 routes against one device (float32 mels and waves within
+   1e-4, bf16 and int8 waves within 1e-3 rel-RMS; K1, K2 and K3 counted,
+   no plain twin), with ``synthesize_batch`` times on both, and ``serve
+   --num-devices`` refusing more cards than there are; (c)
+   ``tools.denoise`` over the corpus on the card against the CPU (1 LSB),
+   and one duration-trainer step with ``VIETTTS_PROFILE_DIR`` set, which
+   must leave a trace with device kernels.
+7. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -73,6 +91,7 @@ it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1168,7 +1187,7 @@ def _seed_values(model, seed):
                 t.copy_(0.05 * noise)
 
 
-def _one_step(kind, cfg, batch, device, lr):
+def _one_step(kind, cfg, batch, device, lr, data_parallel=False):
     import torch
 
     from viettts_tpu_torch.data.loader import to_device
@@ -1190,8 +1209,34 @@ def _one_step(kind, cfg, batch, device, lr):
     opt = make_optimizer(lr)
     state = init_train_state(dict(model.named_parameters()), batch_stats(model), opt,
                              torch.Generator(device).manual_seed(0))
-    state, loss = make_update_fn(loss_fn, opt)(state, [to_device(batch, torch.device(device))])
+    update = make_update_fn(loss_fn, opt, data_parallel=data_parallel)
+    state, loss = update(state, [to_device(batch, torch.device(device))])
     return float(loss), {k: v.detach().cpu() for k, v in {**state.params, **state.batch_stats}.items()}, before
+
+
+def _step_difference(what, loss, params, want_loss, want, before, lr, bar):
+    """The worst relative difference of one step's loss and of its
+    parameters and statistics (of each leaf's largest value) from
+    ``want``'s; raises above ``bar``.  A conv bias that feeds a BatchNorm
+    has a zero gradient in exact arithmetic, which Adam scales to a full
+    step of either sign: there each side must have moved by at most the
+    learning rate."""
+    import numpy as np
+
+    worst = abs(loss - want_loss) / abs(want_loss)
+    if not (np.isfinite(loss) and worst <= bar):
+        raise AssertionError(f"{what}: loss {loss} against {want_loss}")
+    for name, w in want.items():
+        if name.endswith("bias") and "convs" in name and not name.startswith("postnet_convs.4"):
+            moved = max((side - before[name]).abs().max().item() for side in (params[name], w))
+            if moved > lr * 1.01:
+                raise AssertionError(f"{what}: zero-gradient bias {name} moved {moved}")
+            continue
+        rel = (params[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if rel > bar:
+            raise AssertionError(f"{what}: {name} differs by {rel:.2e} of its largest value")
+    return worst
 
 
 def train_card_vs_cpu():
@@ -1205,53 +1250,19 @@ def train_card_vs_cpu():
     the bar.  A conv bias that feeds a BatchNorm has a zero gradient in
     exact arithmetic, which Adam scales to a full step of either sign:
     there each side must have moved by at most the learning rate."""
-    import numpy as np
     import torch
-
-    from viettts_tpu_torch.config import AcousticModelConfig, Config, DspConfig, DurationModelConfig
-    from viettts_tpu_torch.types import AcousticBatch, DurationBatch
 
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 must be off for the card-vs-CPU step")
-    cfg = Config(
-        dsp=DspConfig(n_fft=256, hop_length=64, win_length=256, mel_dim=8),
-        duration=DurationModelConfig(vocab_size=96, lstm_dim=32, dropout_rate=0.0),
-        acoustic=AcousticModelConfig(vocab_size=96, encoder_dim=32, decoder_dim=64, prenet_dim=32,
-                                     postnet_dim=32, mel_dim=8, encoder_dropout_rate=0.0,
-                                     prenet_dropout_rate=0.0, postnet_dropout_rate=0.0,
-                                     prenet_dropout_at_inference=False, zoneout_rate=0.0),
-    )
-    rng = np.random.default_rng(4)
-    B, T, frames, lr = 4, 16, 48, 1e-4  # the trainers' default learning rate
-    lengths = np.asarray([16, 13, 9, 5], np.int32)
-    toks = rng.integers(4, 96, (B, T)).astype(np.int32)
-    durs = rng.uniform(0.02, 0.06, (B, T)).astype(np.float32)
-    toks[:, 2] = 3
-    for i, n in enumerate(lengths):
-        toks[i, n:], durs[i, n:] = 0, 0.0
-    wavs = (rng.standard_normal((B, frames * 64)) * 3000).astype(np.int16)
-    wav_lengths = np.asarray([frames * 64, 2800, 2000, 1200], np.int32)
-    batches = {"duration": DurationBatch(toks, lengths, durs),
-               "acoustic": AcousticBatch(toks, lengths, durs, wavs, wav_lengths, None)}
+    cfg = _small_train_config()
+    lr = 1e-4  # the trainers' default learning rate
     errs = {}
-    for kind, batch in batches.items():
+    for kind, batch in _small_train_batches().items():
         loss_card, card, before = _one_step(kind, cfg, batch, "cuda", lr)
         loss_cpu, cpu, _ = _one_step(kind, cfg, batch, "cpu", lr)
-        worst = abs(loss_card - loss_cpu) / abs(loss_cpu)
-        if not (np.isfinite(loss_card) and worst <= TRAIN_REL):
-            raise AssertionError(f"{kind} step: loss {loss_card} on the card, {loss_cpu} on the CPU")
-        for name, want in cpu.items():
-            if name.endswith("bias") and "convs" in name and not name.startswith("postnet_convs.4"):
-                moved = max((side - before[name]).abs().max().item() for side in (card[name], want))
-                if moved > lr * 1.01:
-                    raise AssertionError(f"{kind} step: zero-gradient bias {name} moved {moved}")
-                continue
-            rel = (card[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
-            worst = max(worst, rel)
-            if rel > TRAIN_REL:
-                raise AssertionError(f"{kind} step: {name} differs by {rel:.2e} of its largest value")
-        errs[kind] = worst
-        log(f"train card vs CPU, {kind}: one step, worst relative difference {worst:.2e} (bar {TRAIN_REL})")
+        errs[kind] = _step_difference(f"{kind} step, card vs CPU", loss_card, card, loss_cpu, cpu, before, lr,
+                                      TRAIN_REL)
+        log(f"train card vs CPU, {kind}: one step, worst relative difference {errs[kind]:.2e} (bar {TRAIN_REL})")
     return errs
 
 
@@ -1295,6 +1306,400 @@ def gan_card_vs_cpu():
     if not all(np.isfinite(card[k]) for k in card) or max(errs.values()) > GAN_REL:
         raise AssertionError(f"GAN step: card {card}, CPU {cpu}, relative differences {errs}")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the multi-device layer on one card
+# ---------------------------------------------------------------------------
+
+NCCL_REL = 1e-6  # one NCCL rank against no process group, every loss of every step
+NCCL_STEPS = 2
+# two replicas against one device on the whole batch (B=4 against 2 x B=2):
+# float32 mels and waves; the bf16 and int8 waves, whose tiles (and so
+# float32 sum orders) K2 picks by batch size, each run within K2's 1e-3
+# rel-RMS bf16 bar per stage
+REPLICA_F32_ATOL, REPLICA_REL_RMS = 1e-4, 1e-2
+
+
+def _small_train_config():
+    """Widths 32-64, 8 mels, every dropout and zoneout off."""
+    from viettts_tpu_torch.config import AcousticModelConfig, Config, DspConfig, DurationModelConfig
+
+    return Config(
+        dsp=DspConfig(n_fft=256, hop_length=64, win_length=256, mel_dim=8),
+        duration=DurationModelConfig(vocab_size=96, lstm_dim=32, dropout_rate=0.0),
+        acoustic=AcousticModelConfig(vocab_size=96, encoder_dim=32, decoder_dim=64, prenet_dim=32,
+                                     postnet_dim=32, mel_dim=8, encoder_dropout_rate=0.0,
+                                     prenet_dropout_rate=0.0, postnet_dropout_rate=0.0,
+                                     prenet_dropout_at_inference=False, zoneout_rate=0.0),
+    )
+
+
+def _small_train_batches():
+    """The small duration and acoustic batches of ``train_card_vs_cpu``."""
+    import numpy as np
+
+    from viettts_tpu_torch.types import AcousticBatch, DurationBatch
+
+    rng = np.random.default_rng(4)
+    B, T, frames = 4, 16, 48
+    lengths = np.asarray([16, 13, 9, 5], np.int32)
+    toks = rng.integers(4, 96, (B, T)).astype(np.int32)
+    durs = rng.uniform(0.02, 0.06, (B, T)).astype(np.float32)
+    toks[:, 2] = 3
+    for i, n in enumerate(lengths):
+        toks[i, n:], durs[i, n:] = 0, 0.0
+    wavs = (rng.standard_normal((B, frames * 64)) * 3000).astype(np.int16)
+    wav_lengths = np.asarray([frames * 64, 2800, 2000, 1200], np.int32)
+    return {"duration": DurationBatch(toks, lengths, durs),
+            "acoustic": AcousticBatch(toks, lengths, durs, wavs, wav_lengths, None)}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """TF32 off, cuDNN's deterministic algorithms and torch's deterministic
+    algorithms (warning where an op has none), so that two runs differ only
+    by the arithmetic under test; restored on exit."""
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    algorithms = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(algorithms[0], warn_only=algorithms[1])
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
+def _small_steps(device, data_parallel=False):
+    """One update of the duration and acoustic trainers at the small
+    config (``_one_step``), with or without ``data_parallel``."""
+    cfg = _small_train_config()
+    return {kind: _one_step(kind, cfg, b, device, 1e-4, data_parallel) for kind, b in _small_train_batches().items()}
+
+
+def _small_step_errors(plain, ranked):
+    """``_step_difference`` of each one-rank update from the update without
+    a group, at ``NCCL_REL``."""
+    return {kind: _step_difference(f"{kind} step, one rank vs no group", *ranked[kind][:2], loss, params,
+                                   before, 1e-4, NCCL_REL)
+            for kind, (loss, params, before) in plain.items()}
+
+
+def nccl_step_vs_plain(store: Path, device="cuda"):
+    """One update of the duration and acoustic trainers at
+    ``train_card_vs_cpu``'s small config: under a one-rank group (NCCL on
+    the card; ``file://`` store at ``store``; ``data_parallel=True``:
+    BatchNorm's sums, the loss denominator and the gradients all-reduced)
+    against no group; loss and parameters within ``NCCL_REL`` of each
+    leaf's largest value (the zero-gradient conv biases as in
+    ``_step_difference``), both under ``_deterministic()``.  Raises above
+    the bar."""
+    import torch.distributed as dist
+
+    from viettts_tpu_torch.parallel import mesh
+
+    with _deterministic():
+        plain = _small_steps(device)
+        mesh.initialize_distributed(f"file://{store}", 1, 0, device=device)
+        try:
+            ranked = _small_steps(device, data_parallel=True)
+        finally:
+            dist.destroy_process_group()
+    return _small_step_errors(plain, ranked)
+
+
+def _losses(kind, cfg, wav_dir, device):
+    """One trainer run on the card for ``NCCL_STEPS`` steps: each step's ms
+    and its losses (every metric of the GAN step)."""
+    from viettts_tpu_torch.train import acoustic, duration, hifigan
+
+    steps = []
+    if kind == "gan":
+        hifigan.train(cfg, wav_dir=wav_dir, num_steps=NCCL_STEPS, log_every=NCCL_STEPS, device=device,
+                      step_log=steps)
+        return [1e3 * s for s, _ in steps], [[m[k] for k in sorted(m)] for _, m in steps]
+    module = duration if kind == "duration" else acoustic
+    module.train(cfg, save_plots=False, device=device, step_log=steps)
+    return [1e3 * s for s, _ in steps], [[loss] for _, loss in steps]
+
+
+def _bucket_ms(kind, cfg, device):
+    """Device ms (CUDA events) of one flat-bucket gradient all-reduce over
+    ``kind``'s parameters, the collective a data-parallel step adds (the
+    GAN step's two buckets, discriminators and generator, timed as one of
+    the same bytes)."""
+    import torch
+
+    from viettts_tpu_torch.models.acoustic import AcousticModel
+    from viettts_tpu_torch.models.discriminators import Discriminators
+    from viettts_tpu_torch.models.duration import DurationModel
+    from viettts_tpu_torch.models.hifigan import Generator
+    from viettts_tpu_torch.parallel import mesh
+
+    h = cfg.hifigan
+    models = {"duration": lambda: [DurationModel(cfg.duration)], "acoustic": lambda: [AcousticModel(cfg.acoustic)],
+              "gan": lambda: [Generator(h, use_wn=True), Discriminators(h.mpd_periods, h.mpd_base_channels,
+                                                                        h.msd_scales, h.msd_base_channels)]}[kind]()
+    grads = [torch.zeros(p.shape, device=device) for m in models for p in m.parameters()]
+    return time_ms(lambda: mesh.all_reduce_grads(grads)), 4 * sum(g.numel() for g in grads)
+
+
+def nccl_training(cfg, tmp: Path, earlier: dict, device="cuda"):
+    """Phase 6a, in one process group (a second NCCL group in a process
+    whose first was destroyed failed on the card with "NCCL communicator
+    was aborted"): first ``nccl_step_vs_plain``'s small-config update,
+    then the three trainers at the default width on phase 4's corpus (the
+    GAN on phase 5's silence-zeroed WAVs), ``NCCL_STEPS``
+    steps each with ``num_devices=1``: without a process group, then under
+    a one-rank NCCL group joined through ``initialize_distributed`` with
+    a ``file://`` store, with ``fsdp`` off and (duration, acoustic: the GAN
+    trainer replicates, as JAX's does) on.  Every loss of every step within
+    ``NCCL_REL`` of the run without a group.  All runs under
+    ``_deterministic()``, so that they differ only by the data-parallel
+    arithmetic (BatchNorm's sums over the ranks, the clip's norm over
+    shards).  ``earlier``: phases 4 and 5's median ms/step, logged
+    beside."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from viettts_tpu_torch.parallel import mesh
+
+    root = tmp / "nccl"
+    kinds = ("duration", "acoustic", "gan")
+
+    def config(kind, mode):
+        fsdp = mode == "fsdp"
+        train = dataclasses.replace(cfg.train, num_training_steps=NCCL_STEPS, val_interval=NCCL_STEPS,
+                                    ckpt_interval=NCCL_STEPS, num_devices=1, fsdp=fsdp)
+        return cfg.replace(data_dir=tmp / "corpus", ckpt_dir=root / f"{kind}_{mode}", train=train)
+
+    runs = {}
+    with _deterministic():
+        small = _small_steps(device)
+        for kind in kinds:
+            runs[(kind, "plain")] = _losses(kind, config(kind, "plain"), tmp / "wavs_zeroed", device)
+        mesh.initialize_distributed(f"file://{tmp / 'nccl_store'}", 1, 0, device=device)
+        try:
+            backend, world = dist.get_backend(), mesh.world()
+            small_ranked = _small_steps(device, data_parallel=True)
+            for kind in kinds:
+                runs[(kind, "dp")] = _losses(kind, config(kind, "dp"), tmp / "wavs_zeroed", device)
+            for kind in ("duration", "acoustic"):
+                runs[(kind, "fsdp")] = _losses(kind, config(kind, "fsdp"), tmp / "wavs_zeroed", device)
+            buckets = {kind: _bucket_ms(kind, cfg, device) for kind in kinds}
+        finally:
+            dist.destroy_process_group()
+    if backend != ("nccl" if device == "cuda" else "gloo") or world != (0, 1):
+        raise AssertionError(f"process group: {backend}, {world}")
+    out = {"backend": backend, "small_step": _small_step_errors(small, small_ranked),
+           "bucket": {k: {"ms": ms, "bytes": n} for k, (ms, n) in buckets.items()}}
+    log(f"{backend} one-rank update vs no group, small config: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in out["small_step"].items()) + f" (bar {NCCL_REL})")
+    for (kind, mode), (ms, losses) in runs.items():
+        want = np.asarray(runs[(kind, "plain")][1])
+        got = np.asarray(losses)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"NCCL {kind} {mode}: losses {losses}, without a group {want.tolist()}")
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        out[f"{kind}_{mode}"] = {"ms": ms, "losses": losses, "max_rel_vs_plain": rel}
+        if rel > NCCL_REL:
+            raise AssertionError(f"NCCL {kind} {mode}: losses {losses} differ from {want.tolist()} by {rel:.2e} "
+                                 f"(bar {NCCL_REL})")
+    for kind in kinds:
+        modes = [m for m in ("plain", "dp", "fsdp") if (kind, m) in runs]
+        log(f"{backend} {kind} (one rank, TF32 off): ms/step (first, second) "
+            + "; ".join(f"{m} {out[f'{kind}_{m}']['ms'][0]:.1f}, {out[f'{kind}_{m}']['ms'][1]:.1f}" for m in modes)
+            + f"; losses vs no group, max rel " + ", ".join(f"{m} {out[f'{kind}_{m}']['max_rel_vs_plain']:.2e}"
+                                                         for m in modes[1:])
+            + f" (bar {NCCL_REL}); phase {'5' if kind == 'gan' else '4'} median (TF32 convs) "
+            f"{earlier[kind]:.1f} ms; the gradient all-reduce of {buckets[kind][1] / 2**20:.1f} MiB takes "
+            f"{buckets[kind][0]:.3f} ms of device time")
+    return out
+
+
+def _median_wall_ms(fn, reps=3):
+    import numpy as np
+
+    fn()  # first call: allocator, cuDNN plans
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _one_device_shards(synth, texts, n_shards):
+    """``synth`` (one device) synthesizing ``texts`` (a power of two of
+    them, a multiple of ``n_shards``) in the shards an ``n_shards``-replica
+    Synthesizer cuts: the same rows, one frame budget, the same prenet
+    seeds."""
+    import torch
+
+    from viettts_tpu_torch.infer.pipeline import _shard_seed
+
+    rows = [synth.text_to_token_ids(t) for t in texts]
+    toks, lengths, dur_s = synth._durations_for(rows, -1.0)
+    n_frames, k = synth._frames(dur_s)[2], len(rows) // n_shards
+    with torch.inference_mode():
+        return [r for i in range(n_shards) for r in synth._finalize(synth._dispatch(
+            rows[i * k:(i + 1) * k], toks[i * k:(i + 1) * k], lengths[i * k:(i + 1) * k], dur_s[i * k:(i + 1) * k],
+            0, n_frames, _shard_seed(synth.prenet_seed, i)))]
+
+
+def replicated_serving(cfg, ckpt_dir: Path, routes=("float32", "bfloat16", "int8"), zero=None, read=None,
+                       device="cuda:0"):
+    """Phase 6b.  ``Synthesizer(devices=["cuda:0", "cuda:0"])`` (two
+    replicas on one card, prenet dropout off) on ``BATCH_TEXTS``, on each
+    route (int8 calibrated by ``calibrate_int8`` on each synthesizer):
+    bitwise equal to one device decoding the same two shards (same rows,
+    frame budget and prenet seeds), and against one device on the whole
+    batch float32 mels and waves within ``REPLICA_F32_ATOL``, bf16 and
+    int8 waves within ``REPLICA_REL_RMS``.  ``zero()`` / ``read()`` bracket
+    the two-replica runs (the launch counters).  Wall ms of
+    ``synthesize_batch`` (median of 3, after a first call) on both."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    def config(route):
+        return apply_overrides(cfg.replace(ckpt_dir=ckpt_dir), [
+            f"hifigan.inference_dtype={route}", "acoustic.prenet_dropout_at_inference=false"])
+
+    two, results = {}, {}
+    if zero is not None:
+        zero()
+    for route in routes:
+        synth = Synthesizer(config(route), devices=[device, device])
+        synth.calibrate_int8()
+        synth.warmup(batch_sizes=(1,), token_buckets=(32,))  # rounded up to 2 rows, one per replica
+        results[route] = synth.synthesize_batch(BATCH_TEXTS)
+        for i, res in enumerate(results[route]):
+            check_result(res, f"two replicas, {route}, text {i}")
+        two[route] = synth
+    counts = read() if read is not None else None
+    out = {}
+    for route in routes:
+        one = Synthesizer(config(route), device=device)
+        one.calibrate_int8()
+        want = one.synthesize_batch(BATCH_TEXTS)
+        got = results[route]
+        shards = _one_device_shards(one, BATCH_TEXTS, 2)
+        for i, (g, w) in enumerate(zip(got, shards)):
+            if not (np.array_equal(g.wave, w.wave) and np.array_equal(g.mel, w.mel)):
+                raise AssertionError(f"two replicas, {route}, text {i}: not the one device's output on the same "
+                                     f"shard (wave max abs {np.abs(g.wave - w.wave).max():.3e})")
+        errs = {"mel_max_abs": 0.0, "wave_max_abs": 0.0, "wave_rel_rms": 0.0}
+        if route == "int8":  # each synthesizer calibrated on its own first device
+            errs["scale_max_abs"] = max(float((s - two[route]._act_scales[i]).abs().max())
+                                        for i, s in one._act_scales.items())
+        for g, w in zip(got, want):
+            if g.wave.shape != w.wave.shape or g.mel.shape != w.mel.shape:
+                raise AssertionError(f"two replicas, {route}: shapes {g.wave.shape} vs {w.wave.shape}")
+            errs["mel_max_abs"] = max(errs["mel_max_abs"], float(np.abs(g.mel - w.mel).max()))
+            errs["wave_max_abs"] = max(errs["wave_max_abs"], float(np.abs(g.wave - w.wave).max()))
+            errs["wave_rel_rms"] = max(errs["wave_rel_rms"], rel_rms(torch.from_numpy(g.wave),
+                                                                     torch.from_numpy(w.wave)))
+        if route == "float32":
+            ok = errs["mel_max_abs"] <= REPLICA_F32_ATOL and errs["wave_max_abs"] <= REPLICA_F32_ATOL
+        else:
+            ok = errs["wave_rel_rms"] <= REPLICA_REL_RMS
+        if not ok:
+            raise AssertionError(f"two replicas, {route}, differ from one device: {errs}")
+        ms_one = _median_wall_ms(lambda: one.synthesize_batch(BATCH_TEXTS))
+        ms_two = _median_wall_ms(lambda: two[route].synthesize_batch(BATCH_TEXTS))
+        out[route] = {**errs, "ms_one_device": ms_one, "ms_two_replicas": ms_two}
+        log(f"two replicas on {device}, {route}: bitwise one device's output on the same shards; vs one "
+            f"device on the whole batch mel {errs['mel_max_abs']:.2e}, wave max abs {errs['wave_max_abs']:.2e}, "
+            f"rel-RMS {errs['wave_rel_rms']:.2e}; synthesize_batch(4 texts) {ms_one:.1f} ms on one device, "
+            f"{ms_two:.1f} ms on two replicas")
+    return out, counts
+
+
+def serve_refuses_missing_cards(ckpt_dir: Path):
+    """``serve --num-devices N`` with N one above the visible cards must
+    refuse before loading anything."""
+    import torch
+
+    from viettts_tpu_torch import serve
+
+    n = torch.cuda.device_count() + 1
+    try:
+        serve.build_server(["--ckpt-dir", str(ckpt_dir), "--port", "0", "--num-devices", str(n)])
+    except ValueError as e:
+        log(f"serve --num-devices {n} on {n - 1} card(s): refused ({e})")
+        return str(e)
+    raise AssertionError(f"serve --num-devices {n} did not refuse on {n - 1} card(s)")
+
+
+def tools_on_card(cfg, tmp: Path, device="cuda"):
+    """Phase 6c.  ``tools.denoise`` over the corpus WAVs on the card and on
+    the CPU (samples within 1 LSB), then the duration trainer
+    at ``cfg``'s width for 1 step with ``VIETTTS_PROFILE_DIR`` set: it must
+    leave a trace holding device kernels."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from viettts_tpu_torch.audio import read_wav
+    from viettts_tpu_torch.tools import denoise
+    from viettts_tpu_torch.train import duration
+    from viettts_tpu_torch.utils.profiling import PROFILE_ENV
+
+    corpus = tmp / "corpus"
+    seconds = {}
+    for dev in ("card", "cpu"):
+        t0 = time.perf_counter()
+        denoise.main(["-i", str(corpus), "-o", str(tmp / f"denoised_{dev}"), "--device",
+                      device if dev == "card" else "cpu"])
+        seconds[dev] = time.perf_counter() - t0
+    files = sorted(corpus.glob("*.wav"))
+    worst = 0
+    for f in files:
+        _, card = read_wav(tmp / "denoised_card" / f.name)
+        _, host = read_wav(tmp / "denoised_cpu" / f.name)
+        if card.shape != host.shape:
+            raise AssertionError(f"denoise {f.name}: {card.shape} on the card, {host.shape} on the CPU")
+        worst = max(worst, int(np.abs(card.astype(np.int32) - host.astype(np.int32)).max()))
+    if worst > 1:
+        raise AssertionError(f"denoise: card and CPU samples differ by {worst} LSB")
+    audio_s = sum(len(read_wav(f)[1]) for f in files) / CORPUS_SR
+    log(f"denoise: {len(files)} WAVs ({audio_s:.1f} s of audio) in {seconds['card']:.2f} s on {device}, "
+        f"{seconds['cpu']:.2f} s on the CPU; samples within {worst} LSB")
+
+    trace_dir = tmp / "trace"
+    cfg = cfg.replace(data_dir=corpus, ckpt_dir=tmp / "traced")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_training_steps=1, val_interval=1, ckpt_interval=1))
+    os.environ[PROFILE_ENV] = str(trace_dir)
+    try:
+        t0 = time.perf_counter()
+        duration.train(cfg, device=device)
+        traced_s = time.perf_counter() - t0
+    finally:
+        del os.environ[PROFILE_ENV]
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"the traced trainer left {traces}")
+    text = traces[0].read_text()
+    kernels = text.count('"cat": "kernel"')
+    if kernels == 0 and device == "cuda":
+        raise AssertionError("the trace holds no device kernel")
+    log(f"trace: duration trainer, 1 step with {PROFILE_ENV} set, in {traced_s:.1f} s: "
+        f"{traces[0].name}, {len(text) / 2**20:.1f} MiB, {kernels} device kernel events")
+    return {"denoise": {"files": len(files), "audio_s": audio_s, "card_s": seconds["card"],
+                        "cpu_s": seconds["cpu"], "max_lsb": worst},
+            "trace": {"mib": len(text) / 2**20, "kernel_events": kernels, "s": traced_s}}
 
 
 def main() -> int:
@@ -1362,6 +1767,15 @@ def main() -> int:
         train["card_vs_cpu"] = train_card_vs_cpu()
         train["gan_card_vs_cpu"] = gan_card_vs_cpu()
 
+        earlier = {"duration": train["duration"]["median_ms"], "acoustic": train["acoustic"]["median_ms"],
+                   "gan": train["gan"]["audio"]["median_ms"]}
+        multi = {"nccl_training": nccl_training(cfg, tmp, earlier)}
+        multi["replicas"], launches_replicated = replicated_serving(
+            cfg, tmp, zero=zero_counts,
+            read=lambda: read_counts("two replicas on cuda:0", ["ar_decode", "fused_mrf", "fused_mrf_int8"]))
+        multi["serve_refusal"] = serve_refuses_missing_cards(tmp)
+        multi["tools"] = tools_on_card(cfg, tmp)
+
     bf16, f32 = torch.bfloat16, torch.float32
 
     def stage_sum(times, col, case=(2, 128)):
@@ -1383,6 +1797,7 @@ def main() -> int:
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
          "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],
+         "launches_replicated": launches_replicated["ar_decode"],
          "max_abs_err": k1_err, "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the fed-back decode",
@@ -1391,6 +1806,7 @@ def main() -> int:
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
          "launches_int8_path": launches_int8["fused_mrf"], "launches_round_trip": launches_trained["fused_mrf"],
+         "launches_replicated": launches_replicated["fused_mrf"],
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
@@ -1406,6 +1822,7 @@ def main() -> int:
         {"name": "fused_mrf_int8", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_int8.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
          "launches_round_trip": launches_trained["fused_mrf_int8"],
+         "launches_replicated": launches_replicated["fused_mrf_int8"],
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),
@@ -1424,7 +1841,8 @@ def main() -> int:
          "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
-    log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train}))
+    log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train,
+                    "multi_device": multi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -410,3 +410,43 @@ def test_log_mel_on_card_matches_cpu(cuda):
     got = fn.to(cuda)(y.to(cuda)).cpu()
     assert got.shape == want.shape == (3, 50, 80)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer on one card: a one-rank NCCL group, two serving
+# replicas on cuda:0.
+# ---------------------------------------------------------------------------
+
+
+def test_one_rank_nccl_update_matches_plain(cuda, tmp_path):
+    """One update of the duration and acoustic trainers at a small config
+    under a one-rank NCCL group (``data_parallel=True``) against no group,
+    deterministic algorithms on (``chip_smoke.nccl_step_vs_plain``): loss
+    and parameters within 1e-6 of each leaf's largest value."""
+    import chip_smoke
+
+    errs = chip_smoke.nccl_step_vs_plain(tmp_path / "store")
+    assert sorted(errs) == ["acoustic", "duration"] and max(errs.values()) <= chip_smoke.NCCL_REL
+
+
+def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
+    """``Synthesizer(devices=["cuda:0", "cuda:0"])`` at the default width on
+    seeded weights, float32 route (``chip_smoke.replicated_serving``):
+    mels and waves within 1e-4 of one device; K1 and K2 launch for both
+    replicas (warmup and one batch: 4 decodes, 4 vocoders of 4 stages),
+    no plain twin."""
+    import chip_smoke
+    from viettts_tpu_torch.config import Config
+
+    cfg = Config()
+    chip_smoke.write_checkpoints(cfg, tmp_path)
+    dec, voc = ar_decoder.ar_decode, mrf.fused_mrf
+
+    def zero():
+        dec.launches = dec.plain_calls = voc.launches = voc.plain_calls = 0
+
+    out, counts = chip_smoke.replicated_serving(
+        cfg, tmp_path, routes=("float32",), zero=zero,
+        read=lambda: (dec.launches, dec.plain_calls, voc.launches, voc.plain_calls))
+    assert counts == (4, 0, 16, 0)
+    assert out["float32"]["mel_max_abs"] <= 1e-4 and out["float32"]["wave_max_abs"] <= 1e-4

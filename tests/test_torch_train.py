@@ -377,14 +377,21 @@ def test_port_resumes_jax_checkpoint(tmp_path):
 
 
 def test_orbax_and_many_devices_are_refused():
+    """Orbax is refused; more than one device or FSDP is refused without
+    a process group (one process per device), with the torchrun hint."""
     from viettts_tpu_torch.config import TrainConfig
+    from viettts_tpu_torch.parallel.mesh import check_data_parallel
     from viettts_tpu_torch.train.checkpoint import check_format
 
     with pytest.raises(ValueError, match="Orbax"):
         check_format("orbax")
     for bad in (dict(num_devices=8), dict(fsdp=True)):
-        with pytest.raises(ValueError, match="ROADMAP item 7"):
-            TrainConfig(**bad)
+        tcfg = TrainConfig(**bad)
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
+            check_data_parallel(tcfg.num_devices, tcfg.batch_size, tcfg.fsdp)
+    assert check_data_parallel(-1, 64) is False and check_data_parallel(1, 64) is False
+    with pytest.raises(ValueError, match="num_devices=0"):
+        TrainConfig(num_devices=0)
 
 
 def test_init_params_match_flax_in_distribution():

@@ -1,9 +1,10 @@
-"""PyTorch/CUDA port of the Vietnamese TTS system: the inference path and
-the duration and acoustic trainers.
+"""PyTorch/CUDA port of the Vietnamese TTS system: synthesis and serving,
+the duration, acoustic and HiFi-GAN trainers and the corpus tools, on one
+card or data-parallel over several (one process per card).
 
 The package mirrors ``viettts_tpu``'s module layout (``ops/``, ``models/``,
-``data/``, ``train/``, ``infer/``, ``synthesizer.py``, ``serve.py``) so each
-counterpart is easy to find.  It
+``data/``, ``train/``, ``infer/``, ``parallel/``, ``tools/``, ``utils/``,
+``synthesizer.py``, ``serve.py``) so each counterpart is easy to find.  It
 imports ``torch`` and nothing of ``jax``, ``flax``, ``optax`` or the JAX
 package: it keeps its own copies of the framework-free parts it needs
 (``config.py``, ``text/``, ``audio.py``, the batcher and HTTP front end

@@ -222,12 +222,13 @@ class TrainConfig:
     seed: int = 42
     val_interval: int = 10
     ckpt_interval: int = 1000
-    # Data-parallel mesh axis size; -1 = all available devices.  The port
-    # trains on one device: it takes -1 or 1 only.
+    # Data-parallel ranks; -1 = the process group's world size (one device
+    # without a group).  Any other value must equal the world size: launch
+    # one process per device under torchrun (parallel/mesh.py).
     num_devices: int = -1
-    # ZeRO/FSDP-style parameter+optimizer sharding across the data axis
-    # (large leaves split, XLA inserts all-gathers/reduce-scatters).  Not
-    # in the port: it takes False only.
+    # ZeRO/FSDP-style sharding of Adam's moments and the update across the
+    # ranks (large leaves split; train/common.py::FsdpClipAdamW).  Needs a
+    # process group.
     fsdp: bool = False
     # Opt-in bf16 mixed precision: f32 master params, forward/backward
     # compute in bfloat16 (params cast at the loss boundary).
@@ -239,12 +240,8 @@ class TrainConfig:
     checkpoint_format: str = "pickle"
 
     def __post_init__(self):
-        if self.num_devices not in (-1, 1) or self.fsdp:
-            raise ValueError(
-                f"train.num_devices={self.num_devices}, train.fsdp={self.fsdp}: the torch port "
-                "trains on one device (num_devices -1 or 1, fsdp false); data-parallel "
-                "training is ROADMAP item 7 (DDP)"
-            )
+        if self.num_devices == 0 or self.num_devices < -1:
+            raise ValueError(f"train.num_devices={self.num_devices}: -1 (the world size) or a device count")
 
 
 @dataclass(frozen=True)

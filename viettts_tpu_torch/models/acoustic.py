@@ -41,6 +41,7 @@ from viettts_tpu_torch.models.layers import (
 )
 from viettts_tpu_torch.ops.ar_decoder import ar_decode
 from viettts_tpu_torch.ops.rnn import LSTM, apply_gates
+from viettts_tpu_torch.parallel.mesh import rand_rows
 from viettts_tpu_torch.types import AcousticBatch
 
 
@@ -166,7 +167,7 @@ class AcousticModel(nn.Module):
         zoneout = train and cfg.zoneout_rate > 0
         if zoneout:  # keep-previous masks for (h1, c1, h2, c2)
             zmask = [
-                torch.rand((L, B, H), generator=generator, device=x.device) < cfg.zoneout_rate
+                rand_rows((L, B, H), generator, x.device, batch_axis=1) < cfg.zoneout_rate
                 for _ in range(4)
             ]
         h1 = c1 = h2 = c2 = x.new_zeros(B, H)

@@ -8,6 +8,12 @@ variance and the running average with weight ``momentum`` on the batch.
 Flax keeps ``0.9 * running + 0.1 * batch`` with the biased variance
 ``E[x^2] - E[x]^2`` (clipped at 0), over every position of the batch,
 padding included.
+
+Under ``parallel.mesh.data_parallel()`` a training forward sees this
+rank's rows of a global batch: ``BatchNorm`` all-reduces its moment sums,
+through autograd, so its statistics and gradients are the global batch's
+as under JAX's ``jit``, and ``dropout`` draws at the global batch shape
+and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from viettts_tpu_torch.parallel.mesh import batch_rows, global_sum, rand_rows
 
 # flax's truncated normal initialisers divide the standard deviation by the
 # std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
@@ -48,8 +56,13 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         # statistics in at least float32, as flax computes them
         xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        rows = batch_rows()
+        if rows is None:
+            mean, mean_sq = xf.mean(dim=(0, 2)), (xf * xf).mean(dim=(0, 2))
+        else:  # the global batch's moments: sums over every rank's rows
+            sums = global_sum(torch.stack([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2))]))
+            mean, mean_sq = sums / (xf.shape[0] * xf.shape[2] * rows.world)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         m = self.momentum
         self.new_stats = (
             (m * self.running_mean + (1 - m) * mean).detach(),
@@ -63,12 +76,12 @@ class BatchNorm(nn.Module):
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Flax's dropout: keep with probability ``1 - rate`` (a uniform draw
     from ``generator`` below it), scale kept values by ``1 / (1 - rate)``.
-    Rate 0 returns ``x`` and draws nothing."""
+    Rate 0 returns ``x`` and draws nothing.  The batch is axis 0."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = rand_rows(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -29,7 +29,10 @@ Usage::
         --set hifigan.inference_dtype=int8
 
 There is no device fallback: ``--device cuda`` (the default) fails when no
-GPU is available.  One process serves one device.
+GPU is available.  ``--num-devices N`` serves every batch sharded over
+``cuda:0`` .. ``cuda:N-1``, one replica each (``Synthesizer(devices=...)``);
+it refuses N above ``torch.cuda.device_count()`` rather than serve on
+fewer.
 """
 
 from __future__ import annotations
@@ -416,6 +419,25 @@ class TTSServer:
 
 
 
+def serving_devices(device: str, num_devices: int) -> dict:
+    """``--device`` and ``--num-devices`` as ``Synthesizer``'s ``device=``
+    (one device) or ``devices=`` (``cuda:0`` .. ``cuda:N-1``)."""
+    import torch
+
+    if num_devices < 1:
+        raise ValueError(f"--num-devices {num_devices}: at least 1")
+    if num_devices == 1:
+        return {"device": device}
+    if torch.device(device) != torch.device("cuda"):
+        raise ValueError(f"--num-devices {num_devices} serves on cuda:0 .. cuda:{num_devices - 1}; "
+                         f"--device {device} is for one device")
+    visible = torch.cuda.device_count()
+    if num_devices > visible:
+        raise ValueError(f"--num-devices {num_devices}: only {visible} CUDA devices are visible; "
+                         "refusing to serve on fewer")
+    return {"devices": [f"cuda:{i}" for i in range(num_devices)]}
+
+
 def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     """Parse the command line, load (and with ``--warmup`` warm) the port's
     Synthesizer, and bind the server; ``main`` then serves it."""
@@ -436,6 +458,8 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
                    help="refuse (HTTP 429) requests beyond this many queued")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: cuda; no CPU fallback)")
+    p.add_argument("--num-devices", type=int, default=1,
+                   help="shard each batch over cuda:0 .. cuda:N-1, one replica each")
     p.add_argument("--warmup", action="store_true",
                    help="calibrate the int8 route and run every token bucket "
                         "once before listening")
@@ -449,7 +473,7 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     cfg = apply_overrides(Config(), args.set)
     if args.ckpt_dir:
         cfg = cfg.replace(ckpt_dir=args.ckpt_dir)
-    synth = Synthesizer(cfg, lexicon_file=args.lexicon_file, device=args.device)
+    synth = Synthesizer(cfg, lexicon_file=args.lexicon_file, **serving_devices(args.device, args.num_devices))
     if args.warmup:
         synth.warmup()
     return TTSServer(

@@ -1,4 +1,6 @@
 """The port's corpus and checkpoint tools: ``tools.gta`` (GTA mels for
-vocoder finetuning), ``tools.zero_silence_segments`` and
+vocoder finetuning), ``tools.zero_silence_segments``,
 ``tools.convert_torch_hifigan`` (upstream PyTorch HiFi-GAN checkpoints to
-native pickles)."""
+native pickles), ``tools.denoise`` (spectral gating on the device, or
+NSNet2), ``tools.align`` (corpus assembly and the Montreal Forced
+Aligner) and ``tools.build_lexicon``."""

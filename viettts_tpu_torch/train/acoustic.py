@@ -9,11 +9,15 @@ before and after the postnet, over the frames below ``wav_lengths //
 hop``.  ``steps_per_update > 1`` adds the staircase half-life of the
 reference TPU trainer to the learning rate.  It runs on the card unless
 given ``--device cpu``; the decoder is an eager loop over frames.
+
+Data-parallel, one process per card (``train.batch_size`` stays the global
+batch; ``train.fsdp=true`` shards Adam's moments and the update)::
+
+    torchrun --nproc-per-node N -m viettts_tpu_torch.train.acoustic ... --set train.num_devices=N
 """
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -26,8 +30,10 @@ from viettts_tpu_torch.data.loader import AcousticDataset, to_device
 from viettts_tpu_torch.models.acoustic import AcousticModel
 from viettts_tpu_torch.models.layers import batch_stats, batch_stats_update
 from viettts_tpu_torch.ops.mel import LogMelSpectrogram
+from viettts_tpu_torch.parallel import mesh
 from viettts_tpu_torch.train.checkpoint import check_format
 from viettts_tpu_torch.train.common import (
+    FsdpClipAdamW,
     MetricAverager,
     TrainState,
     exponential_decay,
@@ -41,6 +47,7 @@ from viettts_tpu_torch.train.common import (
 )
 from viettts_tpu_torch.train.duration import restore_state, save_native_ckpt
 from viettts_tpu_torch.types import AcousticBatch
+from viettts_tpu_torch.utils.profiling import StepTimer, trace
 
 
 def prepare_batch(batch: AcousticBatch, mel_fn: LogMelSpectrogram, hop: int):
@@ -69,7 +76,8 @@ def make_loss_fn(
         per_frame = torch.mean((sq + ab) / 2, dim=-1)  # [B, T]
         T = mels.shape[1]
         mask = torch.arange(T, device=mels.device)[None, :] < (batch.wav_lengths // hop)[:, None]
-        loss = torch.sum(per_frame * mask) / torch.clamp(torch.sum(mask), min=1)
+        # over the global batch's frames under data parallelism
+        loss = torch.sum(per_frame * mask) / torch.clamp(mesh.global_sum(torch.sum(mask)), min=1)
         if with_outputs:
             return loss, (new_stats, None if train else (mel2, mels, attn))
         return loss, new_stats
@@ -106,6 +114,8 @@ def train(
     tcfg = cfg.train
     check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
+    dp = mesh.check_data_parallel(tcfg.num_devices, tcfg.batch_size, tcfg.fsdp)
+    main_rank = mesh.world()[0] == 0
     hop = cfg.dsp.hop_length
     model = AcousticModel(cfg.acoustic)
     model.init_params(torch.Generator().manual_seed(tcfg.seed))
@@ -115,6 +125,8 @@ def train(
     if tcfg.steps_per_update > 1:  # the reference TPU trainer's half-life
         lr = exponential_decay(lr, 50_000, 0.5, staircase=True)
     optimizer = make_optimizer(lr, tcfg.max_grad_norm, tcfg.weight_decay)
+    if tcfg.fsdp:
+        optimizer = FsdpClipAdamW(optimizer)
 
     def dataset(mode):
         return AcousticDataset(
@@ -125,42 +137,51 @@ def train(
     train_iter = train_ds.batches(tcfg.batch_size, seed=tcfg.seed)
     val_iter = val_ds.batches(min(tcfg.batch_size, len(val_ds)), seed=0)
     next(train_iter)  # the JAX trainer initialises its variables on this batch
+    if dp:  # every rank draws the global batch and keeps its rows
+        train_iter = map(mesh.shard_batch, train_iter)
 
     rng = torch.Generator(device).manual_seed(tcfg.seed)
     state = init_train_state(dict(model.named_parameters()), batch_stats(model), optimizer, rng)
     ckpt_path = Path(cfg.ckpt_dir) / "acoustic_latest_ckpt.pickle"
     restored = restore_state(ckpt_path, optimizer, state, tcfg.checkpoint_format)
     if restored is not None:
-        print(f"Resuming from {ckpt_path} at step {restored.step}")
+        if main_rank:
+            print(f"Resuming from {ckpt_path} at step {restored.step}")
         state = restored
 
     train_loss = make_loss_fn(model, mel_fn, hop, train=True)
     if tcfg.mixed_precision:
         train_loss = mixed_precision_loss(train_loss)
-    update = make_update_fn(train_loss, optimizer)
+    update = make_update_fn(train_loss, optimizer, data_parallel=dp)
     val_fn = make_loss_fn(model, mel_fn, hop, train=False, with_outputs=True)
     train_avg, val_avg = MetricAverager(1000), MetricAverager(100)
     spu = tcfg.steps_per_update
-    t0 = time.time()
+    timer = StepTimer(device)
     val_snapshot = None
+
+    def save(state):
+        save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format, optimizer)
 
     @torch.no_grad()
     def on_interval(state, step, steps_done, loss):
         nonlocal val_snapshot
         train_avg.add(loss)
-        if step % tcfg.val_interval < spu:
+        timer.tick(spu)
+        if step % tcfg.val_interval < spu:  # the whole validation batch on every rank
             vb = to_device(next(val_iter), device)
             vloss, (_, val_snapshot) = val_fn(state.params, state.batch_stats, state.rng, vb)
             val_avg.add(vloss)
         if step % tcfg.ckpt_interval < spu:
-            sps = steps_done / max(time.time() - t0, 1e-6)
-            print(f"step {step:>7d} | train {train_avg.mean():.4f} | val {val_avg.mean():.4f} | {sps:.2f} steps/s")
-            save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format)
-            if save_plots and val_snapshot is not None:
+            if main_rank:
+                print(f"step {step:>7d} | train {train_avg.mean():.4f} | val {val_avg.mean():.4f} | "
+                      f"{timer.steps_per_sec():.2f} steps/s")
+            save(state)
+            if save_plots and main_rank and val_snapshot is not None:
                 _save_triptych(Path(cfg.ckpt_dir) / f"mel_{step:06d}.png", val_snapshot)
 
-    state = run_steps(cfg, state, train_iter, device, update, step_log, on_interval)
-    save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format)
+    with trace():  # a device trace when VIETTTS_PROFILE_DIR is set
+        state = run_steps(cfg, state, train_iter, device, update, step_log, on_interval)
+    save(state)
     return state
 
 

@@ -17,13 +17,24 @@ the train state, the optimizer, the loss wrappers and the update step.
   and returns their mean loss.  Parameters and statistics are updated in
   place, so the modules they belong to always hold the current weights.
 
-The JAX package's data-parallel mesh is not ported: the port's
-``TrainConfig`` refuses more than one device (multi-GPU is later work).
+Under a process group (``parallel/mesh.py``) each rank holds its rows of
+the global batch.  ``make_update_fn(..., data_parallel=True)`` runs the
+loss inside ``mesh.data_parallel()`` (global BatchNorm statistics, global
+dropout draws, global loss denominators), so each rank's loss is its
+share of the global loss; the gradients are then summed over the ranks in
+one flat bucket before the optimizer, whose clip sees the global norm as
+optax's does under ``jit``, and the reported loss is summed too.
+``FsdpClipAdamW`` (``train.fsdp``) shards Adam's moments and the update
+instead of all-reducing.  ``DistributedDataParallel`` is not used: the
+parameters are functional dicts and the GAN step runs the discriminators
+twice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import os
 import time
 from collections import deque
 from pathlib import Path
@@ -41,6 +52,8 @@ from viettts_tpu_torch.checkpoint import (
 )
 from viettts_tpu_torch.config import Config
 from viettts_tpu_torch.data.loader import prefetch_to_device
+from viettts_tpu_torch.parallel import mesh
+from viettts_tpu_torch.utils.profiling import annotate
 
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -108,12 +121,16 @@ class ClipAdamW:
         )
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: AdamWState, params: Tensors) -> AdamWState:
+    def update(
+        self, grads: Tensors, state: AdamWState, params: Tensors, g_norm: Optional[torch.Tensor] = None
+    ) -> AdamWState:
         """Apply one step to ``params`` in place; returns the new state
-        (its moment tensors updated in place too)."""
+        (its moment tensors updated in place too).  ``g_norm``: the clip's
+        global norm when the caller computed it (FSDP), else ``grads``'."""
         b1, b2 = self.b1, self.b2
         if self.max_grad_norm is not None:
-            g_norm = torch.stack([torch.sum(g * g) for g in grads.values()]).sum().sqrt()
+            if g_norm is None:
+                g_norm = torch.stack([torch.sum(g * g) for g in grads.values()]).sum().sqrt()
             keep = g_norm < self.max_grad_norm
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
@@ -141,6 +158,78 @@ def make_optimizer(
 ) -> ClipAdamW:
     """The reference's optimizer chain: global-norm clip + AdamW."""
     return ClipAdamW(learning_rate, max_grad_norm, weight_decay)
+
+
+class FsdpClipAdamW:
+    """``inner`` (a ``ClipAdamW``) over FSDP shards, for ``train.fsdp``
+    under a process group.  Each leaf that ``mesh.fsdp_shard_axis`` splits
+    keeps only this rank's slice of Adam's moments, gets its summed
+    gradient by reduce-scatter, and is updated on this rank's slice of the
+    parameter only; the updated slices are then all-gathered into the
+    whole parameter, which the modules hold as the working copy the next
+    step reads.  Every other leaf is all-reduced (one flat bucket) and
+    updated whole on every rank.  The clip's global norm is the
+    all-reduced sum of the slices' squares plus the replicated leaves'
+    squares, counted once.  Gradients are summed (the trainers' losses are
+    each rank's share of the global loss)."""
+
+    def __init__(self, inner: ClipAdamW, min_size: int = 2**16):
+        self.inner, self.min_size = inner, min_size
+        self.max_grad_norm = inner.max_grad_norm
+
+    def axes(self, params: Tensors) -> Dict[str, Optional[int]]:
+        """The shard axis of each parameter, None where it is replicated."""
+        w = mesh.world()[1]
+        return {k: mesh.fsdp_shard_axis(tuple(p.shape), w, self.min_size) for k, p in params.items()}
+
+    def init(self, params: Tensors) -> AdamWState:
+        return self.shard_state(self.inner.init(params), params)
+
+    def shard_state(self, state: AdamWState, params: Tensors) -> AdamWState:
+        """This rank's slices of whole moments (a restored checkpoint's)."""
+        axes = self.axes(params)
+
+        def cut(m):
+            return {k: v if axes[k] is None else mesh.shard_of(v, axes[k]).clone() for k, v in m.items()}
+
+        return state._replace(mu=cut(state.mu), nu=cut(state.nu))
+
+    def full_state(self, state: AdamWState, params: Tensors) -> AdamWState:
+        """The whole moments, gathered (a collective: every rank calls it)."""
+        axes = self.axes(params)
+
+        def whole(m):
+            return {k: v if axes[k] is None else mesh.all_gather_shard(v, axes[k]) for k, v in m.items()}
+
+        return state._replace(mu=whole(state.mu), nu=whole(state.nu))
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: AdamWState, params: Tensors) -> AdamWState:
+        """One step from this rank's local gradients (whole leaves)."""
+        axes = self.axes(params)
+        replicated = [k for k in params if axes[k] is None]
+        g = dict(zip(replicated, mesh.all_reduce_grads([grads[k] for k in replicated])))
+        for k, a in axes.items():
+            if a is not None:
+                g[k] = mesh.reduce_scatter_shard(grads[k], a)
+        g_norm = None
+        if self.max_grad_norm is not None:
+            zero = next(iter(params.values())).new_zeros(())
+            sharded = sum((torch.sum(g[k] * g[k]) for k in params if axes[k] is not None), zero)
+            torch.distributed.all_reduce(sharded)
+            g_norm = (sharded + sum((torch.sum(g[k] * g[k]) for k in replicated), zero)).sqrt()
+        own = {k: p if axes[k] is None else mesh.shard_of(p, axes[k]) for k, p in params.items()}
+        state = self.inner.update({k: g[k] for k in params}, state, own, g_norm=g_norm)
+        for k, a in axes.items():
+            if a is not None:
+                params[k].copy_(mesh.all_gather_shard(own[k], a))
+        return state
+
+
+def whole_opt_state(optimizer, state: AdamWState, params: Tensors) -> AdamWState:
+    """``state`` with whole moments: an ``FsdpClipAdamW`` gathers its
+    shards (a collective: every rank calls it)."""
+    return optimizer.full_state(state, params) if isinstance(optimizer, FsdpClipAdamW) else state
 
 
 def _params_tree(named: Tensors) -> Any:
@@ -205,16 +294,26 @@ def mixed_precision_loss(loss_fn: LossFn) -> LossFn:
     return wrapped
 
 
-def make_update_fn(loss_fn: LossFn, optimizer: ClipAdamW) -> Callable[[TrainState, Sequence[Any]], Tuple[TrainState, torch.Tensor]]:
+def make_update_fn(
+    loss_fn: LossFn, optimizer: Union[ClipAdamW, FsdpClipAdamW], data_parallel: bool = False
+) -> Callable[[TrainState, Sequence[Any]], Tuple[TrainState, torch.Tensor]]:
     """``update(state, batches)``: one optimizer step per batch of
     ``batches`` (``steps_per_update`` of them); returns the new state and
     the mean loss, a tensor on the device (reading it waits for the
-    device)."""
+    device).  With ``data_parallel`` each batch is this rank's rows of a
+    global batch: the loss runs inside ``mesh.data_parallel()``, the
+    gradients and the reported loss are summed over the ranks (by an
+    ``FsdpClipAdamW`` itself)."""
+    if isinstance(optimizer, FsdpClipAdamW) and not data_parallel:
+        raise ValueError("FsdpClipAdamW needs data_parallel=True (a process group)")
 
     def one_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         names = list(state.params)
-        loss, new_stats = loss_fn(state.params, state.batch_stats, state.rng, batch)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        with mesh.data_parallel() if data_parallel else contextlib.nullcontext():
+            loss, new_stats = loss_fn(state.params, state.batch_stats, state.rng, batch)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        if data_parallel and not isinstance(optimizer, FsdpClipAdamW):
+            grads = mesh.all_reduce_grads(grads)
         opt_state = optimizer.update(dict(zip(names, grads)), state.opt_state, state.params)
         with torch.no_grad():
             for k, v in new_stats.items():
@@ -226,7 +325,8 @@ def make_update_fn(loss_fn: LossFn, optimizer: ClipAdamW) -> Callable[[TrainStat
         for batch in batches:
             state, loss = one_step(state, batch)
             losses.append(loss)
-        return state, torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        return state, mesh.all_reduce_value(loss) if data_parallel else loss
 
     return update
 
@@ -278,7 +378,8 @@ def run_steps(cfg: Config, state: TrainState, train_iter, device, update, step_l
         if step >= cfg.train.num_training_steps:
             break
         tick = time.perf_counter()
-        state, loss = update(state, next(batches))
+        with annotate("update"):
+            state, loss = update(state, next(batches))
         if step_log is not None:
             step_log.append((time.perf_counter() - tick, float(loss)))
         step = start + steps_done
@@ -286,9 +387,18 @@ def run_steps(cfg: Config, state: TrainState, train_iter, device, update, step_l
     return state
 
 
+def launch_device(device: str):
+    """``device``, or under ``torchrun`` (its ``WORLD_SIZE`` set) this
+    rank's device once the process group is joined
+    (``mesh.initialize_distributed``: one process per device)."""
+    if "WORLD_SIZE" not in os.environ:
+        return device
+    return mesh.initialize_distributed(device=device)
+
+
 def parse_args(description: str, argv=None):
     """``--data-dir``, ``--ckpt-dir``, ``--set K=V`` and ``--device`` ->
-    (config, device)."""
+    (config, device); under ``torchrun`` the device is this rank's."""
     from argparse import ArgumentParser
 
     from viettts_tpu_torch.config import apply_overrides
@@ -305,4 +415,4 @@ def parse_args(description: str, argv=None):
     if args.ckpt_dir:
         cfg = cfg.replace(ckpt_dir=args.ckpt_dir)
     Path(cfg.ckpt_dir).mkdir(parents=True, exist_ok=True)
-    return cfg, args.device
+    return cfg, launch_device(args.device)

@@ -6,11 +6,15 @@ The reference's loss and schedule: 10% of tokens masked to the word-end
 token, masked L1 over real tokens other than word ends, clip + AdamW,
 validation every ``val_interval`` steps and a resumable checkpoint every
 ``ckpt_interval``.  It runs on the card unless given ``--device cpu``.
+
+Data-parallel, one process per card (``train.batch_size`` stays the global
+batch; ``train.fsdp=true`` shards Adam's moments and the update)::
+
+    torchrun --nproc-per-node N -m viettts_tpu_torch.train.duration ... --set train.num_devices=N
 """
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -23,6 +27,7 @@ from viettts_tpu_torch.config import WORD_END_INDEX, Config
 from viettts_tpu_torch.data.loader import DurationDataset, to_device
 from viettts_tpu_torch.models.duration import DurationModel
 from viettts_tpu_torch.models.layers import batch_stats, batch_stats_update
+from viettts_tpu_torch.parallel import mesh
 from viettts_tpu_torch.train.checkpoint import (
     check_format,
     generator_state,
@@ -32,6 +37,7 @@ from viettts_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from viettts_tpu_torch.train.common import (
+    FsdpClipAdamW,
     MetricAverager,
     TrainState,
     init_train_state,
@@ -43,8 +49,10 @@ from viettts_tpu_torch.train.common import (
     parse_args,
     resolve_device,
     run_steps,
+    whole_opt_state,
 )
 from viettts_tpu_torch.types import DurationBatch
+from viettts_tpu_torch.utils.profiling import StepTimer, trace
 
 
 def make_loss_fn(model: DurationModel, token_mask_prob: float, train: bool):
@@ -53,7 +61,7 @@ def make_loss_fn(model: DurationModel, token_mask_prob: float, train: bool):
     def loss_fn(params, stats, generator, batch: DurationBatch):
         phonemes = batch.phonemes
         if train and token_mask_prob > 0:
-            m = torch.rand(phonemes.shape, generator=generator, device=phonemes.device) < token_mask_prob
+            m = mesh.rand_rows(phonemes.shape, generator, phonemes.device) < token_mask_prob
             phonemes = torch.where(m, WORD_END_INDEX, phonemes)
             batch = batch._replace(phonemes=phonemes)
         durations = functional_call(model, {**params, **stats}, (batch,), {"train": train, "generator": generator})
@@ -62,15 +70,21 @@ def make_loss_fn(model: DurationModel, token_mask_prob: float, train: bool):
         mask = torch.arange(L, device=phonemes.device)[None, :] < batch.lengths[:, None]
         mask = mask & (phonemes != WORD_END_INDEX)
         masked_l1 = torch.abs(durations - batch.durations) * mask
-        return torch.sum(masked_l1) / torch.clamp(torch.sum(mask), min=1), new_stats
+        # over the global batch's tokens under data parallelism
+        return torch.sum(masked_l1) / torch.clamp(mesh.global_sum(torch.sum(mask)), min=1), new_stats
 
     return loss_fn
 
 
-def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle") -> None:
+def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle", optimizer=None) -> None:
     """Write a resumable training checkpoint (one atomic pickle in the JAX
-    package's native format, ``train/checkpoint.py``)."""
+    package's native format, ``train/checkpoint.py``).  Under a process
+    group every rank calls it (an FSDP ``optimizer`` gathers its moments)
+    and rank 0 writes."""
     check_format(fmt)
+    state = state._replace(opt_state=whole_opt_state(optimizer, state.opt_state, state.params))
+    if mesh.world()[0] != 0:
+        return
     variables = {**jax_tree(state.params), **jax_tree(state.batch_stats)}
     save_checkpoint(
         path,
@@ -88,8 +102,9 @@ def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle") -> None
 def restore_state(path: Path, optimizer, template: TrainState, fmt: str = "pickle") -> Optional[TrainState]:
     """Resume from a native checkpoint written by the port or the JAX
     package: parameters and statistics are copied into ``template``'s
-    tensors (the model's own), moments onto their devices.  None when
-    ``path`` holds no native checkpoint."""
+    tensors (the model's own), moments onto their devices (this rank's
+    slices for an FSDP ``optimizer``).  None when ``path`` holds no native
+    checkpoint.  Every rank reads it."""
     check_format(fmt)
     dic = load_checkpoint(path)
     if dic is None or dic.get("format") != NATIVE_FORMAT:
@@ -99,9 +114,10 @@ def restore_state(path: Path, optimizer, template: TrainState, fmt: str = "pickl
         for name, a in named_from_jax(dic["variables"], list(tensors)).items():
             tensors[name].copy_(torch.from_numpy(a))
     restore_generator(template.rng, dic)
-    return template._replace(
-        step=int(dic["step"]), opt_state=opt_state_from_optax(dic["opt_state"], template.params)
-    )
+    opt_state = opt_state_from_optax(dic["opt_state"], template.params)
+    if isinstance(optimizer, FsdpClipAdamW):
+        opt_state = optimizer.shard_state(opt_state, template.params)
+    return template._replace(step=int(dic["step"]), opt_state=opt_state)
 
 
 def _save_duration_plot(path: Path, predicted, target, length: int) -> None:
@@ -132,45 +148,57 @@ def train(
     tcfg = cfg.train
     check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
+    dp = mesh.check_data_parallel(tcfg.num_devices, tcfg.batch_size, tcfg.fsdp)
+    main_rank = mesh.world()[0] == 0
     model = DurationModel(cfg.duration)
     model.init_params(torch.Generator().manual_seed(tcfg.seed))
     model.to(device)
     optimizer = make_optimizer(tcfg.duration_learning_rate, tcfg.max_grad_norm, tcfg.weight_decay)
+    if tcfg.fsdp:
+        optimizer = FsdpClipAdamW(optimizer)
 
     train_ds = DurationDataset(cfg.data_dir, cfg.data.max_phoneme_seq_len, "train", cfg.data)
     val_ds = DurationDataset(cfg.data_dir, cfg.data.max_phoneme_seq_len, "val", cfg.data)
     train_iter = train_ds.batches(tcfg.batch_size, seed=tcfg.seed)
     val_iter = val_ds.batches(min(tcfg.batch_size, len(val_ds)), seed=0)
     next(train_iter)  # the JAX trainer initialises its variables on this batch
+    if dp:  # every rank draws the global batch and keeps its rows
+        train_iter = map(mesh.shard_batch, train_iter)
 
     rng = torch.Generator(device).manual_seed(tcfg.seed)
     state = init_train_state(dict(model.named_parameters()), batch_stats(model), optimizer, rng)
     ckpt_path = Path(cfg.ckpt_dir) / "duration_latest_ckpt.pickle"
     restored = restore_state(ckpt_path, optimizer, state, tcfg.checkpoint_format)
     if restored is not None:
-        print(f"Resuming from {ckpt_path} at step {restored.step}")
+        if main_rank:
+            print(f"Resuming from {ckpt_path} at step {restored.step}")
         state = restored
 
     train_loss = make_loss_fn(model, tcfg.token_mask_prob, train=True)
     if tcfg.mixed_precision:
         train_loss = mixed_precision_loss(train_loss)
-    update = make_update_fn(train_loss, optimizer)
+    update = make_update_fn(train_loss, optimizer, data_parallel=dp)
     val_loss = make_loss_fn(model, 0.0, train=False)
     train_avg, val_avg = MetricAverager(1000), MetricAverager(100)
     spu = tcfg.steps_per_update
-    t0 = time.time()
+    timer = StepTimer(device)
+
+    def save(state):
+        save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format, optimizer)
 
     @torch.no_grad()
     def on_interval(state, step, steps_done, loss):
         train_avg.add(loss)
-        if step % tcfg.val_interval < spu:
+        timer.tick(spu)
+        if step % tcfg.val_interval < spu:  # the whole validation batch on every rank
             vb = to_device(next(val_iter), device)
             val_avg.add(val_loss(state.params, state.batch_stats, state.rng, vb)[0])
         if step % tcfg.ckpt_interval < spu:
-            sps = steps_done / max(time.time() - t0, 1e-6)
-            print(f"step {step:>7d} | train {train_avg.mean():.5f} | val {val_avg.mean():.5f} | {sps:.1f} steps/s")
-            save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format)
-            if save_plots:
+            if main_rank:
+                print(f"step {step:>7d} | train {train_avg.mean():.5f} | val {val_avg.mean():.5f} | "
+                      f"{timer.steps_per_sec():.1f} steps/s")
+            save(state)
+            if save_plots and main_rank:
                 vb = to_device(next(val_iter), device)
                 pred = model(vb, train=False)
                 _save_duration_plot(
@@ -178,8 +206,9 @@ def train(
                     pred[0].cpu(), vb.durations[0].cpu(), int(vb.lengths[0]),
                 )
 
-    state = run_steps(cfg, state, train_iter, device, update, step_log, on_interval)
-    save_native_ckpt(ckpt_path, state, tcfg.checkpoint_format)
+    with trace():  # a device trace when VIETTTS_PROFILE_DIR is set
+        state = run_steps(cfg, state, train_iter, device, update, step_log, on_interval)
+    save(state)
     return state
 
 

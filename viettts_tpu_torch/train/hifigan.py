@@ -22,6 +22,14 @@ The generator runs forward once a step: the discriminator step takes its
 output detached, and the generator step differentiates the same graph
 (JAX runs it twice; it is the same function of the same parameters).
 It runs on the card unless given ``--device cpu``.
+
+Data-parallel, one process per card: every rank draws the global batch of
+crops and keeps its rows; the discriminator and the generator gradients
+are each averaged over the ranks before their optimizer (the losses are
+means over equal rows); the spectral ``u`` depends on the weights only,
+so it stays equal on every rank; rank 0 prints and writes checkpoints::
+
+    torchrun --nproc-per-node N -m viettts_tpu_torch.train.hifigan ... --set train.num_devices=N
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from viettts_tpu_torch.models.discriminators import (
 )
 from viettts_tpu_torch.models.hifigan import Generator
 from viettts_tpu_torch.ops.mel import LogMelSpectrogram
+from viettts_tpu_torch.parallel import mesh
 from viettts_tpu_torch.train.checkpoint import check_format, jax_key, load_checkpoint, save_checkpoint
 from viettts_tpu_torch.train.common import (
     AdamWState,
@@ -55,10 +64,12 @@ from viettts_tpu_torch.train.common import (
     MetricAverager,
     Tensors,
     exponential_decay,
+    launch_device,
     opt_state_from_optax,
     opt_state_to_optax,
     resolve_device,
 )
+from viettts_tpu_torch.utils.profiling import StepTimer, annotate, trace
 
 MEL_LOSS_WEIGHT = 45.0
 FM_LOSS_WEIGHT = 1.0  # feature_matching_loss already multiplies by 2
@@ -142,13 +153,18 @@ def _cast(tree: Tensors, dtype: torch.dtype) -> Tensors:
 
 
 def make_gan_step(cfg: Config, generator: Generator, discs: Discriminators, gen_tx: ClipAdamW,
-                  disc_tx: ClipAdamW, mel_fn: LogMelSpectrogram):
+                  disc_tx: ClipAdamW, mel_fn: LogMelSpectrogram, data_parallel: bool = False):
     """``step(state, mel_in, audio) -> (state, metrics)``: one
     discriminator step, then one generator step; parameters and moments
     are updated in place, the spectral state is replaced.  ``mel_in`` is
     the GTA mel [B, frames, mel_dim] or None (the mels of ``audio``);
-    ``audio`` [B, segment_size]."""
+    ``audio`` [B, segment_size].  With ``data_parallel`` they are this
+    rank's rows of the global batch: both gradients and the metrics are
+    averaged over the ranks."""
     mixed = cfg.train.mixed_precision
+
+    def reduce(grads):
+        return mesh.all_reduce_grads(grads, "mean") if data_parallel else grads
 
     def cast(tree):
         return _cast(tree, torch.bfloat16) if mixed else tree
@@ -170,7 +186,7 @@ def make_gan_step(cfg: Config, generator: Generator, discs: Discriminators, gen_
         d_loss = discriminator_loss(mpd[0], mpd[1]) + discriminator_loss(msd[0], msd[1])
         spectral = {k: v.float() for k, v in spectral.items()}
         names = list(state.disc_params)
-        grads = torch.autograd.grad(d_loss, [state.disc_params[k] for k in names])
+        grads = reduce(torch.autograd.grad(d_loss, [state.disc_params[k] for k in names]))
         disc_opt = disc_tx.update(dict(zip(names, grads)), state.disc_opt, state.disc_params)
 
         # generator step (the updated discriminators, frozen)
@@ -181,10 +197,13 @@ def make_gan_step(cfg: Config, generator: Generator, discs: Discriminators, gen_
         fm = feature_matching_loss(mpd[2], mpd[3]) + feature_matching_loss(msd[2], msd[3])
         g_loss = adv + FM_LOSS_WEIGHT * fm + MEL_LOSS_WEIGHT * mel_l1
         names = list(state.gen_params)
-        grads = torch.autograd.grad(g_loss, [state.gen_params[k] for k in names])
+        grads = reduce(torch.autograd.grad(g_loss, [state.gen_params[k] for k in names]))
         gen_opt = gen_tx.update(dict(zip(names, grads)), state.gen_opt, state.gen_params)
 
-        metrics = {k: v.detach() for k, v in zip(METRICS, (d_loss, g_loss, mel_l1, adv, fm))}
+        values = torch.stack([v.detach().float() for v in (d_loss, g_loss, mel_l1, adv, fm)])
+        if data_parallel:
+            values = mesh.all_reduce_value(values, "mean")
+        metrics = dict(zip(METRICS, values.unbind()))
         return state._replace(step=state.step + 1, spectral=spectral, gen_opt=gen_opt, disc_opt=disc_opt), metrics
 
     return step
@@ -323,11 +342,12 @@ def _host_copy(state: GanState) -> GanState:
                           spectral=cpu(state.spectral), gen_opt=opt(state.gen_opt), disc_opt=opt(state.disc_opt))
 
 
-def build_gan(cfg: Config, device, learning_rate) -> Tuple[GanState, Callable]:
+def build_gan(cfg: Config, device, learning_rate, data_parallel: bool = False) -> Tuple[GanState, Callable]:
     """The weight-normalized generator and the discriminators at ``cfg``'s
     width, cold-initialised from ``cfg.train.seed`` and moved to
     ``device``; their state with fresh optimizers (``adamw`` at
-    ``learning_rate``, a float or a schedule) and the step function."""
+    ``learning_rate``, a float or a schedule) and the step function
+    (``make_gan_step``'s ``data_parallel``)."""
     hcfg, tcfg = cfg.hifigan, cfg.train
     generator = Generator(hcfg, use_wn=True, dtype=torch.bfloat16 if tcfg.mixed_precision else torch.float32)
     discs = Discriminators(hcfg.mpd_periods, hcfg.mpd_base_channels, hcfg.msd_scales, hcfg.msd_base_channels)
@@ -342,7 +362,8 @@ def build_gan(cfg: Config, device, learning_rate) -> Tuple[GanState, Callable]:
     gen_params, disc_params = dict(generator.named_parameters()), dict(discs.named_parameters())
     state = GanState(0, gen_params, disc_params, spectral, gen_tx.init(gen_params), disc_tx.init(disc_params),
                      jax_key(init))
-    return state, make_gan_step(cfg, generator, discs, gen_tx, disc_tx, LogMelSpectrogram(cfg.dsp).to(device))
+    return state, make_gan_step(cfg, generator, discs, gen_tx, disc_tx, LogMelSpectrogram(cfg.dsp).to(device),
+                                data_parallel)
 
 
 def train(
@@ -365,6 +386,10 @@ def train(
     hcfg, tcfg = cfg.hifigan, cfg.train
     check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
+    if tcfg.fsdp:
+        raise ValueError("train.fsdp: the GAN trainer replicates its state, as the JAX trainer does")
+    dp = mesh.check_data_parallel(tcfg.num_devices, tcfg.batch_size)
+    main_rank = mesh.world()[0] == 0
     resblock2 = hcfg.resblock == "2"
     ds = VocoderDataset(wav_dir or cfg.data_dir, hcfg.segment_size, cfg.dsp.hop_length, gta_dir=gta_dir,
                         sample_rate=cfg.dsp.sample_rate)
@@ -372,20 +397,23 @@ def train(
     # dataset); hcfg.lr_decay_steps overrides the interval on small corpora
     steps_per_epoch = hcfg.lr_decay_steps or max(1, len(ds) // tcfg.batch_size)
     state, step_fn = build_gan(
-        cfg, device, exponential_decay(hcfg.learning_rate, steps_per_epoch, hcfg.lr_decay, staircase=True)
+        cfg, device, exponential_decay(hcfg.learning_rate, steps_per_epoch, hcfg.lr_decay, staircase=True), dp
     )
 
     ckpt_path = Path(cfg.ckpt_dir) / "hifigan_latest_ckpt.pickle"
     restored = restore_vocoder_state(ckpt_path, state, resblock2)
     if restored is not None:
-        print(f"Resuming vocoder from {ckpt_path} at step {restored.step}")
+        if main_rank:
+            print(f"Resuming vocoder from {ckpt_path} at step {restored.step}")
         state = restored
     elif disc_init is not None:
         # a fresh run (typically GTA finetuning); a run's own resume state
         # takes precedence above
         state = _load_disc_init(disc_init, state)
-    # the crop stream continues past what the run consumed, as in JAX
-    data = prefetch_to_device(ds.batches(tcfg.batch_size, seed=tcfg.seed + state.step), device)
+    # the crop stream continues past what the run consumed, as in JAX; each
+    # rank keeps its rows of the global batch
+    batches = ds.batches(tcfg.batch_size, seed=tcfg.seed + state.step)
+    data = prefetch_to_device(map(mesh.shard_batch, batches) if dp else batches, device)
     num_steps = num_steps or tcfg.num_training_steps
 
     # in-loop checkpoints: a host copy of the state, then one background
@@ -393,6 +421,8 @@ def train(
     writer: List[Optional[threading.Thread]] = [None]
 
     def save_async(st: GanState) -> None:
+        if not main_rank:
+            return
         if writer[0] is not None:
             writer[0].join()
         t = threading.Thread(target=save_vocoder_ckpt, args=(ckpt_path, _host_copy(st), resblock2), daemon=True)
@@ -400,30 +430,32 @@ def train(
         writer[0] = t
 
     avg = {k: MetricAverager(log_every) for k in ("disc_loss", "gen_loss", "mel_l1")}
-    t0, done = time.time(), 0
+    timer = StepTimer(device)
     step = state.step
-    while step < num_steps:
-        mel_in, audio = next(data)
-        tick = time.perf_counter()
-        state, metrics = step_fn(state, mel_in, audio)
-        if step_log is not None:
-            values = {k: float(v) for k, v in metrics.items()}  # waits for the device
-            step_log.append((time.perf_counter() - tick, values))
-        step += 1
-        done += 1
-        for k in avg:
-            avg[k].add(metrics[k])
-        if on_metrics is not None:
-            on_metrics(step, metrics)
-        if step % log_every == 0:
-            sps = done / max(time.time() - t0, 1e-6)
-            print(f"step {step:>7d} | disc {avg['disc_loss'].mean():.3f} | gen {avg['gen_loss'].mean():.3f}"
-                  f" | mel_l1 {avg['mel_l1'].mean():.4f} | {sps:.2f} steps/s")
-        if step % tcfg.ckpt_interval == 0:
-            save_async(state)
+    with trace():  # a device trace when VIETTTS_PROFILE_DIR is set
+        while step < num_steps:
+            mel_in, audio = next(data)
+            tick = time.perf_counter()
+            with annotate("gan_step"):
+                state, metrics = step_fn(state, mel_in, audio)
+            if step_log is not None:
+                values = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                step_log.append((time.perf_counter() - tick, values))
+            step += 1
+            timer.tick()
+            for k in avg:
+                avg[k].add(metrics[k])
+            if on_metrics is not None:
+                on_metrics(step, metrics)
+            if step % log_every == 0 and main_rank:
+                print(f"step {step:>7d} | disc {avg['disc_loss'].mean():.3f} | gen {avg['gen_loss'].mean():.3f}"
+                      f" | mel_l1 {avg['mel_l1'].mean():.4f} | {timer.steps_per_sec():.2f} steps/s")
+            if step % tcfg.ckpt_interval == 0:
+                save_async(state)
     if writer[0] is not None:
         writer[0].join()
-    save_vocoder_ckpt(ckpt_path, state, resblock2)
+    if main_rank:
+        save_vocoder_ckpt(ckpt_path, state, resblock2)
     return state
 
 
@@ -450,7 +482,7 @@ def main(argv=None):
         cfg = cfg.replace(ckpt_dir=args.ckpt_dir)
     Path(cfg.ckpt_dir).mkdir(parents=True, exist_ok=True)
     train(cfg, wav_dir=args.wav_dir, gta_dir=args.gta_dir, num_steps=args.steps, disc_init=args.disc_init,
-          device=args.device)
+          device=launch_device(args.device))
 
 
 if __name__ == "__main__":
