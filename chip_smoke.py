@@ -19,7 +19,8 @@
    per stage the prologue alone, the int8 MRF convs alone and bf16 K2 on
    the same inputs), with both times and each kernel's roofline bound
    (``bound_ms``: the larger of its bytes over the HBM rate and its
-   operations over the dense peak of their type, H100 SXM data sheet).
+   operations over the dense peak of their type, ``utils.flops``: the
+   card's data sheet).
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
    counters zeroed just before it and read just after (every kernel of the
@@ -34,7 +35,10 @@
       server (``viettts_tpu_torch.serve`` with ``--warmup
       --int8-probe-every 1``) answering /tts twice, /tts/stream once and
       /stats, which must carry ``int8_max_clip_fraction``.
-   The outputs must be finite, in [-1, 1] and 256 samples per mel frame,
+   ``synthesize_batch`` of 4 texts gives each route's MFU
+   (``utils.flops.pipeline_flops`` over the wall time, against the bf16,
+   TF32 or int8 peak).  The outputs must be finite, in [-1, 1] and 256
+   samples per mel frame,
    and the card must agree with the CPU (plain twins): a float32 synthesis,
    and the int8 vocoder, with the card's scales, on the same mel, which
    must also stay within int8 quantization error of the float32 vocoder.
@@ -73,7 +77,9 @@
    ``parallel.initialize_distributed`` (``file://`` store), with ``fsdp``
    off and (duration, acoustic) on: every loss within 1e-6 of the run
    without a group, ms/step logged beside phases 4 and 5 (TF32 off and
-   deterministic algorithms in these runs); (b) ``Synthesizer(devices=
+   deterministic algorithms in these runs), FSDP's parameters sharded at
+   rest (their bytes after the run: 1/world of the split leaves, all of
+   them on one rank); (b) ``Synthesizer(devices=
    ["cuda:0", "cuda:0"])`` with prenet dropout off on the float32, bf16
    and int8 routes against one device (float32 mels and waves within
    1e-4, bf16 and int8 waves within 1e-3 rel-RMS; K1, K2 and K3 counted,
@@ -82,7 +88,13 @@
    ``tools.denoise`` over the corpus on the card against the CPU (1 LSB),
    and one duration-trainer step with ``VIETTTS_PROFILE_DIR`` set, which
    must leave a trace with device kernels.
-7. A JSON line of per-kernel results, then the last line
+7. The validation tools on the card (``validation_tools``):
+   ``tools.validate_gan`` (30 steps, B=16, segment 8192, 48 clips),
+   ``tools.validate_int8`` (``n_eval=2``) and ``tools.diagnose_int8`` on its
+   checkpoint (K3 within the simulation's fault bar), and
+   ``tools.validate_e2e_training`` at ``--tiny`` widths, each with the
+   launch counters zeroed and read (K2; K2 and K3; K2 and K3; K1 and K2).
+8. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -118,14 +130,6 @@ K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
 MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s of audio)
-# dense tensor-core peaks of an H100 SXM at 700 W (NVIDIA data sheet): bf16,
-# and TF32 for the float32 route, whose 3xTF32 dots issue 3 products per
-# product counted
-PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 495.0}
-# H100 SXM at 700 W (NVIDIA data sheet): float32 outside the tensor cores
-# (K1, the conv_post epilogue) and the FP64 tensor cores (K3's prologue),
-# both 67 TFLOP/s; dense int8 tensor cores (K3); HBM3 bytes per second
-PEAK_F32_FLOPS, PEAK_INT8_OPS, HBM_BYTES_PER_S = 67e12, 1979e12, 3.35e12
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
 INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
@@ -151,23 +155,6 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def roofline(bytes_, ops_seconds):
-    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
-    and the operations' time at their peaks (seconds, summed by type)."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S
-    return max(t_bytes, ops_seconds) * 1e3, "operations" if ops_seconds >= t_bytes else "bytes"
-
-
-def ar_decode_bound(B, L, H, P, D):
-    """K1's roofline: 2 FLOP per weight per batch row per frame at the
-    float32 peak; bytes: every weight, both gate tensors, both keep masks
-    and the mel read or written once."""
-    weights = D * P + P * P + (P + H) * 4 * H + (P + 2 * H) * 4 * H + 2 * H * D + D
-    flop = 2.0 * (weights - D) * B * L
-    bytes_ = 4 * weights + 2 * 4 * B * L * 4 * H + 2 * L * B * P + 4 * B * L * D
-    return roofline(bytes_, flop / PEAK_F32_FLOPS)
-
-
 def seeded(rng, *shape, scale=1.0):
     import numpy as np
 
@@ -187,6 +174,7 @@ def check_ar_decode(dev, H=512, P=256, D=80, cases=K1_CASES):
     import torch
 
     from viettts_tpu_torch.ops.ar_decoder import ar_decode, ar_decode_plain
+    from viettts_tpu_torch.utils.flops import ar_decode_bound, device_peaks
 
     rng = np.random.default_rng(0)
     weights = [
@@ -214,23 +202,12 @@ def check_ar_decode(dev, H=512, P=256, D=80, cases=K1_CASES):
             raise AssertionError(f"ar_decode B={B} L={L}: two launches on the same inputs differ")
         ms = time_ms(lambda: ar_decode(*args))
         plain_ms = time_ms(lambda: ar_decode_plain(*args), reps=2)
-        bound_ms, bound_by = ar_decode_bound(B, L, H, P, D)
+        bound_ms, bound_by = ar_decode_bound(B, L, H, P, D, device_peaks())
         times[(B, L)] = {"ms": ms, "plain_ms": plain_ms, "us_per_frame": 1e3 * ms / L,
                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
         log(f"K1 ar_decode B={B} L={L}: kernel {ms:.3f} ms ({1e3 * ms / L:.2f} us/frame), twin {plain_ms:.3f} ms; "
             f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
     return worst, times
-
-
-def stage_shapes(cfg, frames):
-    """(C_in, C, k_up, u, L_in, post) of each generator stage for a mel of
-    ``frames`` frames."""
-    out, L = [], frames
-    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
-        c_in = cfg.upsample_initial_channel // 2 ** i
-        out.append((c_in, c_in // 2, k, u, L, i == len(cfg.upsample_rates) - 1))
-        L *= u
-    return out
 
 
 def stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype):
@@ -252,43 +229,6 @@ def stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype):
     return prepare_mrf_weights(blocks, ups, pst, dtype)
 
 
-def mrf_flop(cfg, B, L, C, resblock2):
-    """FLOP of a stage's MRF convs: 2 * B * L * C^2 * (taps summed over
-    its convs)."""
-    taps = sum(len(d) * k * (1 if resblock2 else 2)
-               for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
-    return 2.0 * B * L * C * C * taps
-
-
-def mrf_bound(cfg, B, T, route):
-    """Roofline of the four ResBlock1 generator stages for a mel of T frames
-    at batch B: each stage's input, weights and output moved once; its
-    ConvTranspose prologue, 18 MRF convs and (last stage) conv_post as
-    multiply-adds.  bfloat16: bf16 storage, every product on the dense bf16
-    tensor cores (989 TFLOP/s).  float32: 3xTF32, three TF32 products per
-    product (495 TFLOP/s).  int8: bf16 storage and int8 MRF weights, the MRF
-    products at 1979 TOP/s, the float64 prologue (FP64 tensor cores) and the
-    conv_post epilogue (float32) at 67 TFLOP/s."""
-    esize = {"bfloat16": 2, "float32": 4, "int8": 2}[route]
-    bytes_, secs = 0.0, 0.0
-    for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, T):
-        L = L_in * u
-        mrf_w = sum(len(d) * 2 * (k * C * C + C) for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
-        pro_w, post_w = k_u * C_in * C + C, (7 * C + 1) if post else 0
-        bytes_ += esize * (B * L_in * C_in + B * L * (1 if post else C))
-        bytes_ += (1 if route == "int8" else esize) * mrf_w + esize * (pro_w + post_w)
-        pro_flop = 2.0 * B * L * C * C_in * k_u / u
-        mrf = mrf_flop(cfg, B, L, C, False)
-        post_flop = 2.0 * B * L * 7 * C if post else 0.0
-        if route == "bfloat16":
-            secs += (pro_flop + mrf + post_flop) / (PEAK_TFLOPS["bfloat16"] * 1e12)
-        elif route == "float32":
-            secs += 3 * (pro_flop + mrf + post_flop) / (PEAK_TFLOPS["float32"] * 1e12)
-        else:
-            secs += mrf / PEAK_INT8_OPS + (pro_flop + post_flop) / PEAK_F32_FLOPS
-    return roofline(bytes_, secs)
-
-
 def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
                     timed_cases=((2, 128), (1, MAIN_PATH_FRAMES))):
     """K2 against its twins at every stage of each (B, frames) case,
@@ -298,14 +238,16 @@ def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
     import torch
 
     from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain
+    from viettts_tpu_torch.utils.flops import device_peaks, mrf_flop, stage_shapes
 
+    peaks = device_peaks()
     rng = np.random.default_rng(1)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0, "bf16_dots_rel_rms": 0.0}
     # times[dtype][(B, T)] = per stage [kernel ms, twin ms, MRF-only kernel ms, MRF TFLOP/s]
     times = {torch.float32: {}, torch.bfloat16: {}}
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     for dtype in (torch.float32, torch.bfloat16):
-        peak = PEAK_TFLOPS[str(dtype)[6:]]
+        peak = (peaks.bf16 if dtype == torch.bfloat16 else peaks.tf32) / 1e12
         for resblock2 in (False, True):
             for B, T in cases:
                 timed = not resblock2 and (B, T) in timed_cases
@@ -405,7 +347,9 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
     from viettts_tpu_torch.ops.mrf import (
         convt_f64, fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights,
     )
+    from viettts_tpu_torch.utils.flops import device_peaks, mrf_flop, stage_shapes
 
+    int8_peak = device_peaks().int8 / 1e12
     rng = np.random.default_rng(2)
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     bf16 = torch.bfloat16
@@ -458,8 +402,8 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
                     log(f"K3 fused_mrf int8 stage {i} B={B} {T} frames: kernel {row['ms']:.3f} ms static, "
                         f"{row['ms_dynamic']:.3f} dynamic (twin {row['plain_ms']:.3f} / {row['plain_ms_dynamic']:.3f}); "
                         f"prologue alone {row['prologue_ms']:.3f} ms; MRF convs alone {row['mrf_ms']:.3f} ms = "
-                        f"{row['mrf_tops']:.1f} TOP/s ({100 * row['mrf_tops'] / (PEAK_INT8_OPS / 1e12):.1f}% of "
-                        f"the {PEAK_INT8_OPS / 1e12:.0f} TOP/s dense int8 peak), dynamic {row['mrf_ms_dynamic']:.3f} ms; "
+                        f"{row['mrf_tops']:.1f} TOP/s ({100 * row['mrf_tops'] / int8_peak:.1f}% of "
+                        f"the {int8_peak:.0f} TOP/s dense int8 peak), dynamic {row['mrf_ms_dynamic']:.3f} ms; "
                         f"bf16 K2 on the same inputs {row['bf16_ms']:.3f} ms (MRF convs {row['bf16_mrf_ms']:.3f} ms)")
     for (B, T), rows in times.items():
         total = {key: sum(r[key] for r in rows) for key in rows[0] if key != "mrf_tops"}
@@ -632,11 +576,24 @@ def main_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
         audio_s = sum(len(r.wave) for r in results) / sr
         b1 = float(np.median(lat))
         b4 = audio_s / float(np.median(walls))
+        mfu = batch_mfu(cfg, synth, results, float(np.median(walls)), route)
         stats[route] = {"b1_latency_s": b1, "b1_audio_s": len(res.wave) / sr,
-                        "b4_s_audio_per_s": b4, "b4_audio_s": audio_s}
+                        "b4_s_audio_per_s": b4, "b4_audio_s": audio_s, "b4_mfu": mfu}
         log(f"main path {route}: B=1 latency {b1 * 1e3:.1f} ms for {len(res.wave) / sr:.2f} s of audio; "
-            f"batch-4 throughput {b4:.1f} s-audio/s ({audio_s:.2f} s of audio)")
+            f"batch-4 throughput {b4:.1f} s-audio/s ({audio_s:.2f} s of audio); {mfu['flops'] / 1e9:.2f} GFLOP, "
+            f"{mfu['tflops_per_sec']:.3f} TFLOP/s, MFU {mfu['mfu']:.2e} of the {mfu['mfu_peak']} peak")
     return stats
+
+
+def batch_mfu(cfg, synth, results, seconds, route):
+    """MFU of one ``synthesize_batch`` of ``BATCH_TEXTS`` taking ``seconds``:
+    the pipeline's FLOPs (``utils.flops.pipeline_flops``, each text at its
+    own tokens and frames) against the peak of the route's compute."""
+    from viettts_tpu_torch.utils.flops import mfu_report, pipeline_flops
+
+    flop = sum(pipeline_flops(cfg, len(synth.text_to_token_ids(t)), r.mel.shape[0])
+               for t, r in zip(BATCH_TEXTS, results))
+    return mfu_report(flop, seconds, compute_dtype=route)
 
 
 def _http(base, path, text=None):
@@ -698,6 +655,9 @@ def int8_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
     for i, r in enumerate(results):
         check_result(r, f"synthesize_batch[{i}] (int8)")
     audio_s = sum(len(r.wave) for r in results) / sr
+    mfu = batch_mfu(cfg, synth, results, float(np.median(walls)), "int8")
+    log(f"main path int8: batch-4 {mfu['flops'] / 1e9:.2f} GFLOP, {mfu['tflops_per_sec']:.3f} TFLOP/s, "
+        f"MFU {mfu['mfu']:.2e} of the {mfu['mfu_peak']} peak")
     firsts, totals = [], []
     for _ in range(3):  # time to first audio: the median of 3 streams
         t0 = time.perf_counter()
@@ -712,7 +672,7 @@ def int8_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
             raise AssertionError(f"stream gave {len(chunks)} chunk(s) for a multi-sentence text")
     first_s, stream_s = float(np.median(firsts)), float(np.median(totals))
     stats = {"b1_latency_s": float(np.median(lat)), "b1_audio_s": len(res.wave) / sr,
-             "b4_s_audio_per_s": audio_s / float(np.median(walls)), "b4_audio_s": audio_s,
+             "b4_s_audio_per_s": audio_s / float(np.median(walls)), "b4_audio_s": audio_s, "b4_mfu": mfu,
              "warmup_s": warmup_s, "stream_chunks": len(chunks), "stream_first_chunk_s": first_s,
              "stream_first_chunk_samples_s": firsts, "stream_total_s": stream_s,
              "stream_audio_s": sum(len(c.wave) for c in chunks) / sr}
@@ -824,122 +784,9 @@ def reference_check(cfg, ckpt_dir: Path, device="cuda"):
 # Phase 4: the training slice
 # ---------------------------------------------------------------------------
 
-# A synthetic aligned corpus (this script's own copy of the renderer of
-# scripts/validate_e2e_training.py, which imports jax): each vowel a
-# harmonic tone at its own pitch, consonants noise or hum, per-phoneme
-# mean durations, MFA-style TextGrids with words and phones tiers.
-CORPUS_SR = 16000
-VOWELS = {"a": 240.0, "e": 360.0, "i": 480.0, "o": 600.0, "u": 720.0}
-CONSONANTS = ("b", "m", "t", "s")
-DUR_MEAN = {**{v: 0.18 for v in VOWELS}, "b": 0.08, "m": 0.10, "t": 0.06, "s": 0.09}
-WORDS = [c + v for c in CONSONANTS for v in VOWELS] + ["bami", "tasu", "mibo", "sute", "bota", "misa"]
 CORPUS_UTTERANCES = 96  # 91 train / 5 val at train_split 0.95: one batch of 64
 DURATION_STEPS, ACOUSTIC_STEPS = 20, 6
 TRAIN_REL = 1e-4  # card against CPU, one step, of each leaf's largest value
-
-
-def render_phoneme(ph, dur_s, rng):
-    import numpy as np
-
-    n = int(round(dur_s * CORPUS_SR))
-    t = np.arange(n) / CORPUS_SR
-    if ph in VOWELS:
-        f0 = VOWELS[ph]
-        sig = sum((0.5 / h) * np.sin(2 * np.pi * f0 * h * t) for h in (1, 2, 3))
-        env = np.minimum(1.0, np.minimum(t, t[::-1] + 1e-9) / 0.02)
-        return sig * env
-    if ph == "s":
-        return 0.25 * np.convolve(rng.randn(n), [1, -0.95], mode="same")
-    if ph == "t":
-        return 0.5 * rng.randn(n) * np.exp(-t / 0.015)
-    return 0.4 * np.sin(2 * np.pi * 120.0 * t) * np.exp(-t / 0.08)
-
-
-def render_sentence(words, rng, jitter=0.15):
-    import numpy as np
-
-    intervals = [("sil", 0.15 + 0.1 * rng.rand())]
-    for k, w in enumerate(words):
-        for ph in w:
-            intervals.append((ph, DUR_MEAN[ph] * (1.0 + jitter * (2 * rng.rand() - 1))))
-        if k < len(words) - 1 and rng.rand() < 0.3:
-            intervals.append(("sil", 0.1 + 0.1 * rng.rand()))
-    intervals.append(("sil", 0.15 + 0.1 * rng.rand()))
-    parts = [np.zeros(int(round(d * CORPUS_SR))) if ph == "sil" else render_phoneme(ph, d, rng)
-             for ph, d in intervals]
-    wav = np.concatenate(parts)
-    return 0.7 * wav / max(np.abs(wav).max(), 1e-6), intervals
-
-
-def textgrid_for(words, intervals):
-    def fmt(items):
-        rows, t = [], 0.0
-        for i, (text, d) in enumerate(items):
-            rows.append(f"        intervals [{i + 1}]:\n            xmin = {t:.6f}\n"
-                        f"            xmax = {t + d:.6f}\n            text = \"{text}\"\n")
-            t += d
-        return "".join(rows), t
-
-    word_items, i, wi = [], 0, 0
-    while i < len(intervals):
-        if intervals[i][0] == "sil":
-            word_items.append(("", intervals[i][1]))
-            i += 1
-            continue
-        span = 0.0
-        for _ in words[wi]:
-            span += intervals[i][1]
-            i += 1
-        word_items.append((words[wi], span))
-        wi += 1
-    ptxt, total = fmt(intervals)
-    wtxt, _ = fmt(word_items)
-    tier = '        class = "IntervalTier"\n        name = "{}"\n        xmin = 0\n        xmax = {:.6f}\n'
-    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\n'
-            f"xmin = 0\nxmax = {total:.6f}\ntiers? <exists>\nsize = 2\nitem []:\n"
-            "    item [1]:\n" + tier.format("words", total) + f"        intervals: size = {len(word_items)}\n{wtxt}"
-            "    item [2]:\n" + tier.format("phones", total) + f"        intervals: size = {len(intervals)}\n{ptxt}")
-
-
-def build_corpus(d: Path, n_utts=CORPUS_UTTERANCES, seed=0):
-    import numpy as np
-
-    from viettts_tpu_torch.audio import write_wav
-
-    d.mkdir(parents=True, exist_ok=True)
-    rng = np.random.RandomState(seed)
-    for i in range(n_utts):
-        words = [WORDS[rng.randint(len(WORDS))] for _ in range(rng.randint(3, 7))]
-        wav, intervals = render_sentence(words, rng)
-        write_wav(d / f"utt{i:03d}.wav", wav.astype(np.float32), CORPUS_SR)
-        (d / f"utt{i:03d}.TextGrid").write_text(textgrid_for(words, intervals))
-
-
-def duration_step_flop(cfg):
-    """Multiply-adds x 2 of one duration step from the shapes: encoder
-    convs, both LSTM directions (input and recurrent projections), the two
-    dense heads; backward counted as twice the forward."""
-    B, T, C = cfg.train.batch_size, cfg.data.max_phoneme_seq_len, cfg.duration.lstm_dim
-    fwd = 3 * 2 * B * T * 3 * C * C + 2 * 2 * (2 * B * T * C * 4 * C) + 2 * B * T * (2 * C * C + C)
-    return 3.0 * fwd
-
-
-def acoustic_step_flop(cfg):
-    """As ``duration_step_flop`` for the acoustic step: the log-mel DFT and
-    filterbank (no backward), encoder, Gaussian upsampling, prenet, both
-    decoder layers' input gates, the 3 recurrent products a frame, the
-    projection and the 5 postnet convs."""
-    B, Tt = cfg.train.batch_size, cfg.data.max_phoneme_seq_len
-    d, a = cfg.dsp, cfg.acoustic
-    L = cfg.data.max_wave_len // d.hop_length
-    C, P, H, D, Q = a.encoder_dim, a.prenet_dim, a.decoder_dim, a.mel_dim, a.postnet_dim
-    nf = d.n_fft // 2 + 1
-    mel = 2 * B * L * d.n_fft * nf * 2 + 2 * B * L * nf * D
-    enc = 3 * 2 * B * Tt * 3 * C * C + 2 * 2 * (2 * B * Tt * C * 4 * C)
-    dec = (2 * B * L * Tt * 2 * C + 2 * B * L * (D * P + P * P) + 2 * 2 * B * L * (2 * C + P) * 4 * H
-           + L * 3 * 2 * B * H * 4 * H + 2 * B * L * 2 * H * D)
-    post = 2 * B * L * 5 * (D * Q + 3 * Q * Q + Q * D)
-    return float(mel) + 3.0 * (enc + dec + post)
 
 
 def run_trainer(name, module, cfg):
@@ -957,15 +804,18 @@ def run_trainer(name, module, cfg):
     losses = [loss for _, loss in steps]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name} trainer: non-finite loss {losses}")
+    from viettts_tpu_torch.utils.flops import acoustic_step_flop, device_peaks, duration_step_flop
+
+    fp32 = device_peaks().fp32
     flop = duration_step_flop(cfg) if name == "duration" else acoustic_step_flop(cfg)
-    bound_ms = 1e3 * flop / PEAK_F32_FLOPS
+    bound_ms = 1e3 * flop / fp32
     stats = {"steps": len(steps), "first_step_ms": ms[0], "median_ms": float(np.median(ms[1:])),
              "ms": ms, "first_loss": losses[0], "last_loss": losses[-1],
              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "flop_per_step": flop,
              "bound_ms": bound_ms, "bound_by": "operations (float32 peak)", "wall_s": wall}
     log(f"train {name}: {len(steps)} steps, first {ms[0]:.1f} ms, then median {stats['median_ms']:.1f} ms/step; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak memory {stats['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
-        f"{flop / 1e12:.3f} TFLOP/step, bound {bound_ms:.1f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"{flop / 1e12:.3f} TFLOP/step, bound {bound_ms:.1f} ms at {fp32 / 1e12:.0f} TFLOP/s "
         f"({100 * bound_ms / stats['median_ms']:.1f}% of it); {wall:.1f} s in all")
     return stats
 
@@ -980,11 +830,12 @@ def train_phase(cfg, tmp: Path):
 
     import torch
 
+    from viettts_tpu_torch.tools.synth_corpus import build_corpus
     from viettts_tpu_torch.train import acoustic, duration
 
     corpus, out = tmp / "corpus", tmp / "trained"
     t0 = time.perf_counter()
-    build_corpus(corpus)
+    build_corpus(corpus, CORPUS_UTTERANCES)
     log(f"train: synthetic corpus of {CORPUS_UTTERANCES} utterances in {time.perf_counter() - t0:.1f} s")
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
@@ -1004,48 +855,6 @@ def train_phase(cfg, tmp: Path):
     return stats, out
 
 
-def gan_step_flop(cfg):
-    """FLOPs (2 x multiply-adds) of one GAN step from the shapes: the
-    generator (conv_pre, each stage's ConvTranspose and MRF convs,
-    conv_post), the MPD and MSD convs and the log-mel DFT and filterbank,
-    per waveform.  The generator runs forward and backward (3x its
-    forward); the discriminators forward and backward on both waveforms in
-    the discriminator step (3x each), then forward on the real one (1x)
-    and forward and backward to their input, weights frozen, on the
-    generated one (2x); the mel of the real audio once, of the generated
-    one forward and backward to the input (2x)."""
-    h, d = cfg.hifigan, cfg.dsp
-    B, S = cfg.train.batch_size, h.segment_size
-    L, C = S // d.hop_length, h.upsample_initial_channel
-    mel = L * (d.n_fft * (d.n_fft // 2 + 1) * 2 + (d.n_fft // 2 + 1) * d.mel_dim)
-    gen = L * d.mel_dim * C * 7
-    convs = 2 if h.resblock == "1" else 1
-    for u, k in zip(h.upsample_rates, h.upsample_kernel_sizes):
-        gen += L * C * (C // 2) * k  # ConvTranspose: each input sample meets k taps
-        L, C = L * u, C // 2
-        gen += sum(L * C * C * rk * len(rd) * convs for rk, rd in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
-    gen += L * C * 7
-    disc = 0
-    bc = h.mpd_base_channels
-    for p in h.mpd_periods:
-        H, chans = -(-S // p), (1, bc, 4 * bc, 16 * bc, 32 * bc)
-        for c_in, c_out in zip(chans[:-1], chans[1:]):
-            H = (H - 1) // 3 + 1
-            disc += H * p * c_in * c_out * 5
-        disc += H * p * (32 * bc * 32 * bc * 5 + 32 * bc * 3)
-    T, bc = S, h.msd_base_channels
-    for i in range(h.msd_scales):
-        T = T if i == 0 else T // 2 + 1
-        t, c_in = T, 1
-        for f, k, st, g, pad in ((1, 15, 1, 1, 7), (1, 41, 2, 4, 20), (2, 41, 2, 16, 20), (4, 41, 4, 16, 20),
-                                 (8, 41, 4, 16, 20), (8, 41, 1, 16, 20), (8, 5, 1, 1, 2)):
-            t = (t + 2 * pad - k) // st + 1
-            disc += t * f * bc * (c_in // g) * k
-            c_in = f * bc
-        disc += t * c_in * 3
-    return 2.0 * B * (3 * gen + (3 + 1) * disc + (3 + 2) * disc + mel + 2 * mel)
-
-
 GAN_STEPS, GAN_CKPT_INTERVAL, GTA_STEPS = 6, 3, 2
 
 
@@ -1057,6 +866,7 @@ def run_gan(name, cfg, steps, **kw):
     import torch
 
     from viettts_tpu_torch.train import hifigan
+    from viettts_tpu_torch.utils.flops import device_peaks, gan_step_flop
 
     log_ = []
     torch.cuda.reset_peak_memory_stats()
@@ -1067,18 +877,19 @@ def run_gan(name, cfg, steps, **kw):
     losses = {k: [m[k] for _, m in log_] for k in ("disc_loss", "gen_loss", "mel_l1", "adv", "fm")}
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise AssertionError(f"GAN {name}: non-finite loss {losses}")
+    peaks = device_peaks()
     flop = gan_step_flop(cfg)
     median = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
     stats = {"steps": len(ms), "first_step_ms": ms[0], "median_ms": median, "ms": ms,
              "first": {k: v[0] for k, v in losses.items()}, "last": {k: v[-1] for k, v in losses.items()},
              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "flop_per_step": flop,
-             "bound_ms_f32": 1e3 * flop / PEAK_F32_FLOPS, "bound_ms_tf32": 1e3 * flop / (PEAK_TFLOPS["float32"] * 1e12),
+             "bound_ms_f32": 1e3 * flop / peaks.fp32, "bound_ms_tf32": 1e3 * flop / peaks.tf32,
              "wall_s": wall}
     log(f"GAN {name}: {len(ms)} steps, first {ms[0]:.1f} ms, then median {median:.1f} ms/step; "
         + "; ".join(f"{k} {losses[k][0]:.4f} -> {losses[k][-1]:.4f}" for k in ("disc_loss", "gen_loss", "mel_l1"))
         + f"; peak memory {stats['max_memory_allocated_bytes'] / 2**30:.2f} GiB; {flop / 1e12:.3f} TFLOP/step, "
-        f"bound {stats['bound_ms_f32']:.1f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
-        f"{stats['bound_ms_tf32']:.1f} ms at {PEAK_TFLOPS['float32']:.0f} TF32; {wall:.1f} s in all")
+        f"bound {stats['bound_ms_f32']:.1f} ms at {peaks.fp32 / 1e12:.0f} TFLOP/s f32, "
+        f"{stats['bound_ms_tf32']:.1f} ms at {peaks.tf32 / 1e12:.0f} TF32; {wall:.1f} s in all")
     return stats
 
 
@@ -1415,18 +1226,22 @@ def nccl_step_vs_plain(store: Path, device="cuda"):
 
 
 def _losses(kind, cfg, wav_dir, device):
-    """One trainer run on the card for ``NCCL_STEPS`` steps: each step's ms
-    and its losses (every metric of the GAN step)."""
+    """One trainer run on the card for ``NCCL_STEPS`` steps: each step's ms,
+    its losses (every metric of the GAN step) and the bytes its parameters
+    hold after the run (under FSDP: this rank's slices at rest)."""
     from viettts_tpu_torch.train import acoustic, duration, hifigan
 
     steps = []
     if kind == "gan":
-        hifigan.train(cfg, wav_dir=wav_dir, num_steps=NCCL_STEPS, log_every=NCCL_STEPS, device=device,
-                      step_log=steps)
-        return [1e3 * s for s, _ in steps], [[m[k] for k in sorted(m)] for _, m in steps]
-    module = duration if kind == "duration" else acoustic
-    module.train(cfg, save_plots=False, device=device, step_log=steps)
-    return [1e3 * s for s, _ in steps], [[loss] for _, loss in steps]
+        state = hifigan.train(cfg, wav_dir=wav_dir, num_steps=NCCL_STEPS, log_every=NCCL_STEPS, device=device,
+                              step_log=steps)
+        params = {**state.gen_params, **state.disc_params}
+        losses = [[m[k] for k in sorted(m)] for _, m in steps]
+    else:
+        module = duration if kind == "duration" else acoustic
+        params = module.train(cfg, save_plots=False, device=device, step_log=steps).params
+        losses = [[loss] for _, loss in steps]
+    return [1e3 * s for s, _ in steps], losses, sum(p.untyped_storage().nbytes() for p in params.values())
 
 
 def _bucket_ms(kind, cfg, device):
@@ -1503,23 +1318,29 @@ def nccl_training(cfg, tmp: Path, earlier: dict, device="cuda"):
            "bucket": {k: {"ms": ms, "bytes": n} for k, (ms, n) in buckets.items()}}
     log(f"{backend} one-rank update vs no group, small config: " + ", ".join(
         f"{k} {v:.2e}" for k, v in out["small_step"].items()) + f" (bar {NCCL_REL})")
-    for (kind, mode), (ms, losses) in runs.items():
+    for (kind, mode), (ms, losses, resident) in runs.items():
         want = np.asarray(runs[(kind, "plain")][1])
         got = np.asarray(losses)
         if got.shape != want.shape or not np.isfinite(got).all():
             raise AssertionError(f"NCCL {kind} {mode}: losses {losses}, without a group {want.tolist()}")
         rel = float(np.max(np.abs(got - want) / np.abs(want)))
-        out[f"{kind}_{mode}"] = {"ms": ms, "losses": losses, "max_rel_vs_plain": rel}
+        out[f"{kind}_{mode}"] = {"ms": ms, "losses": losses, "max_rel_vs_plain": rel, "param_bytes": resident}
         if rel > NCCL_REL:
             raise AssertionError(f"NCCL {kind} {mode}: losses {losses} differ from {want.tolist()} by {rel:.2e} "
                                  f"(bar {NCCL_REL})")
+        # FSDP keeps 1/world of every split leaf at rest: with one rank, all of it
+        if mode == "fsdp" and resident * world[1] < runs[(kind, "plain")][2]:
+            raise AssertionError(f"NCCL {kind} fsdp: {resident} parameter bytes at rest on one rank, "
+                                 f"{runs[(kind, 'plain')][2]} without a group")
     for kind in kinds:
         modes = [m for m in ("plain", "dp", "fsdp") if (kind, m) in runs]
         log(f"{backend} {kind} (one rank, TF32 off): ms/step (first, second) "
             + "; ".join(f"{m} {out[f'{kind}_{m}']['ms'][0]:.1f}, {out[f'{kind}_{m}']['ms'][1]:.1f}" for m in modes)
             + f"; losses vs no group, max rel " + ", ".join(f"{m} {out[f'{kind}_{m}']['max_rel_vs_plain']:.2e}"
                                                          for m in modes[1:])
-            + f" (bar {NCCL_REL}); phase {'5' if kind == 'gan' else '4'} median (TF32 convs) "
+            + f" (bar {NCCL_REL}); parameter bytes at rest "
+            + ", ".join(f"{m} {out[f'{kind}_{m}']['param_bytes']}" for m in modes)
+            + f"; phase {'5' if kind == 'gan' else '4'} median (TF32 convs) "
             f"{earlier[kind]:.1f} ms; the gradient all-reduce of {buckets[kind][1] / 2**20:.1f} MiB takes "
             f"{buckets[kind][0]:.3f} ms of device time")
     return out
@@ -1674,7 +1495,7 @@ def tools_on_card(cfg, tmp: Path, device="cuda"):
         worst = max(worst, int(np.abs(card.astype(np.int32) - host.astype(np.int32)).max()))
     if worst > 1:
         raise AssertionError(f"denoise: card and CPU samples differ by {worst} LSB")
-    audio_s = sum(len(read_wav(f)[1]) for f in files) / CORPUS_SR
+    audio_s = sum(len(read_wav(f)[1]) for f in files) / cfg.dsp.sample_rate
     log(f"denoise: {len(files)} WAVs ({audio_s:.1f} s of audio) in {seconds['card']:.2f} s on {device}, "
         f"{seconds['cpu']:.2f} s on the CPU; samples within {worst} LSB")
 
@@ -1702,6 +1523,77 @@ def tools_on_card(cfg, tmp: Path, device="cuda"):
             "trace": {"mib": len(text) / 2**20, "kernel_events": kernels, "s": traced_s}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the validation tools on the card
+# ---------------------------------------------------------------------------
+
+VALIDATION_GAN_STEPS, VALIDATION_GAN_CLIPS = 30, 48
+VALIDATION_E2E_STEPS = (10, 10, 2)  # duration, acoustic, GAN steps at --tiny widths
+
+
+def validation_tools(tmp: Path, zero, read):
+    """Phase 7: ``tools.validate_gan`` (30 steps, B=16, segment 8192, on the
+    48-clip corpus), ``tools.validate_int8`` on its checkpoint with
+    ``n_eval=2``, ``tools.diagnose_int8`` on it (K3 must stay within the
+    simulation's fault bar) and ``tools.validate_e2e_training`` at
+    ``--tiny`` widths, each on the card with the launch counters zeroed
+    before and read after: K2 for the GAN sample, K2 and K3 for the int8
+    tools, K1 and K2 for the e2e synthesis; no plain twin.  Every result
+    must be finite and have its tool's keys (a few-step run passes no
+    learning criterion, so none is asked)."""
+    import numpy as np
+
+    from viettts_tpu_torch.tools import diagnose_int8, validate_e2e_training, validate_gan, validate_int8
+
+    out, launches, times = {}, {}, {}
+    root = tmp / "validation"
+    gan_dir = root / "gan"
+    ckpt, corpus = gan_dir / "ckpt" / "hifigan_latest_ckpt.pickle", gan_dir / "corpus"
+    runs = (
+        ("validate_gan", ["fused_mrf"],
+         lambda: validate_gan.run(VALIDATION_GAN_STEPS, corpus_n=VALIDATION_GAN_CLIPS, out=gan_dir)),
+        ("validate_int8", ["fused_mrf", "fused_mrf_int8"],
+         lambda: validate_int8.run(ckpt, corpus, n_eval=2, out=root / "int8")),
+        ("diagnose_int8", ["fused_mrf", "fused_mrf_int8"],
+         lambda: diagnose_int8.run(ckpt, corpus, out=root / "diagnosis")),
+        ("validate_e2e_training", ["ar_decode", "fused_mrf"],
+         lambda: validate_e2e_training.run(*VALIDATION_E2E_STEPS, tiny=True, out=root / "e2e")),
+    )
+    for name, kernels, fn in runs:
+        zero()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        times[name] = time.perf_counter() - t0
+        launches[name] = read(name, kernels)
+    gan, int8, diag, e2e = (out[name] for name, _, _ in runs)
+    if not (gan["ok_losses_finite"] and gan["steps"] == VALIDATION_GAN_STEPS and ckpt.exists()):
+        raise AssertionError(f"validate_gan: {gan}")
+    if len(int8["per_clip"]) != 2 or not all(np.isfinite(c[k]) for c in int8["per_clip"] for k in c if k != "clip"):
+        raise AssertionError(f"validate_int8: {int8}")
+    if diag["kernel_fault"] or not all(np.isfinite(v) for v in diag["rel_rms_vs_f32"].values()):
+        raise AssertionError(f"diagnose_int8: K3 against its simulation: {diag}")
+    if not (np.isfinite(e2e["acoustic_val_loss_final"]) and np.isfinite(e2e["mel_corr_vs_generator"])
+            and e2e["sample_seconds"] > 0):
+        raise AssertionError(f"validate_e2e_training: {e2e}")
+    log(f"validate_gan: {VALIDATION_GAN_STEPS} steps, {gan['steps_per_sec']:.2f} steps/s "
+        f"({gan['steps_per_sec_steady']:.2f} in the back half), mel_l1 {gan['mel_l1_first50_avg']:.3f} -> "
+        f"{gan['mel_l1_last_avg']:.3f}, in {times['validate_gan']:.1f} s")
+    log(f"validate_int8 (n_eval 2): int8 static rel-RMS {int8['rel_rms_vs_f32_mean']:.3e}, dynamic "
+        f"{int8['int8_dynamic_rel_rms_vs_f32_mean']:.3e}, bf16 {int8['bf16_rel_rms_vs_f32_mean']:.3e} against "
+        f"float32; MCD {int8['mcd_db_int8_vs_f32_mean']:.3f} / {int8['mcd_db_int8_dynamic_vs_f32_mean']:.3f} / "
+        f"{int8['mcd_db_bf16_vs_f32_mean']:.3f} dB, in {times['validate_int8']:.1f} s")
+    log(f"diagnose_int8: simulation {diag['rel_rms_vs_f32']['full_static_per_conv']:.3e}, K3 "
+        f"{diag['kernel_measured_static']:.3e} (gap {diag['kernel_minus_simulation']:+.2e}), weights only "
+        f"{diag['rel_rms_vs_f32']['weights_only']:.3e}, in {times['diagnose_int8']:.1f} s")
+    log(f"validate_e2e_training --tiny {VALIDATION_E2E_STEPS}: acoustic val loss {e2e['acoustic_val_loss_init']} -> "
+        f"{e2e['acoustic_val_loss_final']}, {e2e['sample_seconds']} s of audio, in "
+        f"{times['validate_e2e_training']:.1f} s")
+    results = {"validate_gan": {k: v for k, v in gan.items() if k not in ("history", "mcd_history")},
+               "validate_int8": {k: v for k, v in int8.items() if k != "per_clip"},
+               "diagnose_int8": diag, "validate_e2e_training": e2e}
+    return {"results": results, "seconds": times}, launches
+
+
 def main() -> int:
     import torch
 
@@ -1712,6 +1604,7 @@ def main() -> int:
     from viettts_tpu_torch.ops import _build
     from viettts_tpu_torch.ops.ar_decoder import ar_decode
     from viettts_tpu_torch.ops.mrf import fused_mrf
+    from viettts_tpu_torch.utils.flops import device_peaks, mrf_bound, mrf_flop, stage_shapes
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1746,7 +1639,7 @@ def main() -> int:
             launches, plain = counts[name]
             if launches == 0 or plain != 0:
                 raise AssertionError(f"{path}: {name} had {launches} kernel launches, {plain} plain calls")
-        return {name: counts[name][0] for name in kernels}
+        return {name: counts[name][0] for name in counts}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -1775,6 +1668,7 @@ def main() -> int:
             read=lambda: read_counts("two replicas on cuda:0", ["ar_decode", "fused_mrf", "fused_mrf_int8"]))
         multi["serve_refusal"] = serve_refuses_missing_cards(tmp)
         multi["tools"] = tools_on_card(cfg, tmp)
+        validation, launches_validation = validation_tools(tmp, zero_counts, read_counts)
 
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -1782,10 +1676,11 @@ def main() -> int:
         return sum(r[col] for r in times[case])
 
     k1_main = k1_times[(1, 512)]
-    k2_bound, k2_by = mrf_bound(cfg.hifigan, 2, 128, "bfloat16")
-    k2_bound_f32, k2_by_f32 = mrf_bound(cfg.hifigan, 2, 128, "float32")
-    k3_bound, k3_by = mrf_bound(cfg.hifigan, 2, 128, "int8")
-    k3_bound_b1, _ = mrf_bound(cfg.hifigan, 1, MAIN_PATH_FRAMES, "int8")
+    peaks = device_peaks()
+    k2_bound, k2_by = mrf_bound(cfg.hifigan, 2, 128, "bfloat16", peaks)
+    k2_bound_f32, k2_by_f32 = mrf_bound(cfg.hifigan, 2, 128, "float32", peaks)
+    k3_bound, k3_by = mrf_bound(cfg.hifigan, 2, 128, "int8", peaks)
+    k3_bound_b1, _ = mrf_bound(cfg.hifigan, 1, MAIN_PATH_FRAMES, "int8", peaks)
     b1 = (1, MAIN_PATH_FRAMES)
 
     def k3_sum(key, case=(2, 128)):
@@ -1798,6 +1693,7 @@ def main() -> int:
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
          "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],
          "launches_replicated": launches_replicated["ar_decode"],
+         "launches_validation": {tool: n["ar_decode"] for tool, n in launches_validation.items()},
          "max_abs_err": k1_err, "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the fed-back decode",
@@ -1807,6 +1703,7 @@ def main() -> int:
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
          "launches_int8_path": launches_int8["fused_mrf"], "launches_round_trip": launches_trained["fused_mrf"],
          "launches_replicated": launches_replicated["fused_mrf"],
+         "launches_validation": {tool: n["fused_mrf"] for tool, n in launches_validation.items()},
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
@@ -1823,6 +1720,7 @@ def main() -> int:
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
          "launches_round_trip": launches_trained["fused_mrf_int8"],
          "launches_replicated": launches_replicated["fused_mrf_int8"],
+         "launches_validation": {tool: n["fused_mrf_int8"] for tool, n in launches_validation.items()},
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),
@@ -1842,7 +1740,7 @@ def main() -> int:
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train,
-                    "multi_device": multi}))
+                    "multi_device": multi, "validation": validation}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,11 +19,17 @@ matters:
   moments gathered from the shards within 1e-5 of each leaf's largest
   (they are sums of gradients that agree to reassociation noise), and
   within 1e-6 on the conv biases that feed a BatchNorm, whose gradient is
-  zero in exact arithmetic and rounding noise on either side;
+  zero in exact arithmetic and rounding noise on either side; between
+  steps each rank holds half of every split leaf's parameter and moments;
 * every rank's parameters bitwise equal to the other's;
 * the duration trainer's ``train()`` for 2 steps: the losses of one
   process at rtol 1e-5, one checkpoint, which JAX's ``load_variables``
-  reads;
+  reads; under ``train.fsdp`` (LSTM width 128, whose gate matrices split)
+  the same losses, the parameters of the 2-rank run without FSDP within
+  1e-6 (AdamW's steps on rounding-noise gradients excepted, as in
+  ``tests/test_torch_gan_train.py``), half of each split leaf resident on
+  each rank after training, and a checkpoint of whole trees that one
+  process and JAX's ``restore_state`` take;
 * ``make_gan_step`` (audio mode): losses within 1e-5 relative, the
   spectral ``u`` within 1e-6, and bitwise equal across the ranks.
 """
@@ -45,6 +51,7 @@ B, T_TOKENS, S, SR = 8, 8, 4096, 16000
 STEPS_PER_UPDATE, NUM_UPDATES = 2, 2
 WORLD = 2
 TIMEOUT_S = 120
+FSDP_LSTM_DIM = 128  # the LSTM gate matrices ([128, 512]) reach FSDP's 2**16-element split size
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +98,13 @@ def _numpy(tensors):
     return {k: v.detach().cpu().numpy().copy() for k, v in tensors.items()}
 
 
+def _resident(params, opt_state):
+    """What a rank holds of each parameter between steps: (elements of the
+    parameter, bytes of its storage, elements of its two moments)."""
+    return {k: (p.numel(), p.untyped_storage().nbytes(), opt_state.mu[k].numel() if opt_state.mu else None,
+                opt_state.nu[k].numel() if opt_state.nu else None) for k, p in params.items()}
+
+
 def acoustic_checks(dp: bool) -> dict:
     """Gradients, SGD + clip, AdamW and FSDP runs of the acoustic loss."""
     from viettts_tpu_torch.config import AcousticModelConfig, DspConfig
@@ -106,6 +120,7 @@ def acoustic_checks(dp: bool) -> dict:
         make_optimizer,
         make_update_fn,
         whole_opt_state,
+        whole_params,
     )
 
     cpu = torch.device("cpu")
@@ -128,19 +143,23 @@ def acoustic_checks(dp: bool) -> dict:
     out["grads"] = {k: g.numpy().copy() for k, g in zip(params, grads)}
 
     def run(optimizer, fsdp=False):
-        model.load_state_dict(initial)
+        trained = AcousticModel(model.cfg)  # FSDP splits its parameters at rest; loss_fn reads the dicts
+        trained.load_state_dict(initial)
         if fsdp:
             optimizer = FsdpClipAdamW(optimizer, min_size=256)
-        state = init_train_state(dict(model.named_parameters()), batch_stats(model), optimizer,
+        state = init_train_state(dict(trained.named_parameters()), batch_stats(trained), optimizer,
                                  torch.Generator().manual_seed(42))
         update = make_update_fn(loss_fn, optimizer, data_parallel=dp)
         losses = []
         for u in range(NUM_UPDATES):
             state, loss = update(state, [rows(_acoustic_batch(10 * u + s)) for s in range(STEPS_PER_UPDATE)])
             losses.append(float(loss))
-        moments = whole_opt_state(optimizer, state.opt_state, state.params)
-        return {"params": _numpy(state.params), "stats": _numpy(state.batch_stats), "losses": losses,
-                "mu": _numpy(moments.mu), "nu": _numpy(moments.nu)}
+        moments = whole_opt_state(optimizer, state.opt_state)
+        out = {"params": _numpy(whole_params(optimizer, state.params)), "stats": _numpy(state.batch_stats),
+               "losses": losses, "mu": _numpy(moments.mu), "nu": _numpy(moments.nu)}
+        if fsdp:  # what each rank holds between steps
+            out["resident"] = _resident(state.params, state.opt_state)
+        return out
 
     out["sgd"] = run(ClipSGD())
     out["adamw"] = run(make_optimizer(1e-3))
@@ -152,22 +171,27 @@ def acoustic_checks(dp: bool) -> dict:
     return out
 
 
-def duration_trainer(dp: bool, corpus: Path, ckpt_dir: Path) -> dict:
+def duration_trainer(dp: bool, corpus: Path, ckpt_dir: Path, fsdp: bool = False, lstm_dim: int = 16) -> dict:
     """``train.duration.train`` for 2 steps at tiny widths, token masking
-    and dropout on."""
+    and dropout on; with ``fsdp`` what each rank holds after it."""
     from viettts_tpu_torch.config import Config, DataConfig, DurationModelConfig, TrainConfig
     from viettts_tpu_torch.train import duration
 
     cfg = Config(
         data_dir=corpus, ckpt_dir=ckpt_dir,
         data=DataConfig(max_phoneme_seq_len=64),
-        duration=DurationModelConfig(lstm_dim=16),
+        duration=DurationModelConfig(lstm_dim=lstm_dim),
         train=TrainConfig(batch_size=4, num_training_steps=2, val_interval=1, ckpt_interval=1,
-                          num_devices=WORLD if dp else -1),
+                          num_devices=WORLD if dp else -1, fsdp=fsdp),
     )
     log = []
     state = duration.train(cfg, device="cpu", step_log=log)
-    return {"losses": [loss for _, loss in log], "params": _numpy(state.params)}
+    out = {"losses": [loss for _, loss in log]}
+    if fsdp:
+        out["resident"] = _resident(state.params, state.opt_state)
+    else:
+        out["params"] = _numpy(state.params)
+    return out
 
 
 def gan_checks(dp: bool) -> dict:
@@ -191,8 +215,14 @@ def gan_checks(dp: bool) -> dict:
 
 
 def run_all(dp: bool, corpus: Path, ckpt_dir: Path) -> dict:
-    return {"acoustic": acoustic_checks(dp), "duration": duration_trainer(dp, corpus, ckpt_dir),
-            "gan": gan_checks(dp)}
+    out = {"acoustic": acoustic_checks(dp), "duration": duration_trainer(dp, corpus, ckpt_dir),
+           "duration_wide": duration_trainer(dp, corpus, ckpt_dir.with_name(ckpt_dir.name + "_wide"),
+                                             lstm_dim=FSDP_LSTM_DIM),
+           "gan": gan_checks(dp)}
+    if dp:
+        out["duration_fsdp"] = duration_trainer(dp, corpus, ckpt_dir.with_name(ckpt_dir.name + "_fsdp"), fsdp=True,
+                                                lstm_dim=FSDP_LSTM_DIM)
+    return out
 
 
 def worker(store: str, rank: int, corpus: Path, out_dir: Path) -> None:
@@ -351,6 +381,94 @@ def test_gan_step_matches_single_device(runs):
         np.testing.assert_array_equal(two[0]["u"][k], two[1]["u"][k], err_msg=k)
     for k in one["gen"]:
         np.testing.assert_array_equal(two[0]["gen"][k], two[1]["gen"][k], err_msg=k)
+
+
+def _assert_half_resident(resident, whole_shapes, min_size):
+    """Every split leaf's parameter (its storage too) and moments hold half
+    of the whole on a rank; every other leaf all of it."""
+    from viettts_tpu_torch.parallel.mesh import fsdp_shard_axis
+
+    split = 0
+    for k, (n, nbytes, mu, nu) in resident.items():
+        whole = int(np.prod(whole_shapes[k]))
+        axis = fsdp_shard_axis(whole_shapes[k], WORLD, min_size)
+        want = whole if axis is None else whole // WORLD
+        split += axis is not None
+        assert (n, nbytes) == (want, 4 * want), k
+        assert mu in (None, want) and nu in (None, want), k
+    assert split > 0
+
+
+@pytest.mark.parametrize("run", ["fsdp_sgd", "fsdp_adamw"])
+def test_fsdp_keeps_half_of_each_split_leaf_resident(runs, run):
+    """ZeRO-3 at rest, as JAX's ``shard_params_fsdp``: between steps each
+    rank's parameters and Adam moments hold half of every leaf FSDP splits
+    (``min_size=256``), the whole of every other."""
+    shapes = {k: v.shape for k, v in runs["single"]["acoustic"]["sgd"]["params"].items()}
+    for r in runs["ranks"]:
+        _assert_half_resident(r["acoustic"][run]["resident"], shapes, 256)
+
+
+def test_fsdp_duration_trainer_on_two_ranks(runs):
+    """``train.fsdp`` in the duration trainer, 2 steps at LSTM width 128:
+    the losses of one process (rtol 1e-5) and of the 2-rank run without
+    FSDP (equal: the same sums of two ranks' gradients), ranks bitwise
+    equal, and half of each split leaf resident on each rank after
+    training.  Its checkpoint holds whole trees: one process restores
+    (``restore_state``) the parameters of the 2-rank run without FSDP
+    within 1e-6, but for at most 0.1% of a leaf's elements whose gradient
+    is rounding noise (the clip's norm sums the shards in another order),
+    which AdamW turns into steps of up to the learning rate (1e-4) either
+    way, and the conv biases that feed a BatchNorm, whose gradient is all
+    rounding noise: those within 2 x 2 steps x lr, the bar of
+    ``tests/test_torch_gan_train.py``; JAX's ``restore_state`` takes the
+    checkpoint as its trainer's tree."""
+    import jax
+
+    from viettts_tpu.config import DurationModelConfig as JaxDurationModelConfig
+    from viettts_tpu.models import DurationModel as JaxDurationModel
+    from viettts_tpu.train import common as jax_common
+    from viettts_tpu.train import duration as jax_duration
+    from viettts_tpu.types import DurationBatch as JaxDurationBatch
+    from viettts_tpu_torch.config import DurationModelConfig
+    from viettts_tpu_torch.models.duration import DurationModel
+    from viettts_tpu_torch.models.layers import batch_stats
+    from viettts_tpu_torch.train import duration
+    from viettts_tpu_torch.train.common import init_train_state, make_optimizer
+
+    one, dp = runs["single"]["duration_wide"], runs["ranks"][0]["duration_wide"]
+    two = [r["duration_fsdp"] for r in runs["ranks"]]
+    np.testing.assert_allclose(two[0]["losses"], one["losses"], rtol=1e-5)
+    np.testing.assert_allclose(two[0]["losses"], dp["losses"], rtol=1e-6)
+    assert two[0]["losses"] == two[1]["losses"]
+    shapes = {k: v.shape for k, v in one["params"].items()}
+    for r in two:
+        _assert_half_resident(r["resident"], shapes, 2**16)
+
+    path = runs["dir"] / "ckpt_fsdp" / "duration_latest_ckpt.pickle"
+    model = DurationModel(DurationModelConfig(lstm_dim=FSDP_LSTM_DIM))
+    opt = make_optimizer(1e-4)
+    template = init_train_state(dict(model.named_parameters()), batch_stats(model), opt,
+                                torch.Generator().manual_seed(0))
+    restored = duration.restore_state(path, opt, template)
+    assert restored.step == 2 and restored.opt_state.count == 2
+    zero_grad = {f"encoder.convs.{i}.bias" for i in range(3)}  # feed a BatchNorm: all rounding noise
+    for k, want in dp["params"].items():
+        diff = np.abs(restored.params[k].detach().numpy() - want)
+        assert (k in zero_grad or np.mean(diff > 1e-6) <= 1e-3) and diff.max() <= 2 * 2 * 1e-4, k
+    assert all(restored.opt_state.mu[k].shape == v.shape for k, v in restored.params.items())
+
+    jcfg = JaxDurationModelConfig(lstm_dim=FSDP_LSTM_DIM)
+    toks, lengths = np.zeros((1, 8), np.int32), np.asarray([8], np.int32)
+    keys = {k: jax.random.PRNGKey(i) for i, k in enumerate(("params", "dropout", "prenet", "zoneout"))}
+    want = jax.eval_shape(lambda: JaxDurationModel(jcfg).init(keys, JaxDurationBatch(toks, lengths, None), train=True))
+    jopt = jax_common.make_optimizer(1e-4, 1.0, 1e-4)
+    jstate = jax_duration.restore_state(path, jopt, None)
+    assert int(jstate.step) == 2
+    for got, ref in ((jstate.params, want["params"]), (jstate.batch_stats, want["batch_stats"])):
+        assert jax.tree.structure(got) == jax.tree.structure(ref)
+        assert [a.shape for a in jax.tree.leaves(got)] == [a.shape for a in jax.tree.leaves(ref)]
+    assert jax.tree.structure(jstate.opt_state) == jax.tree.structure(jopt.init(jstate.params))
 
 
 if __name__ == "__main__":

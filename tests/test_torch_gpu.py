@@ -450,3 +450,58 @@ def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
         read=lambda: (dec.launches, dec.plain_calls, voc.launches, voc.plain_calls))
     assert counts == (4, 0, 16, 0)
     assert out["float32"]["mel_max_abs"] <= 1e-4 and out["float32"]["wave_max_abs"] <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# FLOP accounting and the int8 validation tools on the card.
+# ---------------------------------------------------------------------------
+
+
+def test_device_peaks_of_this_card(cuda):
+    """``utils.flops.device_peaks`` knows the card it runs on, and the SM
+    count it counts tiles with is the card's."""
+    from viettts_tpu_torch.utils import flops
+
+    peaks = flops.device_peaks()
+    assert peaks == flops.peaks_for_name(torch.cuda.get_device_name(0))
+    assert peaks.sm_count == torch.cuda.get_device_properties(0).multi_processor_count
+    assert 0 < peaks.fp32 < peaks.tf32 < peaks.bf16 < peaks.int8 and peaks.hbm_bytes_per_s > 1e12
+
+
+def test_validate_int8_clip_runs_k3_beside_its_simulation(cuda, tmp_path):
+    """One clip of ``tools.validate_int8`` at the default width on seeded
+    weights (``chip_smoke.write_checkpoints``): the static and dynamic int8
+    routes launch K3 (4 stages each, no plain twin), while the diagnosis's
+    full simulation (``tools.diagnose_int8.generator_walk``, plain torch)
+    runs on the same card; K3's error against float32 lies within the
+    tool's fault bar of the simulation's (0.25 of it + the bf16 route's
+    error + 1e-3)."""
+    import chip_smoke
+    from viettts_tpu_torch.config import Config
+    from viettts_tpu_torch.ops.mel import LogMelSpectrogram
+    from viettts_tpu_torch.tools import diagnose_int8, validate_int8
+    from viettts_tpu_torch.tools.synth_corpus import heldout_clip
+
+    cfg = Config()
+    chip_smoke.write_checkpoints(cfg, tmp_path)
+    gen = validate_int8.load_trained_generator(tmp_path / "hifigan_latest_ckpt.pickle", cfg, cuda)
+    mel_fn = LogMelSpectrogram(cfg.dsp).to(cuda)
+    with torch.no_grad():
+        mel = mel_fn(torch.from_numpy(heldout_clip()[: 256 * 60]).to(cuda)[None])
+    record = []
+    with validate_int8.float32_convs():
+        diagnose_int8.generator_walk(gen, mel, record=record)
+        calib = diagnose_int8.calibration(record, 1.25)
+        ref = diagnose_int8.generator_walk(gen, mel)
+        sim = diagnose_int8.generator_walk(gen, mel, quant_w=True, act_mode="per_conv", calib=calib)
+    assert sim.device.type == "cuda" and torch.isfinite(sim).all()
+    voc = mrf.fused_mrf
+    int8_launches, plain = voc.int8_launches, voc.plain_calls
+    waves = validate_int8.route_waves(gen, mel, diagnose_int8.stage_scales(gen, calib))
+    torch.cuda.synchronize()
+    assert (voc.int8_launches - int8_launches, voc.plain_calls - plain) == (8, 0)
+    metrics = validate_int8.clip_metrics("heldout", waves, mel_fn, 0.0)
+    assert all(np.isfinite(v) for k, v in metrics.items() if k != "clip")
+    simulated = diagnose_int8.rel_rms(sim.cpu(), ref.cpu())
+    measured = metrics["rel_rms_vs_f32"]
+    assert abs(measured - simulated) <= 0.25 * simulated + metrics["bf16_rel_rms_vs_f32"] + 1e-3

@@ -226,9 +226,9 @@ class TrainConfig:
     # without a group).  Any other value must equal the world size: launch
     # one process per device under torchrun (parallel/mesh.py).
     num_devices: int = -1
-    # ZeRO/FSDP-style sharding of Adam's moments and the update across the
-    # ranks (large leaves split; train/common.py::FsdpClipAdamW).  Needs a
-    # process group.
+    # ZeRO/FSDP-style sharding of the large leaves' parameters and Adam
+    # moments across the ranks, at rest (train/common.py::FsdpClipAdamW).
+    # Needs a process group.
     fsdp: bool = False
     # Opt-in bf16 mixed precision: f32 master params, forward/backward
     # compute in bfloat16 (params cast at the loss boundary).

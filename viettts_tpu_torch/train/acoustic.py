@@ -11,7 +11,8 @@ reference TPU trainer to the learning rate.  It runs on the card unless
 given ``--device cpu``; the decoder is an eager loop over frames.
 
 Data-parallel, one process per card (``train.batch_size`` stays the global
-batch; ``train.fsdp=true`` shards Adam's moments and the update)::
+batch; ``train.fsdp=true`` keeps the large parameters and their moments
+sharded at rest)::
 
     torchrun --nproc-per-node N -m viettts_tpu_torch.train.acoustic ... --set train.num_devices=N
 """
@@ -44,6 +45,7 @@ from viettts_tpu_torch.train.common import (
     parse_args,
     resolve_device,
     run_steps,
+    whole_params,
 )
 from viettts_tpu_torch.train.duration import restore_state, save_native_ckpt
 from viettts_tpu_torch.types import AcousticBatch
@@ -169,7 +171,8 @@ def train(
         timer.tick(spu)
         if step % tcfg.val_interval < spu:  # the whole validation batch on every rank
             vb = to_device(next(val_iter), device)
-            vloss, (_, val_snapshot) = val_fn(state.params, state.batch_stats, state.rng, vb)
+            params = whole_params(optimizer, state.params)  # FSDP: a collective, on every rank
+            vloss, (_, val_snapshot) = val_fn(params, state.batch_stats, state.rng, vb)
             val_avg.add(vloss)
         if step % tcfg.ckpt_interval < spu:
             if main_rank:

@@ -24,10 +24,11 @@ dropout draws, global loss denominators), so each rank's loss is its
 share of the global loss; the gradients are then summed over the ranks in
 one flat bucket before the optimizer, whose clip sees the global norm as
 optax's does under ``jit``, and the reported loss is summed too.
-``FsdpClipAdamW`` (``train.fsdp``) shards Adam's moments and the update
-instead of all-reducing.  ``DistributedDataParallel`` is not used: the
-parameters are functional dicts and the GAN step runs the discriminators
-twice.
+``FsdpClipAdamW`` (``train.fsdp``) keeps the large leaves' parameters and
+moments sharded at rest, gathers the parameters for each step and
+reduce-scatters their gradients instead of all-reducing.
+``DistributedDataParallel`` is not used: the parameters are functional
+dicts and the GAN step runs the discriminators twice.
 """
 
 from __future__ import annotations
@@ -162,51 +163,71 @@ def make_optimizer(
 
 class FsdpClipAdamW:
     """``inner`` (a ``ClipAdamW``) over FSDP shards, for ``train.fsdp``
-    under a process group.  Each leaf that ``mesh.fsdp_shard_axis`` splits
-    keeps only this rank's slice of Adam's moments, gets its summed
-    gradient by reduce-scatter, and is updated on this rank's slice of the
-    parameter only; the updated slices are then all-gathered into the
-    whole parameter, which the modules hold as the working copy the next
-    step reads.  Every other leaf is all-reduced (one flat bucket) and
-    updated whole on every rank.  The clip's global norm is the
-    all-reduced sum of the slices' squares plus the replicated leaves'
-    squares, counted once.  Gradients are summed (the trainers' losses are
-    each rank's share of the global loss)."""
+    under a process group: JAX's ``shard_params_fsdp``.  Each leaf that
+    ``mesh.fsdp_shard_axis`` splits keeps only this rank's slice between
+    steps, of the parameter as of Adam's moments: ``init`` replaces the
+    parameter's data (the module's own tensor) by its slice, so resident
+    parameter and optimizer bytes fall by the world size on those leaves.
+    A step ``gather``s the whole parameters into working buffers for the
+    forward and backward, gets each split leaf's summed gradient by
+    reduce-scatter, drops the buffers and updates this rank's slices.
+    Every other leaf is all-reduced (one flat bucket) and updated whole on
+    every rank.  The clip's global norm is the all-reduced sum of the
+    slices' squares plus the replicated leaves' squares, counted once.
+    Gradients are summed (the trainers' losses are each rank's share of the
+    global loss).  ``whole_params`` / ``whole_opt_state`` gather the whole
+    trees (validation, checkpoints); ``local`` cuts a whole leaf (a
+    restored checkpoint's) to this rank's slice."""
 
     def __init__(self, inner: ClipAdamW, min_size: int = 2**16):
         self.inner, self.min_size = inner, min_size
         self.max_grad_norm = inner.max_grad_norm
-
-    def axes(self, params: Tensors) -> Dict[str, Optional[int]]:
-        """The shard axis of each parameter, None where it is replicated."""
-        w = mesh.world()[1]
-        return {k: mesh.fsdp_shard_axis(tuple(p.shape), w, self.min_size) for k, p in params.items()}
+        self.axes: Dict[str, Optional[int]] = {}  # by parameter name, from the whole shapes at init
 
     def init(self, params: Tensors) -> AdamWState:
-        return self.shard_state(self.inner.init(params), params)
+        """Split ``params`` (whole, the modules' tensors) in place and
+        return moments for the slices."""
+        w = mesh.world()[1]
+        self.axes = {k: mesh.fsdp_shard_axis(tuple(p.shape), w, self.min_size) for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                if self.axes[k] is not None:
+                    p.data = mesh.shard_of(p.data, self.axes[k]).clone()
+        return self.inner.init(params)
 
-    def shard_state(self, state: AdamWState, params: Tensors) -> AdamWState:
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole leaf ``name`` (itself if replicated
+        or not a parameter)."""
+        a = self.axes.get(name)
+        return whole if a is None else mesh.shard_of(whole, a)
+
+    def gather(self, params: Tensors) -> Tensors:
+        """The whole parameters (a collective: every rank calls it); the
+        split leaves as new tensors that require gradients."""
+        return {k: p if self.axes[k] is None else mesh.all_gather_shard(p.detach(), self.axes[k]).requires_grad_()
+                for k, p in params.items()}
+
+    def shard_state(self, state: AdamWState) -> AdamWState:
         """This rank's slices of whole moments (a restored checkpoint's)."""
-        axes = self.axes(params)
 
         def cut(m):
-            return {k: v if axes[k] is None else mesh.shard_of(v, axes[k]).clone() for k, v in m.items()}
+            return {k: v if self.axes[k] is None else self.local(k, v).clone() for k, v in m.items()}
 
         return state._replace(mu=cut(state.mu), nu=cut(state.nu))
 
-    def full_state(self, state: AdamWState, params: Tensors) -> AdamWState:
+    def full_state(self, state: AdamWState) -> AdamWState:
         """The whole moments, gathered (a collective: every rank calls it)."""
-        axes = self.axes(params)
 
         def whole(m):
-            return {k: v if axes[k] is None else mesh.all_gather_shard(v, axes[k]) for k, v in m.items()}
+            return {k: v if self.axes[k] is None else mesh.all_gather_shard(v, self.axes[k]) for k, v in m.items()}
 
         return state._replace(mu=whole(state.mu), nu=whole(state.nu))
 
     @torch.no_grad()
     def update(self, grads: Tensors, state: AdamWState, params: Tensors) -> AdamWState:
-        """One step from this rank's local gradients (whole leaves)."""
-        axes = self.axes(params)
+        """One step from this rank's local gradients of the whole leaves,
+        on the parameters at rest (slices and replicated leaves)."""
+        axes = self.axes
         replicated = [k for k in params if axes[k] is None]
         g = dict(zip(replicated, mesh.all_reduce_grads([grads[k] for k in replicated])))
         for k, a in axes.items():
@@ -218,18 +239,19 @@ class FsdpClipAdamW:
             sharded = sum((torch.sum(g[k] * g[k]) for k in params if axes[k] is not None), zero)
             torch.distributed.all_reduce(sharded)
             g_norm = (sharded + sum((torch.sum(g[k] * g[k]) for k in replicated), zero)).sqrt()
-        own = {k: p if axes[k] is None else mesh.shard_of(p, axes[k]) for k, p in params.items()}
-        state = self.inner.update({k: g[k] for k in params}, state, own, g_norm=g_norm)
-        for k, a in axes.items():
-            if a is not None:
-                params[k].copy_(mesh.all_gather_shard(own[k], a))
-        return state
+        return self.inner.update({k: g[k] for k in params}, state, params, g_norm=g_norm)
 
 
-def whole_opt_state(optimizer, state: AdamWState, params: Tensors) -> AdamWState:
+def whole_params(optimizer, params: Tensors) -> Tensors:
+    """``params`` whole: an ``FsdpClipAdamW`` gathers its slices (a
+    collective: every rank calls it)."""
+    return optimizer.gather(params) if isinstance(optimizer, FsdpClipAdamW) else params
+
+
+def whole_opt_state(optimizer, state: AdamWState) -> AdamWState:
     """``state`` with whole moments: an ``FsdpClipAdamW`` gathers its
     shards (a collective: every rank calls it)."""
-    return optimizer.full_state(state, params) if isinstance(optimizer, FsdpClipAdamW) else state
+    return optimizer.full_state(state) if isinstance(optimizer, FsdpClipAdamW) else state
 
 
 def _params_tree(named: Tensors) -> Any:
@@ -304,15 +326,18 @@ def make_update_fn(
     global batch: the loss runs inside ``mesh.data_parallel()``, the
     gradients and the reported loss are summed over the ranks (by an
     ``FsdpClipAdamW`` itself)."""
-    if isinstance(optimizer, FsdpClipAdamW) and not data_parallel:
+    fsdp = isinstance(optimizer, FsdpClipAdamW)
+    if fsdp and not data_parallel:
         raise ValueError("FsdpClipAdamW needs data_parallel=True (a process group)")
 
     def one_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         names = list(state.params)
+        params = optimizer.gather(state.params) if fsdp else state.params  # FSDP: whole working buffers
         with mesh.data_parallel() if data_parallel else contextlib.nullcontext():
-            loss, new_stats = loss_fn(state.params, state.batch_stats, state.rng, batch)
-            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        if data_parallel and not isinstance(optimizer, FsdpClipAdamW):
+            loss, new_stats = loss_fn(params, state.batch_stats, state.rng, batch)
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+        del params  # the working buffers go once the backward is done
+        if data_parallel and not fsdp:
             grads = mesh.all_reduce_grads(grads)
         opt_state = optimizer.update(dict(zip(names, grads)), state.opt_state, state.params)
         with torch.no_grad():

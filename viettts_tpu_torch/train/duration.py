@@ -8,7 +8,8 @@ validation every ``val_interval`` steps and a resumable checkpoint every
 ``ckpt_interval``.  It runs on the card unless given ``--device cpu``.
 
 Data-parallel, one process per card (``train.batch_size`` stays the global
-batch; ``train.fsdp=true`` shards Adam's moments and the update)::
+batch; ``train.fsdp=true`` keeps the large parameters and their moments
+sharded at rest)::
 
     torchrun --nproc-per-node N -m viettts_tpu_torch.train.duration ... --set train.num_devices=N
 """
@@ -50,6 +51,7 @@ from viettts_tpu_torch.train.common import (
     resolve_device,
     run_steps,
     whole_opt_state,
+    whole_params,
 )
 from viettts_tpu_torch.types import DurationBatch
 from viettts_tpu_torch.utils.profiling import StepTimer, trace
@@ -82,17 +84,18 @@ def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle", optimiz
     group every rank calls it (an FSDP ``optimizer`` gathers its moments)
     and rank 0 writes."""
     check_format(fmt)
-    state = state._replace(opt_state=whole_opt_state(optimizer, state.opt_state, state.params))
+    params = whole_params(optimizer, state.params)
+    opt_state = whole_opt_state(optimizer, state.opt_state)
     if mesh.world()[0] != 0:
         return
-    variables = {**jax_tree(state.params), **jax_tree(state.batch_stats)}
+    variables = {**jax_tree(params), **jax_tree(state.batch_stats)}
     save_checkpoint(
         path,
         {
             "format": NATIVE_FORMAT,
             "step": int(state.step),
             "variables": {"params": variables["params"], "batch_stats": variables["batch_stats"]},
-            "opt_state": opt_state_to_optax(state.opt_state),
+            "opt_state": opt_state_to_optax(opt_state),
             "rng": jax_key(state.rng),
             "torch_rng": generator_state(state.rng),
         },
@@ -103,20 +106,23 @@ def restore_state(path: Path, optimizer, template: TrainState, fmt: str = "pickl
     """Resume from a native checkpoint written by the port or the JAX
     package: parameters and statistics are copied into ``template``'s
     tensors (the model's own), moments onto their devices (this rank's
-    slices for an FSDP ``optimizer``).  None when ``path`` holds no native
+    slices of the split leaves for an FSDP ``optimizer``, whose ``init``
+    has split ``template``'s).  None when ``path`` holds no native
     checkpoint.  Every rank reads it."""
     check_format(fmt)
     dic = load_checkpoint(path)
     if dic is None or dic.get("format") != NATIVE_FORMAT:
         return None
+    fsdp = isinstance(optimizer, FsdpClipAdamW)
     tensors = {**template.params, **template.batch_stats}
     with torch.no_grad():
         for name, a in named_from_jax(dic["variables"], list(tensors)).items():
-            tensors[name].copy_(torch.from_numpy(a))
+            whole = torch.from_numpy(a)
+            tensors[name].copy_(optimizer.local(name, whole) if fsdp else whole)
     restore_generator(template.rng, dic)
     opt_state = opt_state_from_optax(dic["opt_state"], template.params)
-    if isinstance(optimizer, FsdpClipAdamW):
-        opt_state = optimizer.shard_state(opt_state, template.params)
+    if fsdp:
+        opt_state = optimizer.shard_state(opt_state)
     return template._replace(step=int(dic["step"]), opt_state=opt_state)
 
 
@@ -190,17 +196,20 @@ def train(
     def on_interval(state, step, steps_done, loss):
         train_avg.add(loss)
         timer.tick(spu)
-        if step % tcfg.val_interval < spu:  # the whole validation batch on every rank
+        val_due, ckpt_due = step % tcfg.val_interval < spu, step % tcfg.ckpt_interval < spu
+        if val_due or (ckpt_due and save_plots):  # FSDP: a collective, on every rank
+            params = whole_params(optimizer, state.params)
+        if val_due:  # the whole validation batch on every rank
             vb = to_device(next(val_iter), device)
-            val_avg.add(val_loss(state.params, state.batch_stats, state.rng, vb)[0])
-        if step % tcfg.ckpt_interval < spu:
+            val_avg.add(val_loss(params, state.batch_stats, state.rng, vb)[0])
+        if ckpt_due:
             if main_rank:
                 print(f"step {step:>7d} | train {train_avg.mean():.5f} | val {val_avg.mean():.5f} | "
                       f"{timer.steps_per_sec():.1f} steps/s")
             save(state)
             if save_plots and main_rank:
                 vb = to_device(next(val_iter), device)
-                pred = model(vb, train=False)
+                pred = functional_call(model, {**params, **state.batch_stats}, (vb,), {"train": False})
                 _save_duration_plot(
                     Path(cfg.ckpt_dir) / f"duration_{step:06d}.png",
                     pred[0].cpu(), vb.durations[0].cpu(), int(vb.lengths[0]),

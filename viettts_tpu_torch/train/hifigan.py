@@ -376,13 +376,17 @@ def train(
     disc_init: Optional[Path] = None,
     device="cuda",
     step_log: Optional[List] = None,
+    on_state=None,
+    on_state_every: int = 0,
 ) -> GanState:
     """Train to ``num_steps`` (default ``cfg.train.num_training_steps``),
     resuming from ``ckpt_dir/hifigan_latest_ckpt.pickle`` when it holds a
     resumable state (the checkpoint format is ``cfg.train``'s: pickle
     only).  ``on_metrics(step, metrics)`` sees each step's metrics
     (tensors); with a ``step_log`` list each step waits for the device and
-    appends (its seconds, its metrics as floats)."""
+    appends (its seconds, its metrics as floats).  ``on_state(step,
+    state)`` is called every ``on_state_every`` steps (a probe of the live
+    weights)."""
     hcfg, tcfg = cfg.hifigan, cfg.train
     check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
@@ -450,6 +454,8 @@ def train(
             if step % log_every == 0 and main_rank:
                 print(f"step {step:>7d} | disc {avg['disc_loss'].mean():.3f} | gen {avg['gen_loss'].mean():.3f}"
                       f" | mel_l1 {avg['mel_l1'].mean():.4f} | {timer.steps_per_sec():.2f} steps/s")
+            if on_state is not None and on_state_every and step % on_state_every == 0:
+                on_state(step, state)
             if step % tcfg.ckpt_interval == 0:
                 save_async(state)
     if writer[0] is not None:
