@@ -60,7 +60,9 @@
    an in-loop checkpoint every 3, each step's ms, losses, peak memory and
    FLOPs with their bound; ``tools.gta.generate_gta`` on the acoustic
    checkpoint of phase 4; 2 more GAN steps in GTA mode, resuming that
-   checkpoint in a second directory; one GAN step at a small config on the
+   checkpoint in a second directory (both GAN runs in the sharded format,
+   ``checkpoint_format="orbax"``: the raw state in ``.dcp``, the pickle the
+   folded generator alone); one GAN step at a small config on the
    card against the CPU (losses and spectral ``u`` within 1e-4, TF32 off).
    The GAN-trained vocoder then serves ``SENTENCE`` with phase 4's
    duration and acoustic checkpoints on the float32, bf16 and int8 routes
@@ -79,7 +81,13 @@
    without a group, ms/step logged beside phases 4 and 5 (TF32 off and
    deterministic algorithms in these runs), FSDP's parameters sharded at
    rest (their bytes after the run: 1/world of the split leaves, all of
-   them on one rank); (b) ``Synthesizer(devices=
+   them on one rank); then, still in that group, each trainer (duration and
+   acoustic with FSDP, the GAN replicated) for 2 steps in the sharded
+   checkpoint format: its ``.dcp`` directory and no state pickle, restored
+   into a fresh model bitwise equal to the run's final state, each
+   format's save timed on that state with the bytes it wrote, and one more
+   step resumed from the directory bitwise equal to the step resumed from a
+   pickle of the same state; (b) ``Synthesizer(devices=
    ["cuda:0", "cuda:0"])`` with prenet dropout off on the float32, bf16
    and int8 routes against one device (float32 mels and waves within
    1e-4, bf16 and int8 waves within 1e-3 rel-RMS; K1, K2 and K3 counted,
@@ -87,7 +95,9 @@
    --num-devices`` refusing more cards than there are; (c)
    ``tools.denoise`` over the corpus on the card against the CPU (1 LSB),
    and one duration-trainer step with ``VIETTTS_PROFILE_DIR`` set, which
-   must leave a trace with device kernels.
+   must leave a trace with device kernels; (d) ``tools.multihost_dryrun``
+   as one process on the card (its own ``file://`` store): one FSDP step
+   and a bitwise round trip of its sharded checkpoint.
 7. The validation tools on the card (``validation_tools``):
    ``tools.validate_gan`` (30 steps, B=16, segment 8192, 48 clips),
    ``tools.validate_int8`` (``n_eval=2``) and ``tools.diagnose_int8`` on its
@@ -897,8 +907,11 @@ def gan_phase(cfg, corpus: Path, trained: Path, tmp: Path):
     """The vocoder half of the recipe on the card, TF32 on in cuDNN as in
     the train phase: silence zeroing, 6 GAN steps (audio only) with a
     checkpoint every 3, the GTA export from the trained acoustic model, and
-    2 GTA steps resuming that checkpoint in a second directory.  Returns
-    the stats and the GAN-trained vocoder checkpoint."""
+    2 GTA steps resuming that checkpoint in a second directory.  Both GAN
+    runs use the sharded checkpoint format (``checkpoint_format="orbax"``):
+    the raw state in ``hifigan_latest_ckpt.dcp``, the pickle holding the
+    folded generator alone.  Returns the stats and the GAN-trained vocoder
+    checkpoint (that pickle)."""
     import dataclasses
     import shutil
 
@@ -907,10 +920,13 @@ def gan_phase(cfg, corpus: Path, trained: Path, tmp: Path):
 
     from viettts_tpu_torch.checkpoint import load_pickle
     from viettts_tpu_torch.tools import gta, zero_silence_segments
+    from viettts_tpu_torch.train.checkpoint import sharded_dir
 
     wavs, gta_dir, audio_dir, ft_dir = tmp / "wavs_zeroed", tmp / "gta", tmp / "gan", tmp / "gan_gta"
     zero_silence_segments.main(["-i", str(corpus), "-o", str(wavs)])
-    base = cfg.replace(train=dataclasses.replace(cfg.train, ckpt_interval=GAN_CKPT_INTERVAL))
+    base = cfg.replace(train=dataclasses.replace(cfg.train, ckpt_interval=GAN_CKPT_INTERVAL,
+                                                 checkpoint_format="orbax"))
+    name = "hifigan_latest_ckpt.pickle"
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     try:
@@ -923,15 +939,23 @@ def gan_phase(cfg, corpus: Path, trained: Path, tmp: Path):
         stats["gta_export"] = {"files": n, "s": time.perf_counter() - t0, "frames": sum(m.shape[1] for m in mels)}
         log(f"GTA export: {n} mels, {stats['gta_export']['frames']} frames, in {stats['gta_export']['s']:.1f} s")
         ft_dir.mkdir()
-        shutil.copy(audio_dir / "hifigan_latest_ckpt.pickle", ft_dir / "hifigan_latest_ckpt.pickle")
+        shutil.copytree(sharded_dir(audio_dir / name), sharded_dir(ft_dir / name))
         stats["gta"] = run_gan("GTA finetune", base.replace(ckpt_dir=ft_dir), GAN_STEPS + GTA_STEPS,
                                wav_dir=wavs, gta_dir=gta_dir)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    ckpt = ft_dir / "hifigan_latest_ckpt.pickle"
-    step = load_pickle(ckpt)["step"]
-    if stats["gta"]["steps"] != GTA_STEPS or step != GAN_STEPS + GTA_STEPS:
-        raise AssertionError(f"GTA finetune took {stats['gta']['steps']} steps to step {step}")
+    ckpt = ft_dir / name
+    dic = load_pickle(ckpt)
+    if stats["gta"]["steps"] != GTA_STEPS or dic["step"] != GAN_STEPS + GTA_STEPS:
+        raise AssertionError(f"GTA finetune took {stats['gta']['steps']} steps to step {dic['step']}")
+    if sorted(dic) != ["format", "step", "variables"] or not sharded_dir(ckpt).is_dir():
+        raise AssertionError(f"sharded GAN checkpoint: the pickle holds {sorted(dic)}, "
+                             f"{sharded_dir(ckpt).name} exists: {sharded_dir(ckpt).is_dir()}")
+    stats["sharded_dir_bytes"] = sum(f.stat().st_size for f in sharded_dir(ckpt).iterdir())
+    stats["pickle_bytes"] = ckpt.stat().st_size
+    log(f"GTA finetune resumed at step {GAN_STEPS} from {sharded_dir(ckpt).name} "
+        f"({stats['sharded_dir_bytes'] / 2**30:.3f} GiB); its pickle holds the folded generator alone "
+        f"({stats['pickle_bytes'] / 2**20:.1f} MiB)")
     return stats, ckpt
 
 
@@ -1225,23 +1249,162 @@ def nccl_step_vs_plain(store: Path, device="cuda"):
     return _small_step_errors(plain, ranked)
 
 
-def _losses(kind, cfg, wav_dir, device):
-    """One trainer run on the card for ``NCCL_STEPS`` steps: each step's ms,
-    its losses (every metric of the GAN step) and the bytes its parameters
-    hold after the run (under FSDP: this rank's slices at rest)."""
+def _train(kind, cfg, wav_dir, device):
+    """One trainer run on the card to ``cfg.train.num_training_steps``: its
+    final state, each step's ms and its losses (every metric of the GAN
+    step)."""
     from viettts_tpu_torch.train import acoustic, duration, hifigan
 
     steps = []
     if kind == "gan":
-        state = hifigan.train(cfg, wav_dir=wav_dir, num_steps=NCCL_STEPS, log_every=NCCL_STEPS, device=device,
-                              step_log=steps)
-        params = {**state.gen_params, **state.disc_params}
+        state = hifigan.train(cfg, wav_dir=wav_dir, log_every=NCCL_STEPS, device=device, step_log=steps)
         losses = [[m[k] for k in sorted(m)] for _, m in steps]
     else:
         module = duration if kind == "duration" else acoustic
-        params = module.train(cfg, save_plots=False, device=device, step_log=steps).params
+        state = module.train(cfg, save_plots=False, device=device, step_log=steps)
         losses = [[loss] for _, loss in steps]
-    return [1e3 * s for s, _ in steps], losses, sum(p.untyped_storage().nbytes() for p in params.values())
+    return state, [1e3 * s for s, _ in steps], losses
+
+
+def _losses(kind, cfg, wav_dir, device):
+    """``_train``'s ms and losses, and the bytes the parameters hold after
+    the run (under FSDP: this rank's slices at rest)."""
+    state, ms, losses = _train(kind, cfg, wav_dir, device)
+    params = {**state.gen_params, **state.disc_params} if kind == "gan" else state.params
+    return ms, losses, sum(p.untyped_storage().nbytes() for p in params.values())
+
+
+CKPT_NAMES = {"duration": "duration_latest_ckpt.pickle", "acoustic": "acoustic_latest_ckpt.pickle",
+              "gan": "hifigan_latest_ckpt.pickle"}
+
+
+def _template(kind, cfg, device):
+    """A fresh state of ``kind``'s trainer at ``cfg``, laid out as the
+    trainer lays it out under this group (FSDP as ``cfg`` says), with other
+    values than any trained state; and its optimizer (None for the GAN)."""
+    import torch
+
+    from viettts_tpu_torch.models.acoustic import AcousticModel
+    from viettts_tpu_torch.models.duration import DurationModel
+    from viettts_tpu_torch.models.layers import batch_stats
+    from viettts_tpu_torch.train import hifigan
+    from viettts_tpu_torch.train.common import FsdpClipAdamW, exponential_decay, init_train_state, make_optimizer
+
+    t = cfg.train
+    if kind == "gan":  # the trainer's rate is a schedule: the template needs its count
+        lr = exponential_decay(cfg.hifigan.learning_rate, 1, cfg.hifigan.lr_decay, staircase=True)
+        return hifigan.build_gan(cfg, device, lr, data_parallel=True)[0], None
+    model = (DurationModel(cfg.duration) if kind == "duration" else AcousticModel(cfg.acoustic)).to(device)
+    optimizer = make_optimizer(t.duration_learning_rate if kind == "duration" else t.learning_rate,
+                               t.max_grad_norm, t.weight_decay)
+    if t.fsdp:
+        optimizer = FsdpClipAdamW(optimizer)
+    state = init_train_state(dict(model.named_parameters()), batch_stats(model), optimizer,
+                             torch.Generator(device).manual_seed(t.seed + 1))
+    return state, optimizer
+
+
+def _same_state(kind, a, b) -> bool:
+    """Bitwise equal tensors, counts and generator state."""
+    import numpy as np
+    import torch
+
+    if kind == "gan":
+        trees = [(a.gen_params, b.gen_params), (a.disc_params, b.disc_params), (a.spectral, b.spectral)]
+        opts = [(a.gen_opt, b.gen_opt), (a.disc_opt, b.disc_opt)]
+        rng = np.array_equal(a.rng, b.rng)
+    else:
+        trees = [(a.params, b.params), (a.batch_stats, b.batch_stats)]
+        opts = [(a.opt_state, b.opt_state)]
+        rng = torch.equal(a.rng.get_state(), b.rng.get_state())
+    trees += [(x.mu, y.mu) for x, y in opts] + [(x.nu, y.nu) for x, y in opts]
+    return (rng and a.step == b.step
+            and all((x.count, x.schedule_count) == (y.count, y.schedule_count) for x, y in opts)
+            and all(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x) for x, y in trees))
+
+
+def _save(kind, path, state, fmt, optimizer):
+    from viettts_tpu_torch.train import duration, hifigan
+
+    if kind == "gan":
+        hifigan.save_vocoder_ckpt(path, state, fmt=fmt)
+    else:
+        duration.save_native_ckpt(path, state, fmt, optimizer)
+
+
+def _bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*")) if path.is_dir() else path.stat().st_size
+
+
+def _save_costs(kind, state, optimizer, out: Path):
+    """Wall ms of writing ``state`` in each format, in turns (pickle,
+    sharded, sharded, pickle; each waits for its files), and the bytes
+    each format wrote: the pickle, and the sharded directory beside the
+    pickle that format still writes (the GAN's folded generator; none for
+    the other trainers)."""
+    import shutil
+
+    from viettts_tpu_torch.train.checkpoint import sharded_dir
+
+    ms = {"pickle": [], "orbax": []}
+    written = {}
+    for fmt in ("pickle", "orbax", "orbax", "pickle"):
+        path = out / fmt / CKPT_NAMES[kind]
+        t0 = time.perf_counter()
+        _save(kind, path, state, fmt, optimizer)
+        ms[fmt].append(1e3 * (time.perf_counter() - t0))
+        written[fmt] = {"dir": _bytes(sharded_dir(path)) if fmt == "orbax" else 0,
+                        "pickle": _bytes(path) if path.exists() else 0}
+    shutil.rmtree(out)
+    return {"ms": ms, "bytes": written}
+
+
+def sharded_resume(kind, cfg, wav_dir, root: Path, device="cuda"):
+    """Phase 6a's sharded checkpoint, for one trainer under the process
+    group (duration and acoustic with ``cfg``'s FSDP, the GAN replicated):
+    ``NCCL_STEPS`` steps with ``checkpoint_format="orbax"``, which must
+    leave the ``.dcp`` directory and no state pickle (the GAN's pickle: the
+    folded generator alone); the directory restored into a fresh state of
+    another model, which must equal the run's final state bitwise; that
+    restored state written as a pickle too, and each format's save timed;
+    then one more step resumed from the directory and one resumed from
+    that pickle, whose losses must be bitwise equal.  Both resumed runs
+    restart their batch stream, as the JAX trainers do, so they see the
+    same batches, which an uninterrupted run does not."""
+    import dataclasses
+
+    from viettts_tpu_torch.checkpoint import load_pickle
+    from viettts_tpu_torch.train import duration, hifigan
+    from viettts_tpu_torch.train.checkpoint import sharded_dir
+
+    def run_cfg(name, fmt, steps):
+        return cfg.replace(ckpt_dir=root / f"{kind}_{name}", train=dataclasses.replace(
+            cfg.train, checkpoint_format=fmt, num_training_steps=steps))
+
+    sharded = run_cfg("sharded", "orbax", NCCL_STEPS)
+    state, ms, losses = _train(kind, sharded, wav_dir, device)
+    path = Path(sharded.ckpt_dir) / CKPT_NAMES[kind]
+    pickled = sorted(load_pickle(path)) if path.exists() else None
+    if not sharded_dir(path).is_dir() or pickled != (["format", "step", "variables"] if kind == "gan" else None):
+        raise AssertionError(f"sharded {kind} run: {sharded_dir(path).name} exists: {sharded_dir(path).is_dir()}; "
+                             f"pickle keys {pickled}")
+    template, optimizer = _template(kind, sharded, device)
+    if kind == "gan":
+        restored = hifigan.restore_vocoder_state(path, template, fmt="orbax")
+    else:
+        restored = duration.restore_state(path, optimizer, template, "orbax")
+    if not _same_state(kind, restored, state):
+        raise AssertionError(f"sharded {kind} checkpoint: the restored state differs from the trained one")
+    via_pickle = run_cfg("sharded_pickle", "pickle", NCCL_STEPS + 1)
+    _save(kind, Path(via_pickle.ckpt_dir) / CKPT_NAMES[kind], restored, "pickle", optimizer)
+    costs = _save_costs(kind, restored, optimizer, root / f"{kind}_save_costs")
+    del state, restored, template
+    resumed = _train(kind, run_cfg("sharded", "orbax", NCCL_STEPS + 1), wav_dir, device)[2]
+    reference = _train(kind, via_pickle, wav_dir, device)[2]
+    if len(resumed) != 1 or resumed != reference:
+        raise AssertionError(f"{kind}: the step resumed from {sharded_dir(path).name} gave {resumed}, "
+                             f"from the pickle of the same state {reference}")
+    return {"ms": ms, "losses": losses, "resumed_losses": resumed, "save": costs}
 
 
 def _bucket_ms(kind, cfg, device):
@@ -1310,12 +1473,14 @@ def nccl_training(cfg, tmp: Path, earlier: dict, device="cuda"):
             for kind in ("duration", "acoustic"):
                 runs[(kind, "fsdp")] = _losses(kind, config(kind, "fsdp"), tmp / "wavs_zeroed", device)
             buckets = {kind: _bucket_ms(kind, cfg, device) for kind in kinds}
+            sharded = {kind: sharded_resume(kind, config(kind, "dp" if kind == "gan" else "fsdp"),
+                                            tmp / "wavs_zeroed", root, device) for kind in kinds}
         finally:
             dist.destroy_process_group()
     if backend != ("nccl" if device == "cuda" else "gloo") or world != (0, 1):
         raise AssertionError(f"process group: {backend}, {world}")
     out = {"backend": backend, "small_step": _small_step_errors(small, small_ranked),
-           "bucket": {k: {"ms": ms, "bytes": n} for k, (ms, n) in buckets.items()}}
+           "bucket": {k: {"ms": ms, "bytes": n} for k, (ms, n) in buckets.items()}, "sharded": sharded}
     log(f"{backend} one-rank update vs no group, small config: " + ", ".join(
         f"{k} {v:.2e}" for k, v in out["small_step"].items()) + f" (bar {NCCL_REL})")
     for (kind, mode), (ms, losses, resident) in runs.items():
@@ -1343,6 +1508,14 @@ def nccl_training(cfg, tmp: Path, earlier: dict, device="cuda"):
             + f"; phase {'5' if kind == 'gan' else '4'} median (TF32 convs) "
             f"{earlier[kind]:.1f} ms; the gradient all-reduce of {buckets[kind][1] / 2**20:.1f} MiB takes "
             f"{buckets[kind][0]:.3f} ms of device time")
+        save = sharded[kind]["save"]
+        log(f"{backend} {kind} sharded checkpoint ({'replicated' if kind == 'gan' else 'fsdp'}, one rank): "
+            f"restored bitwise; the step resumed from it equals the step resumed from the pickle of the same "
+            f"state, bitwise ({sharded[kind]['resumed_losses'][0]}); save ms (pickle, sharded, sharded, pickle) "
+            f"{save['ms']['pickle'][0]:.1f}, {save['ms']['orbax'][0]:.1f}, {save['ms']['orbax'][1]:.1f}, "
+            f"{save['ms']['pickle'][1]:.1f}; bytes: pickle format {save['bytes']['pickle']['pickle']}, sharded "
+            f"format {save['bytes']['orbax']['dir']} in the directory + {save['bytes']['orbax']['pickle']} "
+            f"in its pickle")
     return out
 
 
@@ -1523,6 +1696,32 @@ def tools_on_card(cfg, tmp: Path, device="cuda"):
             "trace": {"mib": len(text) / 2**20, "kernel_events": kernels, "s": traced_s}}
 
 
+def multihost_dryrun(tmp: Path, device="cuda"):
+    """Phase 6d.  ``tools.multihost_dryrun`` as one process on ``device``,
+    in a subprocess with its own ``file://`` store: one FSDP step of its
+    small duration model and its sharded checkpoint's round trip, which
+    must be bitwise.  Returns its JSON line."""
+    out = tmp / "dryrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "viettts_tpu_torch.tools.multihost_dryrun", "--coordinator",
+                           f"file://{tmp / 'dryrun_store'}", "--num-processes", "1", "--process-id", "0",
+                           "--out-dir", str(out), "--device", device],
+                          capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"multihost_dryrun exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"world_size": 1, "backend": "nccl" if device == "cuda" else "gloo", "restore_bitwise": True, "ok": True}
+    if any(result[k] != v for k, v in want.items()) or not result["shard_files"]:
+        raise AssertionError(f"multihost_dryrun: {result}")
+    log(f"multihost_dryrun on {result['device']}: loss {result['loss']:.6f}, {result['split_leaves']} split leaves, "
+        f"restore bitwise, wrote {result['shard_files']} ({result['shard_bytes']} bytes) in "
+        f"{result['save_ms']:.1f} ms; "
+        f"{seconds:.1f} s with the process start")
+    return {**result, "s": seconds}
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: the validation tools on the card
 # ---------------------------------------------------------------------------
@@ -1668,6 +1867,7 @@ def main() -> int:
             read=lambda: read_counts("two replicas on cuda:0", ["ar_decode", "fused_mrf", "fused_mrf_int8"]))
         multi["serve_refusal"] = serve_refuses_missing_cards(tmp)
         multi["tools"] = tools_on_card(cfg, tmp)
+        multi["dryrun"] = multihost_dryrun(tmp)
         validation, launches_validation = validation_tools(tmp, zero_counts, read_counts)
 
     bf16, f32 = torch.bfloat16, torch.float32

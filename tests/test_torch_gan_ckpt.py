@@ -172,8 +172,3 @@ def test_entry_point_without_cuda_fails(wavs, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_train.main(["--wav-dir", str(wavs), "--ckpt-dir", str(tmp_path), "--steps", "1", *TINY_ARGS])
-
-
-def test_orbax_format_is_refused(wavs, tmp_path):
-    with pytest.raises(ValueError, match="Orbax"):
-        port_train.train(_train_cfg(tmp_path, wavs, checkpoint_format="orbax"), wav_dir=wavs, device="cpu")

@@ -376,15 +376,16 @@ def test_port_resumes_jax_checkpoint(tmp_path):
             np.testing.assert_array_equal(mine[k], np.asarray(want[k]), err_msg=k)
 
 
-def test_orbax_and_many_devices_are_refused():
-    """Orbax is refused; more than one device or FSDP is refused without
-    a process group (one process per device), with the torchrun hint."""
+def test_many_devices_need_a_group():
+    """More than one device or FSDP is refused without a process group
+    (one process per device), with the torchrun hint; an unknown
+    checkpoint format is refused."""
     from viettts_tpu_torch.config import TrainConfig
     from viettts_tpu_torch.parallel.mesh import check_data_parallel
     from viettts_tpu_torch.train.checkpoint import check_format
 
-    with pytest.raises(ValueError, match="Orbax"):
-        check_format("orbax")
+    with pytest.raises(ValueError, match="unknown checkpoint_format 'tensorstore'"):
+        check_format("tensorstore")
     for bad in (dict(num_devices=8), dict(fsdp=True)):
         tcfg = TrainConfig(**bad)
         with pytest.raises(ValueError, match="torchrun --nproc-per-node"):

@@ -234,9 +234,10 @@ class TrainConfig:
     # compute in bfloat16 (params cast at the loss boundary).
     mixed_precision: bool = False
     # Training-checkpoint backend: "pickle" (single atomic file, the
-    # reference's contract) or "orbax" (sharded tensorstore directory, for
-    # multi-host runs where one pickle is impractical; the port's trainers
-    # refuse it: Orbax is a JAX library).
+    # reference's contract) or "orbax" (a sharded directory that every rank
+    # writes its part of, for multi-host runs where one pickle is
+    # impractical: JAX's Orbax, here torch.distributed.checkpoint in
+    # <stem>.dcp; the two packages' directories do not read each other).
     checkpoint_format: str = "pickle"
 
     def __post_init__(self):

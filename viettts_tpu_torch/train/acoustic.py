@@ -32,7 +32,6 @@ from viettts_tpu_torch.models.acoustic import AcousticModel
 from viettts_tpu_torch.models.layers import batch_stats, batch_stats_update
 from viettts_tpu_torch.ops.mel import LogMelSpectrogram
 from viettts_tpu_torch.parallel import mesh
-from viettts_tpu_torch.train.checkpoint import check_format
 from viettts_tpu_torch.train.common import (
     FsdpClipAdamW,
     MetricAverager,
@@ -114,7 +113,6 @@ def train(
     step_log: Optional[List] = None,
 ) -> TrainState:
     tcfg = cfg.train
-    check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
     dp = mesh.check_data_parallel(tcfg.num_devices, tcfg.batch_size, tcfg.fsdp)
     main_rank = mesh.world()[0] == 0

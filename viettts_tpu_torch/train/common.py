@@ -294,6 +294,26 @@ def opt_state_from_optax(tree: Tuple, params: Tensors, from_tree=_params_named) 
     )
 
 
+def opt_state_tree(state: AdamWState, leaf: Callable[[str, torch.Tensor], torch.Tensor] = lambda k, t: t) -> Dict:
+    """``state`` as the sharded format's tree: ``{"mu", "nu", "count"}``,
+    with ``"schedule_count"`` under a schedule; each moment through
+    ``leaf(name, tensor)``.  The moments are ``state``'s own tensors, so
+    loading into the tree restores them in place."""
+    tree = {"mu": {k: leaf(k, v) for k, v in state.mu.items()}, "nu": {k: leaf(k, v) for k, v in state.nu.items()},
+            "count": torch.tensor(state.count)}
+    if state.schedule_count is not None:
+        tree["schedule_count"] = torch.tensor(state.schedule_count)
+    return tree
+
+
+def opt_state_counts(tree: Dict, state: AdamWState) -> AdamWState:
+    """``state`` with the counts of ``tree`` (an ``opt_state_tree`` loaded
+    in place, its moments ``state``'s)."""
+    schedule_count = tree.get("schedule_count")
+    return state._replace(count=int(tree["count"]),
+                          schedule_count=None if schedule_count is None else int(schedule_count))
+
+
 def _cast(tree: Tensors, src: torch.dtype, dst: torch.dtype) -> Tensors:
     return {k: v.to(dst) if v.dtype == src else v for k, v in tree.items()}
 

@@ -34,8 +34,12 @@ from viettts_tpu_torch.train.checkpoint import (
     generator_state,
     jax_key,
     load_checkpoint,
+    load_sharded,
     restore_generator,
     save_checkpoint,
+    save_sharded,
+    shard_leaf,
+    sharded_dir,
 )
 from viettts_tpu_torch.train.common import (
     FsdpClipAdamW,
@@ -45,8 +49,10 @@ from viettts_tpu_torch.train.common import (
     make_optimizer,
     make_update_fn,
     mixed_precision_loss,
+    opt_state_counts,
     opt_state_from_optax,
     opt_state_to_optax,
+    opt_state_tree,
     parse_args,
     resolve_device,
     run_steps,
@@ -78,12 +84,40 @@ def make_loss_fn(model: DurationModel, token_mask_prob: float, train: bool):
     return loss_fn
 
 
+def _sharded_tree(state: TrainState, optimizer) -> dict:
+    """The sharded format's tree, JAX's ``{step, variables: {params,
+    batch_stats}, opt_state, rng}`` with ``torch_rng`` beside it: the
+    parameters and moments of the leaves an FSDP ``optimizer`` splits as
+    this rank's slices (``shard_leaf``), every other tensor whole.  The
+    tensors are ``state``'s own, so loading into the tree restores
+    ``state`` in place."""
+    axes = optimizer.axes if isinstance(optimizer, FsdpClipAdamW) else {}
+
+    def leaf(name, t):
+        return shard_leaf(t.detach(), axes.get(name))
+
+    return {
+        "step": torch.tensor(int(state.step)),
+        "variables": {"params": {k: leaf(k, p) for k, p in state.params.items()},
+                      "batch_stats": dict(state.batch_stats)},
+        "opt_state": opt_state_tree(state.opt_state, leaf),
+        "rng": torch.from_numpy(jax_key(state.rng).astype(np.int64)),
+        "torch_rng": generator_state(state.rng),
+    }
+
+
 def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle", optimizer=None) -> None:
-    """Write a resumable training checkpoint (one atomic pickle in the JAX
-    package's native format, ``train/checkpoint.py``).  Under a process
-    group every rank calls it (an FSDP ``optimizer`` gathers its moments)
-    and rank 0 writes."""
+    """Write a resumable training checkpoint.  ``fmt="pickle"``: one
+    atomic pickle in the JAX package's native format
+    (``train/checkpoint.py``); under a process group every rank calls it
+    (an FSDP ``optimizer`` gathers the split leaves) and rank 0 writes.
+    ``fmt="orbax"``: the sharded directory ``sharded_dir(path)`` and no
+    pickle; under a group every rank calls it and writes its own slices,
+    with no gather."""
     check_format(fmt)
+    if fmt == "orbax":
+        save_sharded(sharded_dir(path), _sharded_tree(state, optimizer))
+        return
     params = whole_params(optimizer, state.params)
     opt_state = whole_opt_state(optimizer, state.opt_state)
     if mesh.world()[0] != 0:
@@ -103,13 +137,22 @@ def save_native_ckpt(path: Path, state: TrainState, fmt: str = "pickle", optimiz
 
 
 def restore_state(path: Path, optimizer, template: TrainState, fmt: str = "pickle") -> Optional[TrainState]:
-    """Resume from a native checkpoint written by the port or the JAX
-    package: parameters and statistics are copied into ``template``'s
-    tensors (the model's own), moments onto their devices (this rank's
-    slices of the split leaves for an FSDP ``optimizer``, whose ``init``
-    has split ``template``'s).  None when ``path`` holds no native
+    """Resume from a checkpoint: parameters and statistics go into
+    ``template``'s tensors (the model's own), moments onto their devices
+    (this rank's slices of the split leaves for an FSDP ``optimizer``,
+    whose ``init`` has split ``template``'s).  ``fmt="pickle"``: a native
+    pickle written by the port or the JAX package; ``fmt="orbax"``: the
+    port's sharded directory, written under any number of ranks, FSDP on or
+    off, resharded to this run's layout.  None when there is no such
     checkpoint.  Every rank reads it."""
     check_format(fmt)
+    if fmt == "orbax":
+        tree = load_sharded(sharded_dir(path), _sharded_tree(template, optimizer))
+        if tree is None:
+            return None
+        restore_generator(template.rng, {"torch_rng": tree["torch_rng"], "rng": tree["rng"].numpy()})
+        return template._replace(step=int(tree["step"]),
+                                 opt_state=opt_state_counts(tree["opt_state"], template.opt_state))
     dic = load_checkpoint(path)
     if dic is None or dic.get("format") != NATIVE_FORMAT:
         return None
@@ -152,7 +195,6 @@ def train(
     step_log: Optional[List] = None,
 ) -> TrainState:
     tcfg = cfg.train
-    check_format(tcfg.checkpoint_format)
     device = resolve_device(device)
     dp = mesh.check_data_parallel(tcfg.num_devices, tcfg.batch_size, tcfg.fsdp)
     main_rank = mesh.world()[0] == 0

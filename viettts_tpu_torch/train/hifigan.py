@@ -12,7 +12,10 @@ matching + 45x the float32 L1 of the log-mels), both with optax's
 upstream per-epoch ``0.999`` staircase decay.  The generator trains with
 explicit weight norm; its checkpoint holds the folded inference params
 beside the raw resumable state, in the JAX package's native pickle, so
-either package resumes the other's run and serves its vocoder.
+either package resumes the other's run and serves its vocoder.  Under
+``train.checkpoint_format=orbax`` the raw state (~1 GB at the default
+width, with Adam's moments) goes to the sharded directory instead
+(``train/checkpoint.py``) and the pickle keeps the folded params alone.
 
 Under ``train.mixed_precision`` the generator computes in bfloat16 (its
 weight-norm fold in float32) and the discriminators' parameters and
@@ -27,15 +30,16 @@ Data-parallel, one process per card: every rank draws the global batch of
 crops and keeps its rows; the discriminator and the generator gradients
 are each averaged over the ranks before their optimizer (the losses are
 means over equal rows); the spectral ``u`` depends on the weights only,
-so it stays equal on every rank; rank 0 prints and writes checkpoints::
+so it stays equal on every rank; rank 0 prints and writes the pickle,
+every rank its share of the sharded directory::
 
     torchrun --nproc-per-node N -m viettts_tpu_torch.train.hifigan ... --set train.num_devices=N
 """
 
 from __future__ import annotations
 
-import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
@@ -57,7 +61,15 @@ from viettts_tpu_torch.models.discriminators import (
 from viettts_tpu_torch.models.hifigan import Generator
 from viettts_tpu_torch.ops.mel import LogMelSpectrogram
 from viettts_tpu_torch.parallel import mesh
-from viettts_tpu_torch.train.checkpoint import check_format, jax_key, load_checkpoint, save_checkpoint
+from viettts_tpu_torch.train.checkpoint import (
+    check_format,
+    jax_key,
+    load_checkpoint,
+    load_sharded,
+    save_checkpoint,
+    save_sharded,
+    sharded_dir,
+)
 from viettts_tpu_torch.train.common import (
     AdamWState,
     ClipAdamW,
@@ -65,8 +77,10 @@ from viettts_tpu_torch.train.common import (
     Tensors,
     exponential_decay,
     launch_device,
+    opt_state_counts,
     opt_state_from_optax,
     opt_state_to_optax,
+    opt_state_tree,
     resolve_device,
 )
 from viettts_tpu_torch.utils.profiling import StepTimer, annotate, trace
@@ -210,7 +224,7 @@ def make_gan_step(cfg: Config, generator: Generator, discs: Discriminators, gen_
 
 
 # ---------------------------------------------------------------------------
-# Checkpoints (the JAX package's native pickle).
+# Checkpoints (the JAX package's native pickle, or the sharded directory).
 # ---------------------------------------------------------------------------
 
 
@@ -230,18 +244,40 @@ def _raw(state: GanState, resblock2: bool) -> Dict:
     }
 
 
-def save_vocoder_ckpt(path: Path, state: GanState, resblock2: bool = False) -> None:
-    """One atomic pickle: the folded inference params (what
-    ``load_variables(..., "hifigan")`` serves) and the raw resumable
-    state.  Tensors may be on any device; a CPU copy is cheapest to
-    write from another thread."""
-    raw = _raw(state, resblock2)
-    save_checkpoint(path, {
-        "format": NATIVE_FORMAT,
-        "step": int(state.step),
-        "variables": {"params": fold_weight_norm(raw["gen_params"])},
-        "raw": raw,
-    })
+def _sharded_tree(state: GanState) -> Dict:
+    """The sharded format's tree, JAX's ``{step, raw: {gen_params,
+    disc_params, spectral, gen_opt, disc_opt, rng}}``, every tensor whole
+    (the trainer replicates its state).  The tensors are ``state``'s own,
+    so loading into the tree restores ``state`` in place."""
+
+    def own(named):
+        return {k: v.detach() for k, v in named.items()}
+
+    return {"step": torch.tensor(int(state.step)),
+            "raw": {"gen_params": own(state.gen_params), "disc_params": own(state.disc_params),
+                    "spectral": own(state.spectral), "gen_opt": opt_state_tree(state.gen_opt),
+                    "disc_opt": opt_state_tree(state.disc_opt),
+                    "rng": torch.from_numpy(np.asarray(state.rng, np.int64))}}
+
+
+def save_vocoder_ckpt(path: Path, state: GanState, resblock2: bool = False, fmt: str = "pickle") -> None:
+    """One atomic pickle with the folded inference params (what
+    ``load_variables(..., "hifigan")`` serves) and, with ``fmt="pickle"``,
+    the raw resumable state; with ``fmt="orbax"`` the raw state goes to the
+    sharded directory ``sharded_dir(path)`` instead.  Under a process group
+    every rank calls it with ``fmt="orbax"`` (each writes its share of the
+    directory) and rank 0 writes the pickle.  Tensors may be on any device;
+    a CPU copy is cheapest to write from another thread."""
+    check_format(fmt)
+    if fmt == "orbax":
+        save_sharded(sharded_dir(path), _sharded_tree(state))
+    if mesh.world()[0] != 0:
+        return
+    gen_params = gan_tree(state.gen_params, resblock2)
+    payload = {"format": NATIVE_FORMAT, "step": int(state.step), "variables": {"params": fold_weight_norm(gen_params)}}
+    if fmt == "pickle":
+        payload["raw"] = _raw(state, resblock2)
+    save_checkpoint(path, payload)
 
 
 def _copy_into(dst: Tensors, arrays: Dict[str, np.ndarray]) -> None:
@@ -258,11 +294,22 @@ def _spectral_from(tree, template: Tensors) -> Tensors:
             for k, a in named_from_gan_tree(tree, list(template)).items()}
 
 
-def restore_vocoder_state(path: Path, template: GanState, resblock2: bool = False) -> Optional[GanState]:
-    """Resume from a native vocoder checkpoint written by either package:
-    parameters are copied into ``template``'s tensors (the modules' own),
-    moments and spectral state onto their devices.  None when ``path``
-    holds no resumable state."""
+def restore_vocoder_state(path: Path, template: GanState, resblock2: bool = False,
+                          fmt: str = "pickle") -> Optional[GanState]:
+    """Resume from a vocoder checkpoint: parameters are copied into
+    ``template``'s tensors (the modules' own), moments and spectral state
+    onto their devices.  ``fmt="pickle"``: a native pickle written by either
+    package; ``fmt="orbax"``: the port's sharded directory.  None when there
+    is no resumable state."""
+    check_format(fmt)
+    if fmt == "orbax":
+        tree = load_sharded(sharded_dir(path), _sharded_tree(template))
+        if tree is None:
+            return None
+        raw = tree["raw"]
+        return template._replace(step=int(tree["step"]), gen_opt=opt_state_counts(raw["gen_opt"], template.gen_opt),
+                                 disc_opt=opt_state_counts(raw["disc_opt"], template.disc_opt),
+                                 rng=raw["rng"].numpy().astype(np.uint32))
     dic = load_checkpoint(path)
     if dic is None or "raw" not in dic:
         return None
@@ -380,15 +427,15 @@ def train(
     on_state_every: int = 0,
 ) -> GanState:
     """Train to ``num_steps`` (default ``cfg.train.num_training_steps``),
-    resuming from ``ckpt_dir/hifigan_latest_ckpt.pickle`` when it holds a
-    resumable state (the checkpoint format is ``cfg.train``'s: pickle
-    only).  ``on_metrics(step, metrics)`` sees each step's metrics
+    resuming from ``ckpt_dir/hifigan_latest_ckpt.pickle`` (or, under
+    ``checkpoint_format="orbax"``, its sharded directory) when it holds a
+    resumable state.  ``on_metrics(step, metrics)`` sees each step's metrics
     (tensors); with a ``step_log`` list each step waits for the device and
     appends (its seconds, its metrics as floats).  ``on_state(step,
     state)`` is called every ``on_state_every`` steps (a probe of the live
     weights)."""
     hcfg, tcfg = cfg.hifigan, cfg.train
-    check_format(tcfg.checkpoint_format)
+    fmt = tcfg.checkpoint_format
     device = resolve_device(device)
     if tcfg.fsdp:
         raise ValueError("train.fsdp: the GAN trainer replicates its state, as the JAX trainer does")
@@ -405,7 +452,7 @@ def train(
     )
 
     ckpt_path = Path(cfg.ckpt_dir) / "hifigan_latest_ckpt.pickle"
-    restored = restore_vocoder_state(ckpt_path, state, resblock2)
+    restored = restore_vocoder_state(ckpt_path, state, resblock2, fmt)
     if restored is not None:
         if main_rank:
             print(f"Resuming vocoder from {ckpt_path} at step {restored.step}")
@@ -421,22 +468,24 @@ def train(
     num_steps = num_steps or tcfg.num_training_steps
 
     # in-loop checkpoints: a host copy of the state, then one background
-    # writer; the next save waits for the one in flight
-    writer: List[Optional[threading.Thread]] = [None]
+    # writer; the next save waits for the one in flight and raises what it
+    # raised.  The sharded format under a group saves on every rank's main
+    # thread, as its collectives must run there (JAX's Orbax save waits too).
+    writer = ThreadPoolExecutor(1)
+    pending: List[Optional[Future]] = [None]
 
     def save_async(st: GanState) -> None:
-        if not main_rank:
-            return
-        if writer[0] is not None:
-            writer[0].join()
-        t = threading.Thread(target=save_vocoder_ckpt, args=(ckpt_path, _host_copy(st), resblock2), daemon=True)
-        t.start()
-        writer[0] = t
+        if pending[0] is not None:
+            pending[0].result()
+        if dp and fmt == "orbax":
+            save_vocoder_ckpt(ckpt_path, st, resblock2, fmt)
+        elif main_rank:
+            pending[0] = writer.submit(save_vocoder_ckpt, ckpt_path, _host_copy(st), resblock2, fmt)
 
     avg = {k: MetricAverager(log_every) for k in ("disc_loss", "gen_loss", "mel_l1")}
     timer = StepTimer(device)
     step = state.step
-    with trace():  # a device trace when VIETTTS_PROFILE_DIR is set
+    with writer, trace():  # a device trace when VIETTTS_PROFILE_DIR is set
         while step < num_steps:
             mel_in, audio = next(data)
             tick = time.perf_counter()
@@ -458,10 +507,9 @@ def train(
                 on_state(step, state)
             if step % tcfg.ckpt_interval == 0:
                 save_async(state)
-    if writer[0] is not None:
-        writer[0].join()
-    if main_rank:
-        save_vocoder_ckpt(ckpt_path, state, resblock2)
+        if pending[0] is not None:
+            pending[0].result()
+    save_vocoder_ckpt(ckpt_path, state, resblock2, fmt)
     return state
 
 
