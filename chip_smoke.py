@@ -17,7 +17,10 @@
    at B=2 and at the main path's B=1, static and dynamic activation scales,
    with the int8 codes that the two sides' float64 prologue sums flip, and
    per stage the prologue alone, the int8 MRF convs alone and bf16 K2 on
-   the same inputs), with both times and each kernel's roofline bound
+   the same inputs), K1 also under the plan of a 114-SM card (the H100
+   PCIe: 103 CTAs of 5 units, forced with ``ar_decode(num_sms=114)``; B=1
+   and B=4, 512 frames, against the twin and bitwise run to run, its time
+   beside this card's own plan), with both times and each kernel's roofline bound
    (``bound_ms``: the larger of its bytes over the HBM rate and its
    operations over the dense peak of their type, ``utils.flops``: the
    card's data sheet).
@@ -42,6 +45,20 @@
    and the card must agree with the CPU (plain twins): a float32 synthesis,
    and the int8 vocoder, with the card's scales, on the same mel, which
    must also stay within int8 quantization error of the float32 vocoder.
+   ``synthesize`` and ``stream``'s chunk 0 take the lead program (one
+   CUDA graph replay), so phase 3's B=1 numbers are its.
+   c. The single-dispatch lead program (``lead_phase``) on the bf16,
+   float32 and int8 routes: ``warmup()`` captures one graph per token
+   bucket of at most 64 tokens (seconds per bucket, the pool's bytes); a
+   replay against the eager program (float32 within 1e-5 of scale, bf16
+   and int8 at K2's and K3's card bars) and two replays bitwise equal;
+   3 replays counted exactly (one K1 and four vocoder-stage launches each,
+   no twin); B=1 latency of ``synthesize(SENTENCE)`` and time to first
+   audio of ``stream(STREAM_TEXT)`` with the lead program and with
+   ``single_dispatch_max_tokens = 0``, in turns, medians of 3; then on the
+   float32 route with durations pinned at 0.08 s a token the lead against
+   the bucketed path on the kept audio (1e-4), and at 0.5 s a token the
+   overflow's fallback to the bucketed path.
 4. The training slice: a synthetic aligned corpus of 96 utterances, then
    ``viettts_tpu_torch.train.duration.train`` (20 steps, B=64, 256 tokens,
    validation and a checkpoint every 10) and ``.acoustic.train`` (6 steps,
@@ -136,6 +153,7 @@ BATCH_TEXTS = [
 ]
 K1_ATOL = 1e-4
 K1_CASES = ((1, 512), (4, 512), (16, 512), (1, 300), (4, 300), (16, 300))
+SMALL_CARD_SMS = 114  # the H100 PCIe: K1's plan for it runs on this card too
 K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
@@ -144,6 +162,8 @@ K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
 INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
 INT8_VS_F32_REL_RMS = 0.05  # int8 vs float32 generator, the bar of tests/test_mrf.py
+# on the CPU the lead program runs only with JAX's fused TPU routes off
+LEAD_ON_CPU = ("acoustic.fused_decode=false", "hifigan.fused_inference=false")
 
 
 def log(*args):
@@ -217,6 +237,64 @@ def check_ar_decode(dev, H=512, P=256, D=80, cases=K1_CASES):
                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
         log(f"K1 ar_decode B={B} L={L}: kernel {ms:.3f} ms ({1e3 * ms / L:.2f} us/frame), twin {plain_ms:.3f} ms; "
             f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+    return worst, times
+
+
+def check_ar_decode_plan(dev, sms=SMALL_CARD_SMS, H=512, P=256, D=80, cases=((1, 512), (4, 512))):
+    """K1 under the plan of a card with ``sms`` SMs (the H100 PCIe's 114:
+    103 CTAs of 5 hidden units, the last holding 2), forced on this card
+    through ``ar_decode(num_sms=...)``: against the twin within 1e-4, two
+    launches bitwise equal, and its time beside this card's own plan on
+    the same inputs (forced, own, forced, own; the means of each pair)."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.ops.ar_decoder import ar_decode, ar_decode_plain, plan_decode
+    from viettts_tpu_torch.utils.flops import ar_decode_bound, device_peaks
+
+    rng = np.random.default_rng(1)
+    weights = [
+        seeded(rng, D, P, scale=D ** -0.5), seeded(rng, P, P, scale=P ** -0.5),
+        seeded(rng, P + H, 4 * H, scale=(P + H) ** -0.5),
+        seeded(rng, P + 2 * H, 4 * H, scale=(P + 2 * H) ** -0.5),
+        seeded(rng, 2 * H, D, scale=(2 * H) ** -0.5), seeded(rng, D, scale=0.1),
+    ]
+    weights = [torch.from_numpy(w).to(dev) for w in weights]
+    own_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, times = 0.0, {}
+    for B, L in cases:
+        plan, own = plan_decode(H, P, D, sms, B), plan_decode(H, P, D, own_sms, B)
+        g1c, g2c = (torch.from_numpy(seeded(rng, B, L, 4 * H, scale=0.5)).to(dev) for _ in range(2))
+        keep1, keep2 = (torch.from_numpy(rng.random((L, B, P)) < 0.5).to(dev) for _ in range(2))
+        args = (g1c, g2c, keep1, keep2, *weights, 2.0)
+        got = ar_decode(*args, num_sms=sms)
+        again = ar_decode(*args, num_sms=sms)
+        want = ar_decode_plain(*args)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        bitwise = torch.equal(got, again)
+        log(f"K1 ar_decode under the {sms}-SM plan ({plan.ctas} CTAs x {plan.units} units, {plan.stage} staged "
+            f"rows, {plan.smem_bytes} B) B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); "
+            f"two launches bitwise equal: {bitwise}")
+        if not err <= K1_ATOL:
+            raise AssertionError(f"ar_decode ({sms}-SM plan) B={B} L={L} differs from its twin by {err}")
+        if not bitwise:
+            raise AssertionError(f"ar_decode ({sms}-SM plan) B={B} L={L}: two launches on the same inputs differ")
+        forced, native = [], []
+        for _ in range(2):
+            forced.append(time_ms(lambda: ar_decode(*args, num_sms=sms)))
+            native.append(time_ms(lambda: ar_decode(*args)))
+        ms, own_ms = sum(forced) / 2, sum(native) / 2
+        bound_ms, bound_by = ar_decode_bound(B, L, H, P, D, device_peaks())
+        times[(B, L)] = {"ms": ms, "own_plan_ms": own_ms, "ms_runs": forced, "own_plan_ms_runs": native,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                         "plan": {"sms": sms, "ctas": plan.ctas, "units": plan.units, "stage": plan.stage,
+                                  "smem_bytes": plan.smem_bytes},
+                         "own_plan": {"sms": own_sms, "ctas": own.ctas, "units": own.units, "stage": own.stage,
+                                      "smem_bytes": own.smem_bytes}}
+        log(f"K1 ar_decode B={B} L={L}: {sms}-SM plan {ms:.3f} ms ({forced[0]:.3f}; {forced[1]:.3f}), this card's "
+            f"{own_sms}-SM plan ({own.ctas} CTAs x {own.units} units) {own_ms:.3f} ms ({native[0]:.3f}; "
+            f"{native[1]:.3f}); bound {bound_ms:.4f} ms ({bound_by})")
     return worst, times
 
 
@@ -589,7 +667,8 @@ def main_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
         mfu = batch_mfu(cfg, synth, results, float(np.median(walls)), route)
         stats[route] = {"b1_latency_s": b1, "b1_audio_s": len(res.wave) / sr,
                         "b4_s_audio_per_s": b4, "b4_audio_s": audio_s, "b4_mfu": mfu}
-        log(f"main path {route}: B=1 latency {b1 * 1e3:.1f} ms for {len(res.wave) / sr:.2f} s of audio; "
+        log(f"main path {route}: B=1 latency {b1 * 1e3:.1f} ms for {len(res.wave) / sr:.2f} s of audio "
+            f"(the lead program: one CUDA graph replay); "
             f"batch-4 throughput {b4:.1f} s-audio/s ({audio_s:.2f} s of audio); {mfu['flops'] / 1e9:.2f} GFLOP, "
             f"{mfu['tflops_per_sec']:.3f} TFLOP/s, MFU {mfu['mfu']:.2e} of the {mfu['mfu_peak']} peak")
     return stats
@@ -686,7 +765,8 @@ def int8_path(cfg, ckpt_dir: Path, out_dir: Path, device="cuda"):
              "warmup_s": warmup_s, "stream_chunks": len(chunks), "stream_first_chunk_s": first_s,
              "stream_first_chunk_samples_s": firsts, "stream_total_s": stream_s,
              "stream_audio_s": sum(len(c.wave) for c in chunks) / sr}
-    log(f"main path int8: B=1 latency {stats['b1_latency_s'] * 1e3:.1f} ms for {stats['b1_audio_s']:.2f} s of audio; "
+    log(f"main path int8: B=1 latency {stats['b1_latency_s'] * 1e3:.1f} ms for {stats['b1_audio_s']:.2f} s of audio "
+        f"and stream chunk 0 through the lead program (one CUDA graph replay); "
         f"batch-4 throughput {stats['b4_s_audio_per_s']:.1f} s-audio/s; stream {len(chunks)} chunks, "
         f"first after {first_s * 1e3:.1f} ms (median of 3: {[round(1e3 * f, 1) for f in firsts]}), "
         f"all {stats['stream_audio_s']:.2f} s of audio in {stream_s * 1e3:.1f} ms")
@@ -735,9 +815,11 @@ def reference_check_int8(cfg, ckpt_dir: Path, gpu_synth):
     from viettts_tpu_torch.config import apply_overrides
     from viettts_tpu_torch.infer.pipeline import Synthesizer
 
+    # the fused TPU flags off: the CPU then takes the lead program too (the
+    # card always does), so both sides run the same path
     cfg = apply_overrides(
         cfg.replace(ckpt_dir=ckpt_dir),
-        ["hifigan.inference_dtype=int8", "acoustic.prenet_dropout_at_inference=false"],
+        ["hifigan.inference_dtype=int8", "acoustic.prenet_dropout_at_inference=false", *LEAD_ON_CPU],
     )
     gpu, cpu = Synthesizer(cfg, device="cuda"), Synthesizer(cfg, device="cpu")
     f32 = Synthesizer(apply_overrides(cfg, ["hifigan.inference_dtype=float32"]), device="cuda")
@@ -763,7 +845,8 @@ def reference_check_int8(cfg, ckpt_dir: Path, gpu_synth):
 
 def reference_check(cfg, ckpt_dir: Path, device="cuda"):
     """float32, prenet dropout off: the card (kernels) against the CPU
-    (plain twins) on one short text."""
+    (plain twins) on one short text, both through the lead program (the
+    card's a graph replay, the CPU's eager)."""
     import numpy as np
 
     from viettts_tpu_torch.config import apply_overrides
@@ -771,7 +854,7 @@ def reference_check(cfg, ckpt_dir: Path, device="cuda"):
 
     cfg = apply_overrides(
         cfg.replace(ckpt_dir=ckpt_dir),
-        ["hifigan.inference_dtype=float32", "acoustic.prenet_dropout_at_inference=false"],
+        ["hifigan.inference_dtype=float32", "acoustic.prenet_dropout_at_inference=false", *LEAD_ON_CPU],
     )
     text = BATCH_TEXTS[0]
     gpu = Synthesizer(cfg, device=device).synthesize(text)
@@ -788,6 +871,218 @@ def reference_check(cfg, ckpt_dir: Path, device="cuda"):
         if not errs[k] <= bar:
             raise AssertionError(f"card and CPU differ in {k} by {errs[k]} (bar {bar})")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the single-dispatch lead program (one CUDA graph replay)
+# ---------------------------------------------------------------------------
+
+LEAD_PINNED_S = 0.08  # seconds a token: durations pinned for lead against bucketed, as JAX's test pins them
+LEAD_OVERFLOW_S = 0.5  # seconds a token: SENTENCE then overflows the lead's frame budget
+LEAD_ATOL = 1e-4  # lead against bucketed on the kept audio, float32 route
+LEAD_F32_REL = 1e-5  # graph replay against the eager lead program, float32 route, of max(|wave|, 1)
+LEAD_COUNTED = 3  # replays whose launches are counted exactly
+
+
+def _lead_inputs(synth, text):
+    """The lead program's host inputs for ``text``: its row, token bucket,
+    frame budget and (tokens, lengths, sil_dur)."""
+    import torch
+
+    from viettts_tpu_torch.infer.pipeline import LEAD_FRAMES_PER_TOKEN, _bucket_frames, _bucket_tokens
+
+    row = synth.text_to_token_ids(text)
+    T = _bucket_tokens(len(row), synth.token_buckets)
+    toks = torch.zeros(1, T, dtype=torch.long)
+    toks[0, :len(row)] = torch.tensor(row)
+    inputs = (toks, torch.tensor([len(row)]), torch.tensor(-1.0))
+    return row, T, _bucket_frames(T * LEAD_FRAMES_PER_TOKEN), inputs
+
+
+def lead_replay_vs_eager(synth, text=SENTENCE):
+    """Two replays of the lead graph of ``text``'s bucket (capturing it if
+    needed) against one eager run of the lead program on the same inputs,
+    on the synthesizer's route: the wave within the route's card bar
+    (float32 ``LEAD_F32_REL``; bf16 K2's and int8 K3's 0.02 of scale,
+    int8 also ``INT8_ROUTE_REL_RMS``), the two replays bitwise equal."""
+    import torch
+
+    row, T, n_frames, inputs = _lead_inputs(synth, text)
+    with torch.inference_mode():
+        first = synth._lead_replay(T, n_frames, [t.pin_memory() for t in inputs])
+        second = synth._lead_replay(T, n_frames, [t.pin_memory() for t in inputs])
+        with torch.cuda.device(synth.device):
+            eager = [t.cpu() for t in synth._lead_program(*(t.to(synth.device) for t in inputs), n_frames)]
+    names = ("wave", "mel", "durations", "total_frames")
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+    errs = {f"{k}_max_abs": float((a - b).abs().max()) for k, a, b in zip(names, first, eager)}
+    errs["wave_rel_rms"] = rel_rms(first[0], eager[0])
+    scale = max(float(eager[0].abs().max()), 1.0)
+    route = "int8" if synth.vocoder_quant else "float32" if synth.vocoder_dtype == torch.float32 else "bfloat16"
+    if route == "float32":
+        ok = errs["wave_max_abs"] <= LEAD_F32_REL * scale
+    elif route == "bfloat16":
+        ok = errs["wave_max_abs"] <= K2_BF16_REL * scale
+    else:
+        ok = errs["wave_max_abs"] <= K3_MAX_REL * scale and errs["wave_rel_rms"] <= INT8_ROUTE_REL_RMS
+    log(f"lead program ({route}): bucket {T} tokens, {n_frames} frames; replay vs eager "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; two replays bitwise equal: {bitwise}")
+    if not ok:
+        raise AssertionError(f"lead program ({route}): the graph replay differs from the eager program: {errs}")
+    if not bitwise:
+        raise AssertionError(f"lead program ({route}): two replays on the same inputs differ")
+    return {**errs, "bitwise_replays": bitwise, "tokens": len(row), "bucket": T, "frames": n_frames}
+
+
+def _pin_durations(synth, seconds):
+    import torch
+
+    synth.duration_model = lambda batch, **_: torch.full(
+        batch.phonemes.shape, seconds, device=batch.phonemes.device)
+
+
+def lead_vs_bucketed(cfg, ckpt_dir: Path, device="cuda"):
+    """float32, prenet dropout off, durations pinned at ``LEAD_PINNED_S``:
+    the lead program (a graph replay) against the bucketed path on the
+    kept audio of ``SENTENCE`` (within ``LEAD_ATOL``, durations equal);
+    then at ``LEAD_OVERFLOW_S`` the lead overflows its frame budget and
+    returns None, and ``synthesize`` takes the bucketed path."""
+    import numpy as np
+
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    cfg = apply_overrides(cfg.replace(ckpt_dir=ckpt_dir), [
+        "hifigan.inference_dtype=float32", "acoustic.prenet_dropout_at_inference=false"])
+    synth = Synthesizer(cfg, device=device)
+    _pin_durations(synth, LEAD_PINNED_S)
+    row = synth.text_to_token_ids(SENTENCE)
+    lead = synth._synthesize_single_fused(row, -1.0)
+    bucketed = synth._synthesize_rows([row])[0]
+    if lead is None or lead.wave.shape != bucketed.wave.shape:
+        raise AssertionError(f"lead vs bucketed: {None if lead is None else lead.wave.shape} vs {bucketed.wave.shape}")
+    errs = {"wave_max_abs": float(np.abs(lead.wave - bucketed.wave).max()),
+            "mel_max_abs": float(np.abs(lead.mel - bucketed.mel).max()),
+            "durations_max_abs": float(np.abs(lead.durations - bucketed.durations).max())}
+    over = Synthesizer(cfg, device=device)
+    _pin_durations(over, LEAD_OVERFLOW_S)
+    fell_back = over._synthesize_single_fused(row, -1.0) is None
+    got, want = over.synthesize(SENTENCE), over._synthesize_rows([row])[0]
+    errs["overflow_wave_max_abs"] = float(np.abs(got.wave - want.wave).max()) if got.wave.shape == want.wave.shape \
+        else float("inf")
+    log(f"lead vs bucketed (float32, {LEAD_PINNED_S} s a token, {lead.mel.shape[0]} kept frames): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; at {LEAD_OVERFLOW_S} s a token the lead returned None: {fell_back} ({got.mel.shape[0]} frames bucketed)")
+    if not (errs["wave_max_abs"] <= LEAD_ATOL and errs["mel_max_abs"] <= LEAD_ATOL and errs["durations_max_abs"] == 0):
+        raise AssertionError(f"lead program differs from the bucketed path on the kept audio: {errs}")
+    if not fell_back or not errs["overflow_wave_max_abs"] <= 1e-5:
+        raise AssertionError(f"an overflowing row did not fall back to the bucketed path: {errs}")
+    return errs
+
+
+def graph_pool_bytes(synth):
+    """Bytes of the segments the lead graphs' shared memory pool holds on
+    the card (from ``torch.cuda.memory_snapshot``), None where the
+    snapshot does not name pools."""
+    import torch
+
+    pool = synth._graph_pool
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def lead_timings(synth, reps=3):
+    """B=1 latency of ``synthesize(SENTENCE)`` and time to first audio of
+    ``stream(STREAM_TEXT)`` (the whole stream consumed), with the lead
+    program and with ``single_dispatch_max_tokens = 0`` (bucketed), in
+    turns, after one untimed call of each; medians of ``reps``."""
+    import numpy as np
+
+    def once():
+        t0 = time.perf_counter()
+        check_result(synth.synthesize(SENTENCE), "synthesize (lead timing)")
+        b1 = time.perf_counter() - t0
+        t0, first = time.perf_counter(), None
+        for chunk in synth.stream(STREAM_TEXT):
+            first = first or time.perf_counter() - t0
+        return b1, first
+
+    runs = {"lead": [], "bucketed": []}
+    gate = synth.single_dispatch_max_tokens
+    try:
+        for i in range(reps + 1):
+            for mode in runs:
+                synth.single_dispatch_max_tokens = gate if mode == "lead" else 0
+                b1, first = once()
+                if i:
+                    runs[mode].append((b1, first))
+    finally:
+        synth.single_dispatch_max_tokens = gate
+    return {mode: {"b1_latency_s": float(np.median([r[0] for r in v])), "b1_runs_s": [r[0] for r in v],
+                   "first_audio_s": float(np.median([r[1] for r in v])), "first_audio_runs_s": [r[1] for r in v]}
+            for mode, v in runs.items()}
+
+
+def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
+    """Phase 3c, on the bf16, float32 and int8 routes at the default width:
+    ``warmup()`` captures one lead graph per token bucket of at most 64
+    tokens (seconds per bucket, bytes of the shared pool); the replay
+    against the eager program and two replays bitwise
+    (``lead_replay_vs_eager``); ``LEAD_COUNTED`` replays of
+    ``synthesize(SENTENCE)`` with the counters zeroed, which must count
+    exactly one K1 launch and four vocoder-stage launches (K2, and K3 on
+    the int8 route) a replay and no twin; then ``lead_timings``, counted
+    (``read``); and ``lead_vs_bucketed`` on the float32 route."""
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+    from viettts_tpu_torch.ops.ar_decoder import ar_decode
+    from viettts_tpu_torch.ops.mrf import fused_mrf
+
+    out = {}
+    for route in ("bfloat16", "float32", "int8"):
+        synth = Synthesizer(apply_overrides(cfg.replace(ckpt_dir=ckpt_dir), [f"hifigan.inference_dtype={route}"]),
+                            device=device)
+        t0 = time.perf_counter()
+        synth.warmup()
+        warmup_s = time.perf_counter() - t0
+        want = [b for b in synth.token_buckets if b <= synth.single_dispatch_max_tokens]
+        if sorted(synth.lead_graphs) != want:
+            raise AssertionError(f"lead program ({route}): warmup captured buckets {sorted(synth.lead_graphs)}, "
+                                 f"want {want}")
+        capture_s = {T: g.capture_s for T, g in sorted(synth.lead_graphs.items())}
+        pool = graph_pool_bytes(synth)
+        log(f"lead program ({route}): warmup {warmup_s:.2f} s; eager run + capture per token bucket "
+            + ", ".join(f"{T}: {v:.3f} s" for T, v in capture_s.items())
+            + f"; graph pool {'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}")
+        stats = {"warmup_s": warmup_s, "capture_s": capture_s, "pool_bytes": pool,
+                 "replay_vs_eager": lead_replay_vs_eager(synth)}
+        zero()
+        for _ in range(LEAD_COUNTED):
+            check_result(synth.synthesize(SENTENCE), f"synthesize ({route}, lead)")
+        int8 = route == "int8"
+        counted = (ar_decode.launches, ar_decode.plain_calls, fused_mrf.launches, fused_mrf.int8_launches,
+                   fused_mrf.plain_calls)
+        want = (LEAD_COUNTED, 0, 4 * LEAD_COUNTED, 4 * LEAD_COUNTED if int8 else 0, 0)
+        log(f"lead program ({route}): {LEAD_COUNTED} replays counted (K1, K1 twin, K2, K3, K2/K3 twin) "
+            f"{counted}, want {want}")
+        if counted != want:
+            raise AssertionError(f"lead program ({route}): replays counted {counted}, want {want}")
+        zero()
+        stats["timings"] = t = lead_timings(synth)
+        stats["launches"] = read(f"lead program ({route})",
+                                 ["ar_decode", "fused_mrf"] + (["fused_mrf_int8"] if int8 else []))
+        log(f"lead program ({route}): B=1 latency of SENTENCE lead {1e3 * t['lead']['b1_latency_s']:.1f} ms "
+            f"{[round(1e3 * v, 1) for v in t['lead']['b1_runs_s']]}, bucketed "
+            f"{1e3 * t['bucketed']['b1_latency_s']:.1f} ms {[round(1e3 * v, 1) for v in t['bucketed']['b1_runs_s']]}; "
+            f"first audio of STREAM_TEXT lead {1e3 * t['lead']['first_audio_s']:.1f} ms "
+            f"{[round(1e3 * v, 1) for v in t['lead']['first_audio_runs_s']]}, bucketed "
+            f"{1e3 * t['bucketed']['first_audio_s']:.1f} ms "
+            f"{[round(1e3 * v, 1) for v in t['bucketed']['first_audio_runs_s']]} (medians of 3, in turns)")
+        out[route] = stats
+    out["lead_vs_bucketed"] = lead_vs_bucketed(cfg, ckpt_dir, device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1822,6 +2117,7 @@ def main() -> int:
     cfg = Config()
 
     k1_err, k1_times = check_ar_decode(dev)
+    k1_plan_err, k1_plan_times = check_ar_decode_plan(dev)
     k2_err, k2_times = check_fused_mrf(dev, cfg.hifigan)
     k3, k3_times = check_fused_mrf_int8(dev, cfg.hifigan)
 
@@ -1851,6 +2147,11 @@ def main() -> int:
         launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
+        t0 = time.perf_counter()
+        stats["lead"] = lead_phase(cfg, tmp, zero_counts, read_counts)
+        stats["lead"]["seconds"] = time.perf_counter() - t0
+        log(f"lead phase: {stats['lead']['seconds']:.1f} s")
+        launches_lead = {route: stats["lead"][route]["launches"] for route in ("bfloat16", "float32", "int8")}
         train, trained = train_phase(cfg, tmp)
         train["gan"], vocoder = gan_phase(cfg, tmp / "corpus", trained, tmp)
         zero_counts()
@@ -1894,16 +2195,19 @@ def main() -> int:
          "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],
          "launches_replicated": launches_replicated["ar_decode"],
          "launches_validation": {tool: n["ar_decode"] for tool, n in launches_validation.items()},
-         "max_abs_err": k1_err, "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "launches_lead": {route: n["ar_decode"] for route, n in launches_lead.items()},
+         "max_abs_err": max(k1_err, k1_plan_err), "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the fed-back decode",
          "cases": {f"B={B} L={L}": v for (B, L), v in k1_times.items()},
+         f"cases_{SMALL_CARD_SMS}_sm_plan": {f"B={B} L={L}": v for (B, L), v in k1_plan_times.items()},
          "shape": "B=1 L=512 H=512 P=256 D=80 f32"},
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
          "launches_int8_path": launches_int8["fused_mrf"], "launches_round_trip": launches_trained["fused_mrf"],
          "launches_replicated": launches_replicated["fused_mrf"],
          "launches_validation": {tool: n["fused_mrf"] for tool, n in launches_validation.items()},
+         "launches_lead": {route: n["fused_mrf"] for route, n in launches_lead.items()},
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
@@ -1921,6 +2225,7 @@ def main() -> int:
          "launches_round_trip": launches_trained["fused_mrf_int8"],
          "launches_replicated": launches_replicated["fused_mrf_int8"],
          "launches_validation": {tool: n["fused_mrf_int8"] for tool, n in launches_validation.items()},
+         "launches_lead": launches_lead["int8"]["fused_mrf_int8"],
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),

@@ -110,19 +110,35 @@ def test_plan_decode_published_width():
 )
 def test_plan_decode_covers_every_column(H, P, D, sms):
     """At most one CTA per SM; the units, prenet and projection columns of
-    the CTAs cover H, P and D; per-CTA counts are powers of two."""
+    the CTAs cover H, P and D, the last CTA non-empty; prenet and
+    projection counts are powers of two; one output per thread."""
     plan = ar_decoder.plan_decode(H, P, D, sms)
     assert plan.ctas <= sms
     assert (plan.ctas - 1) * plan.units < H <= plan.ctas * plan.units
     assert plan.ctas * plan.prenet_cols >= P and plan.ctas * plan.proj_cols >= D
-    for n in (plan.units, plan.prenet_cols, plan.proj_cols):
+    for n in (plan.prenet_cols, plan.proj_cols):
         assert n & (n - 1) == 0
+    assert 1 <= plan.units <= ar_decoder.MAX_UNITS
+    assert plan.stage * max(4 * plan.units, plan.prenet_cols, plan.proj_cols) <= ar_decoder.THREADS
     assert plan.smem_bytes <= ar_decoder.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("sms", range(114, 133))
+def test_plan_decode_fits_every_h100(sms):
+    """H=512, P=256, D=80 plans within the shared memory of a block on
+    every H100 from 114 SMs (PCIe) to 132 (SXM), for 64 rows and for one:
+    5 hidden units a CTA below 128 SMs (103 CTAs, the last holding 2), the
+    SXM plan of 128 CTAs of 4 units from 128 on."""
+    for rows in (ar_decoder.MAX_ROWS, 1):
+        plan = ar_decoder.plan_decode(512, 256, 80, sms, rows)
+        assert plan.smem_bytes <= ar_decoder.SMEM_LIMIT and plan.rows == rows
+        want = (128, 4) if sms >= 128 else (103, 5)
+        assert (plan.ctas, plan.units) == want
 
 
 def _kernel_smem_floats():
     """``smem_floats`` of csrc/ar_decoder.cu as a Python function of
-    (H, P, D, U, PK, DK), and the kernel's integer ``constexpr`` values."""
+    (H, P, D, U, PK, DK, S, R), and the kernel's integer ``constexpr`` values."""
     src = (Path(ar_decoder.__file__).parent.parent / "csrc" / "ar_decoder.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     body = re.search(r"size_t smem_floats\(([^)]*)\) \{(.*?)\n\}", src, re.S)
@@ -131,7 +147,8 @@ def _kernel_smem_floats():
     stmts = stmts.replace(", ncm =", "; ncm =").replace("return ", "floats = ")
 
     def floats(*args):
-        scope = dict(consts, kWarps=consts["kThreads"] // 32, max3=max, **dict(zip(params, args)))
+        scope = dict(consts, kWarps=consts["kThreads"] // 32, max3=max, pad4=lambda n: (n + 3) // 4 * 4,
+                     **dict(zip(params, args)))
         for stmt in stmts.split(";"):
             exec(stmt.strip(), {}, scope)
         return scope["floats"]
@@ -140,24 +157,32 @@ def _kernel_smem_floats():
 
 
 @pytest.mark.parametrize(
-    "H,P,D,sms", [(512, 256, 80, 132), (64, 32, 20, 132), (96, 48, 80, 132), (270, 40, 24, 132)]
+    "H,P,D,sms,rows",
+    [(512, 256, 80, 132, 64), (512, 256, 80, 132, 1), (512, 256, 80, 114, 64), (512, 256, 80, 114, 4),
+     (64, 32, 20, 132, 64), (96, 48, 80, 132, 64), (270, 40, 24, 132, 16), (512, 256, 80, 100, 64)],
 )
-def test_plan_decode_mirrors_the_kernel_source(H, P, D, sms):
+def test_plan_decode_mirrors_the_kernel_source(H, P, D, sms, rows):
     """The constants and the shared-memory formula ``plan_decode`` copies
     from csrc/ar_decoder.cu agree with the source, so a drift fails here
     and not only as a refused launch on the card."""
     consts, floats = _kernel_smem_floats()
-    assert {k: consts[k] for k in ("kThreads", "kStage", "kChunk", "kRows")} == {
+    assert {k: consts[k] for k in ("kThreads", "kStage", "kChunk", "kRows", "kMaxUnits")} == {
         "kThreads": ar_decoder.THREADS, "kStage": ar_decoder.STAGE_ROWS,
-        "kChunk": ar_decoder.BATCH_CHUNK, "kRows": ar_decoder.MAX_ROWS,
+        "kChunk": ar_decoder.BATCH_CHUNK, "kRows": ar_decoder.MAX_ROWS, "kMaxUnits": ar_decoder.MAX_UNITS,
     }
-    plan = ar_decoder.plan_decode(H, P, D, sms)
-    assert plan.smem_bytes == 4 * floats(H, P, D, plan.units, plan.prenet_cols, plan.proj_cols)
+    plan = ar_decoder.plan_decode(H, P, D, sms, rows)
+    assert plan.smem_bytes == 4 * floats(H, P, D, plan.units, plan.prenet_cols, plan.proj_cols,
+                                         plan.stage, plan.rows)
+    assert plan.smem_bytes == 4 * ar_decoder.smem_floats(H, P, D, plan.units, plan.prenet_cols,
+                                                         plan.proj_cols, plan.stage, plan.rows)
 
 
-@pytest.mark.parametrize("H,sms", [(1024, 132), (2048, 132), (512, 114)])
+@pytest.mark.parametrize("H,sms", [(1024, 132), (2048, 132), (512, 85), (512, 64)])
 def test_plan_decode_refuses_what_does_not_fit(H, sms):
-    """H=1024 on 132 SMs, or H=512 on a 114-SM card: 8 units per CTA, whose
-    resident gate columns alone exceed a block's shared memory."""
-    with pytest.raises(ValueError, match="bytes of shared memory per CTA"):
-        ar_decoder.plan_decode(H, 256, 80, sms)
+    """H=1024 on 132 SMs (8 units per CTA), or H=512 on 85 SMs or fewer (7
+    units or more): the resident gate columns alone exceed a block's
+    shared memory, for 64 rows and for one.  The message names the SM
+    count."""
+    for rows in (ar_decoder.MAX_ROWS, 1):
+        with pytest.raises(ValueError, match=f"on {sms} SMs needs .* bytes of shared memory per CTA"):
+            ar_decoder.plan_decode(H, 256, 80, sms, rows)

@@ -80,6 +80,24 @@ def test_ar_decode_kernel_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_ar_decode_kernel_under_a_smaller_cards_plan(cuda, B):
+    """The plan of a 114-SM card (103 CTAs of 5 hidden units, the last
+    holding 2; 8 staged rows) forced on this card: one co-resident
+    cooperative launch, within 1e-4 of the twin and bitwise run to run."""
+    H, P, D, L = 512, 256, 80, 64
+    plan = ar_decoder.plan_decode(H, P, D, 114, B)
+    assert (plan.ctas, plan.units) == (103, 5)
+    args = _ar_args(np.random.RandomState(2), B, L, H, P, D, cuda)
+    launches, plain = ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls
+    got = ar_decoder.ar_decode(*args, 2.0, num_sms=114)
+    again = ar_decoder.ar_decode(*args, 2.0, num_sms=114)
+    torch.cuda.synchronize()
+    assert (ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls) == (launches + 2, plain)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ar_decoder.ar_decode_plain(*args, 2.0), rtol=0, atol=1e-4)
+
+
 def test_ar_decode_kernel_refuses_unsupported_width(cuda):
     """H=1024: the resident gate columns of a CTA's units exceed the shared
     memory of a block; the wrapper raises without running the twin."""
@@ -433,8 +451,9 @@ def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
     """``Synthesizer(devices=["cuda:0", "cuda:0"])`` at the default width on
     seeded weights, float32 route (``chip_smoke.replicated_serving``):
     mels and waves within 1e-4 of one device; K1 and K2 launch for both
-    replicas (warmup and one batch: 4 decodes, 4 vocoders of 4 stages),
-    no plain twin."""
+    replicas (warmup and one batch: 4 decodes, 4 vocoders of 4 stages)
+    and for the lead program that warmup captures on the first device
+    (its eager run and one replay: 2 decodes, 2 vocoders), no plain twin."""
     import chip_smoke
     from viettts_tpu_torch.config import Config
 
@@ -448,8 +467,130 @@ def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
     out, counts = chip_smoke.replicated_serving(
         cfg, tmp_path, routes=("float32",), zero=zero,
         read=lambda: (dec.launches, dec.plain_calls, voc.launches, voc.plain_calls))
-    assert counts == (4, 0, 16, 0)
+    assert counts == (6, 0, 24, 0)
     assert out["float32"]["mel_max_abs"] <= 1e-4 and out["float32"]["wave_max_abs"] <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The single-dispatch lead program as a CUDA graph.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def default_ckpts(tmp_path_factory):
+    import chip_smoke
+    from viettts_tpu_torch.config import Config
+
+    d = tmp_path_factory.mktemp("lead_ckpts")
+    if torch.cuda.is_available():
+        chip_smoke.write_checkpoints(Config(), d)
+    return d
+
+
+def _synth(ckpt_dir, *flags):
+    from viettts_tpu_torch.config import Config, apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+
+    return Synthesizer(apply_overrides(Config().replace(ckpt_dir=ckpt_dir), list(flags)), device="cuda")
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16", "int8"])
+def test_lead_graph_replay_matches_the_eager_program(cuda, default_ckpts, route):
+    """At the default width on each route: the captured graph of a bucket
+    replays the eager lead program within the route's card bar
+    (``chip_smoke.lead_replay_vs_eager``), and two replays are bitwise
+    equal; warmup captures one graph per token bucket of at most 64."""
+    import chip_smoke
+
+    synth = _synth(default_ckpts, f"hifigan.inference_dtype={route}")
+    synth.warmup(token_buckets=(32, 64, 128))
+    assert sorted(synth.lead_graphs) == [32, 64]
+    errs = chip_smoke.lead_replay_vs_eager(synth)
+    assert errs["bitwise_replays"] and errs["bucket"] == 64
+
+
+@pytest.mark.parametrize("route", ["bfloat16", "int8"])
+def test_lead_replays_are_counted(cuda, default_ckpts, route):
+    """Each replay adds the launches its capture recorded (one K1, four
+    vocoder stages; K3's on the int8 route), the capture itself none, and
+    no plain twin runs."""
+    dec, voc = ar_decoder.ar_decode, mrf.fused_mrf
+    synth = _synth(default_ckpts, f"hifigan.inference_dtype={route}")
+    synth.calibrate_int8()
+    text = "xin chào các bạn"
+    synth.synthesize(text)  # the bucket's eager run, capture and first replay
+    dec.launches = dec.plain_calls = voc.launches = voc.int8_launches = voc.plain_calls = 0
+    for _ in range(3):
+        synth.synthesize(text)
+    int8 = route == "int8"
+    assert (dec.launches, dec.plain_calls, voc.launches, voc.int8_launches, voc.plain_calls) == (
+        3, 0, 12, 12 if int8 else 0, 0)
+
+
+def test_lead_matches_bucketed_and_overflow_falls_back(cuda, default_ckpts):
+    """float32, durations pinned: the replay against the bucketed path on
+    the kept audio (1e-4), and the overflow's fallback
+    (``chip_smoke.lead_vs_bucketed``)."""
+    import chip_smoke
+    from viettts_tpu_torch.config import Config
+
+    errs = chip_smoke.lead_vs_bucketed(Config(), default_ckpts)
+    assert errs["wave_max_abs"] <= chip_smoke.LEAD_ATOL
+
+
+def test_lead_graph_under_concurrent_callers(cuda, default_ckpts):
+    """Threads sharing one Synthesizer (more threads than the machine has
+    cores, a short switch interval): the first use of a bucket captures
+    its graph while others wait on the lock, and every result equals the
+    same text's result from one thread, bitwise (a replay's outputs are
+    copied out before the next replay overwrites them)."""
+    import os
+    import sys
+    import threading
+
+    texts = ["xin chào các bạn", "hôm nay trời đẹp quá", "một hai ba bốn năm"]
+    synth = _synth(default_ckpts, "hifigan.inference_dtype=bfloat16", "acoustic.prenet_dropout_at_inference=false")
+    got, errors = [], []
+
+    def worker(i):
+        try:
+            for j in range(3):
+                text = texts[(i + j) % len(texts)]
+                got.append((text, synth.synthesize(text).wave))
+        except Exception as e:  # reported below, with the thread's result missing
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2 * (os.cpu_count() or 4))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert sorted(synth.lead_graphs) == [32] and len(got) == 3 * len(threads)
+    want = {text: synth.synthesize(text).wave for text in texts}
+    for text, wave in got:
+        np.testing.assert_array_equal(wave, want[text])
+
+
+def test_calibrate_int8_drops_the_int8_graphs(cuda, default_ckpts):
+    """New int8 scales are not what a captured graph reads: ``calibrate_int8``
+    drops the graphs, and a graph captured under other scales is replaced
+    at its next use."""
+    synth = _synth(default_ckpts, "hifigan.inference_dtype=int8")
+    synth.synthesize("xin chào")
+    assert list(synth.lead_graphs) == [32] and synth.lead_graphs[32].act_scales is None
+    synth.calibrate_int8()
+    assert synth.lead_graphs == {}
+    synth.synthesize("xin chào")
+    assert synth.lead_graphs[32].act_scales is synth._act_scales
+    synth._act_scales = {i: s * 1.5 for i, s in synth._act_scales.items()}
+    synth.synthesize("xin chào")
+    assert synth.lead_graphs[32].act_scales is synth._act_scales
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ tiny native checkpoints, on the CPU.
 Both sides run with prenet dropout off and the float32 vocoder.  The JAX
 side takes its plain routes (``fused_decode=False``,
 ``fused_inference=False``), which its own tests hold equal to its Pallas
-kernels, and ``single_dispatch_max_tokens = 0``: otherwise its CPU
-``synthesize`` takes the single-dispatch program, whose static frame
-budget pads the vocoder input differently and so changes the tail.
+kernels.  ``_pair`` sets ``single_dispatch_max_tokens = 0`` on both sides,
+so that these tests cover the bucketed path; the single-dispatch lead
+program, which both take by default, is held to JAX's in
+``tests/test_torch_lead.py``.
 
 Tolerances: durations 1e-5 and mel 1e-4 (float32 recurrences with
 differently ordered sums); waveform 1e-3, the parity bar of BASELINE.md.
@@ -125,9 +126,11 @@ def ckpt_dir(tmp_path_factory):
 
 
 def _pair(cfg):
+    """JAX's and the port's Synthesizer on ``cfg``, both on the bucketed path."""
     jax_synth = JaxSynthesizer(cfg)
-    jax_synth.single_dispatch_max_tokens = 0
-    return jax_synth, torch_pipeline.Synthesizer(port_config(cfg), device="cpu")
+    port = torch_pipeline.Synthesizer(port_config(cfg), device="cpu")
+    jax_synth.single_dispatch_max_tokens = port.single_dispatch_max_tokens = 0
+    return jax_synth, port
 
 
 @pytest.fixture(scope="module")
@@ -279,7 +282,10 @@ def test_stream_matches_synthesize_and_jax(ckpt_dir):
 
 
 def test_stream_leads_with_a_short_chunk(ckpt_dir):
+    """A short chunk 0 on the bucketed path (the lead program is off: its
+    frame budget pads the vocoder otherwise than a row alone does)."""
     port = torch_pipeline.Synthesizer(port_config(_cfg(ckpt_dir)), device="cpu")
+    port.single_dispatch_max_tokens = 0
     tokens = port.text_to_token_ids(LONG_TEXT)
     rows = torch_pipeline._chunk_token_rows(tokens, 256, first_chunk_tokens=12)
     assert len(rows) >= 2 and len(rows[0]) <= 12
@@ -296,7 +302,8 @@ def test_stream_leads_with_a_short_chunk(ckpt_dir):
 
 def test_cli_stream_matches_one_shot(ckpt_dir, tmp_path, monkeypatch):
     """--stream writes the wav chunk by chunk; it matches the one-shot wav
-    to one int16 step."""
+    to one int16 step, both on the bucketed path (the one-shot text is
+    chunked; a lead chunk 0 would decode a different frame budget)."""
     import wave
 
     import viettts_tpu_torch.config as config_mod
@@ -304,6 +311,7 @@ def test_cli_stream_matches_one_shot(ckpt_dir, tmp_path, monkeypatch):
 
     tiny = port_config(_cfg())
     monkeypatch.setattr(config_mod, "Config", lambda: tiny)
+    monkeypatch.setattr(torch_pipeline.Synthesizer, "single_dispatch_max_tokens", 0)
     common = ["--text", STREAM_TEXT, "--ckpt-dir", str(ckpt_dir), "--device", "cpu",
               "--set", "data.max_phoneme_seq_len=16"]  # at least two chunks
     one, streamed = tmp_path / "one.wav", tmp_path / "streamed.wav"
@@ -330,6 +338,7 @@ def test_stream_yields_chunk_0_before_dispatching_chunk_1(ckpt_dir):
     before chunk i is fetched)."""
     cfg = _cfg(ckpt_dir).replace(data=DataConfig(max_phoneme_seq_len=16))
     port = torch_pipeline.Synthesizer(port_config(cfg), device="cpu")
+    port.single_dispatch_max_tokens = 0  # chunk 0 on the bucketed path too
     log = []
 
     def dispatch(token_rows, toks, lengths, dur_s):

@@ -19,9 +19,10 @@
 // one grid-wide hand-off through L2 (a producer's store reaching L2, a
 // consumer's load coming back), times the frames.
 //
-// Design.  G CTAs (one per SM at most: 128 at H=512), each owning U hidden
-// units (4 at H=512), hold all four gate columns of their units for both
-// LSTM layers in shared memory for the whole launch (131 KB at H=512),
+// Design.  G CTAs (one per SM at most: 128 at H=512 on 132 SMs), each
+// owning U hidden units (4 at H=512; 5 on a 114-SM card, the last CTA
+// partly empty), hold all four gate columns of their units for both
+// LSTM layers in shared memory for the whole launch (131 KB at H=512, U=4),
 // plus their columns of the prenet weights and of the projection: the
 // 17.45 MB are spread over the grid and loaded once per launch, so no
 // weight byte moves in the frame loop.  The vectors that cross CTAs go
@@ -46,13 +47,21 @@
 // conditioning gates, as gate partial sums in shared memory beside the
 // cell states.  A CTA's own work per phase is a chain of latencies
 // (shared-memory loads, a shuffle tree, barriers), so the weights are
-// stored column by column and a warp sums whole columns in 16-byte loads,
-// everything is inlined and the CTA has 256 threads, which leaves the
-// registers to avoid spills.  Every dot is summed in a fixed order inside
-// one CTA: the same inputs give the same bits.  expf/tanhf without
-// fast-math keep parity with the plain PyTorch loop.  Spinning needs
-// every CTA resident: the launch is cooperative and refused (never
-// shrunk) when the occupancy does not allow G CTAs on the card.
+// stored column by column and a warp sums whole columns (up to 3 of the
+// 4U gate columns a warp) in 16-byte loads, everything is inlined and the
+// CTA has 256 threads, which leaves the registers to avoid spills.  The
+// kernel is instantiated per U (1..kMaxUnits), so that splitting a gate
+// column index into gate and unit is a division by a constant.  The rows
+// a CTA stages at once (S) and the rows of its gate sums and cell states
+// (R, the launch's batch) size its shared memory, so a plan fits the
+// batch it runs.  Every dot is summed in a fixed order inside one CTA:
+// the same inputs give the same bits.  expf/tanhf without fast-math keep
+// parity with the plain PyTorch loop.  Spinning needs every CTA resident:
+// the launch is cooperative (a cooperative node when a CUDA graph captures
+// it) and refused (never shrunk) when the occupancy does not allow G CTAs
+// on the card; ``viettts_ar_decode_prepare`` opts the kernel in to its
+// shared memory and checks that occupancy once per device and plan,
+// outside any capture.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,16 +70,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStage = 16;    // batch rows staged at once
+constexpr int kStage = 16;    // batch rows staged at once, at most
 constexpr int kChunk = 8;     // batch rows summed per matrix-vector pass
 constexpr int kRows = 64;     // batch rows per launch (gate sums and c stay in shared memory)
-static_assert(kStage * 2 * kWarps <= kThreads, "one output per thread");
+constexpr int kMaxUnits = 6;  // hidden units per CTA: 4U gate columns, at most 3 a warp
+static_assert(4 * kMaxUnits <= 3 * kWarps, "gate columns per warp");
 
 typedef unsigned long long word;  // float bits | frame tag << 32
 
 struct Dims {
   int B, L, H, P, D;
-  int G, U, PK, DK;  // CTAs, hidden units / prenet columns / projection columns per CTA
+  int G, PK, DK;  // CTAs, prenet / projection columns per CTA
+  int S;          // batch rows staged at once
   float scale;
 };
 
@@ -79,11 +90,15 @@ __host__ __device__ inline int max3(int a, int b, int c) {
   return m > c ? m : c;
 }
 
-// floats of dynamic shared memory; ops/ar_decoder.py::plan_decode mirrors it
-__host__ __device__ inline size_t smem_floats(int H, int P, int D, int U, int PK, int DK) {
+// n floats rounded up to whole 16-byte words
+__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// floats of dynamic shared memory for U units, PK / DK columns, S staged
+// rows and R rows of state; ops/ar_decoder.py::plan_decode mirrors it
+__host__ __device__ inline size_t smem_floats(int H, int P, int D, int U, int PK, int DK, int S, int R) {
   const size_t nc = 4 * (size_t)U, ncm = max3(4 * U, PK, DK);
-  return (size_t)kStage * max3(2 * H, P, D) + (size_t)kWarps * kChunk + (size_t)kStage * ncm +
-         (size_t)kRows * (2 * nc + 2 * U) + ((size_t)(P + H) + (P + 2 * H)) * nc +
+  return pad4((size_t)S * max3(2 * H, P, D)) + (size_t)kWarps * kChunk + pad4((size_t)S * ncm) +
+         (size_t)R * 2 * nc + pad4((size_t)R * 2 * U) + ((size_t)(P + H) + (P + 2 * H)) * nc +
          (size_t)(D + P) * PK + (size_t)(2 * H + 1) * DK;
 }
 
@@ -134,22 +149,27 @@ __device__ __forceinline__ void gather(float* xs, const word* src, int ld, int b
 __device__ __forceinline__ int log2i(int pow2) { return __ffs(pow2) - 1; }
 
 // res[b * NC + c] = sum_k xs[b * ldx + k] * Wt[c * K + k] for b < nb <= NB,
-// c < NC (a power of two), the weights stored column by column.  A warp
-// sums CPW = max(1, NC / kWarps) columns over the part-th of WPC =
-// max(1, kWarps / NC) parts of the rows, each lane 4 rows at a time in
+// c < NC, the weights stored column by column.  Below kWarps columns (NC
+// a power of two) each column is split over kWarps / NC warps, each
+// summing one part of the rows; from kWarps columns on, warp w sums the
+// CPW columns from w * CPW (CPW * kWarps >= NC; columns past NC repeat
+// the last one and are not stored).  Each lane takes 4 rows at a time in
 // 16-byte loads of the columns and of each staged row when they are
 // aligned; a shuffle tree sums the lanes, then the parts add in order.
 // Fixed order: the same inputs give the same bits.
 template <int NB, int CPW>
 __device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, const float* Wt, int NC,
                                           int K, float* red, float* res) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, lg = log2i(NC);
-  const int lgw = NC < kWarps ? log2i(kWarps) - lg : 0;  // log2 of the parts per column
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lgw = NC < kWarps ? log2i(kWarps) - log2i(NC) : 0;  // log2 of the parts per column
   const int part = warp & ((1 << lgw) - 1), c0 = (warp >> lgw) * CPW;
   const int span = (((K + (1 << lgw) - 1) >> lgw) + 3) & ~3;
   const int k_lo = min(K, part * span), k_hi = min(K, k_lo + span);
   const bool vec = ((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(Wt) |
                      (unsigned)ldx * 4u | (unsigned)K * 4u) & 15) == 0;
+  const float* col[CPW];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) col[j] = Wt + (size_t)min(c0 + j, NC - 1) * K;
   float acc[CPW][NB];
 #pragma unroll
   for (int j = 0; j < CPW; ++j)
@@ -161,7 +181,7 @@ __device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, cons
   for (int k = k_lo + 4 * lane; k < k_vec; k += 128) {
     float4 wv[CPW];
 #pragma unroll
-    for (int j = 0; j < CPW; ++j) wv[j] = *reinterpret_cast<const float4*>(Wt + (size_t)(c0 + j) * K + k);
+    for (int j = 0; j < CPW; ++j) wv[j] = *reinterpret_cast<const float4*>(col[j] + k);
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       const float4 x = *reinterpret_cast<const float4*>(xs + b * ldx + k);
@@ -175,7 +195,7 @@ __device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, cons
     for (int b = 0; b < NB; ++b) {
       const float x = xs[b * ldx + k];
 #pragma unroll
-      for (int j = 0; j < CPW; ++j) acc[j][b] = fmaf(x, Wt[(size_t)(c0 + j) * K + k], acc[j][b]);
+      for (int j = 0; j < CPW; ++j) acc[j][b] = fmaf(x, col[j][k], acc[j][b]);
     }
   }
 #pragma unroll
@@ -189,19 +209,19 @@ __device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, cons
     for (int j = 0; j < CPW; ++j)
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        if (b < nb) {
+        if (b < nb && c0 + j < NC) {
           if (lgw == 0)
-            res[(b << lg) + c0 + j] = acc[j][b];
+            res[b * NC + c0 + j] = acc[j][b];
           else
-            red[((part * NB + b) << lg) + c0 + j] = acc[j][b];
+            red[(part * NB + b) * NC + c0 + j] = acc[j][b];
         }
   }
   __syncthreads();
   if (lgw > 0) {
     const int t = threadIdx.x;
-    if (t < (nb << lg)) {
+    if (t < nb * NC) {
       float s = 0.f;
-      for (int i = 0; i < (1 << lgw); ++i) s += red[((i * NB) << lg) + t];
+      for (int i = 0; i < (1 << lgw); ++i) s += red[i * NB * NC + t];
       res[t] = s;
     }
     __syncthreads();
@@ -209,27 +229,30 @@ __device__ __forceinline__ void matvec_nb(const float* xs, int ldx, int nb, cons
 }
 
 // the same for nb <= kStage rows, in passes of up to kChunk rows
-// (NC <= 2 * kWarps)
+template <int CPW>
 __device__ __forceinline__ void matvec(const float* xs, int ldx, int nb, const float* Wt, int NC,
-                                    int K, float* red, float* res) {
+                                       int K, float* red, float* res) {
   for (int p0 = 0; p0 < nb; p0 += kChunk) {
     const int n = min(kChunk, nb - p0);
     const float* x = xs + p0 * ldx;
     float* r = res + p0 * NC;
-    if (NC > kWarps) {
-      if (n == 1)
-        matvec_nb<1, 2>(x, ldx, 1, Wt, NC, K, red, r);
-      else
-        matvec_nb<kChunk, 2>(x, ldx, n, Wt, NC, K, red, r);
-    } else {
-      if (n == 1)
-        matvec_nb<1, 1>(x, ldx, 1, Wt, NC, K, red, r);
-      else
-        matvec_nb<kChunk, 1>(x, ldx, n, Wt, NC, K, red, r);
-    }
+    if (n == 1)
+      matvec_nb<1, CPW>(x, ldx, 1, Wt, NC, K, red, r);
+    else
+      matvec_nb<kChunk, CPW>(x, ldx, n, Wt, NC, K, red, r);
   }
 }
 
+// NC a power of two <= 2 * kWarps (the prenet and projection columns)
+__device__ __forceinline__ void matvec_pow2(const float* xs, int ldx, int nb, const float* Wt, int NC,
+                                            int K, float* red, float* res) {
+  if (NC > kWarps)
+    matvec<2>(xs, ldx, nb, Wt, NC, K, red, res);
+  else
+    matvec<1>(xs, ldx, nb, Wt, NC, K, red, res);
+}
+
+template <int U>
 __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
     const float* __restrict__ g1c,      // [B, L, 4H]
     const float* __restrict__ g2c,      // [B, L, 4H]
@@ -244,26 +267,28 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
     float* __restrict__ out,            // [B, L, D]
     word* exchange,                     // 2 parities x [h1 | h2, mel, p1, p], zeroed
     Dims d) {
+  constexpr int NC = 4 * U;                           // gate columns of the CTA
+  constexpr int CPW = (NC + kWarps - 1) / kWarps;     // of them per warp
   extern __shared__ __align__(16) float sm[];
-  const int B = d.B, L = d.L, H = d.H, P = d.P, D = d.D, G = d.G, U = d.U;
-  const int PK = d.PK, DK = d.DK, NC = 4 * U, H2 = 2 * H, H4 = 4 * H;
-  const int lgU = log2i(U), lgNC = lgU + 2, lgPK = log2i(PK), lgDK = log2i(DK);
+  const int B = d.B, L = d.L, H = d.H, P = d.P, D = d.D, G = d.G, S = d.S;
+  const int PK = d.PK, DK = d.DK, H2 = 2 * H, H4 = 4 * H;
+  const int lgPK = log2i(PK), lgDK = log2i(DK);
   const int cta = blockIdx.x, tid = threadIdx.x, j0 = cta * U;
 
   // shared memory: the staged vector and the sums, gate partial sums and
   // cell states, then the resident weights, column by column
-  float* xs = sm;                                    // [kStage][max(2H, P, D)]
-  float* red = xs + kStage * max3(H2, P, D);         // [kWarps * kChunk] partial sums
-  float* res = red + kWarps * kChunk;                // [kStage][max(NC, PK, DK)]
-  float* Rs = res + kStage * max3(NC, PK, DK);       // [B][2][NC] gate sums, layer 1 | layer 2
-  float* Cs = Rs + kRows * 2 * NC;                   // [B][2][U]  cell states
-  float* WD = Cs + kRows * 2 * U;                    // [2NC][P]: w1m | w2m rows of p, own gate columns
-  float* WE = WD + 2 * NC * P;                       // [2NC][H]: w2m rows of h1' | w1m rows of h1
-  float* W2h = WE + 2 * NC * H;                      // [NC][H]:  w2m rows of h2
-  float* F1 = W2h + NC * H;                          // [PK][D] prenet 1 columns cta + c * G
-  float* F2 = F1 + PK * D;                           // [PK][P] prenet 2 columns
-  float* WP = F2 + PK * P;                           // [DK][2H] projection columns cta + c * G
-  float* BPs = WP + DK * H2;                         // [DK]
+  float* xs = sm;                                          // [S][max(2H, P, D)]
+  float* red = xs + pad4((size_t)S * max3(H2, P, D));      // [kWarps * kChunk] partial sums
+  float* res = red + kWarps * kChunk;                      // [S][max(NC, PK, DK)]
+  float* Rs = res + pad4((size_t)S * max3(NC, PK, DK));    // [B][2][NC] gate sums, layer 1 | layer 2
+  float* Cs = Rs + (size_t)B * 2 * NC;                     // [B][2][U]  cell states
+  float* WD = Cs + pad4((size_t)B * 2 * U);                // [2NC][P]: w1m | w2m rows of p, own gate columns
+  float* WE = WD + 2 * NC * P;                             // [2NC][H]: w2m rows of h1' | w1m rows of h1
+  float* W2h = WE + 2 * NC * H;                            // [NC][H]:  w2m rows of h2
+  float* F1 = W2h + NC * H;                                // [PK][D] prenet 1 columns cta + c * G
+  float* F2 = F1 + PK * D;                                 // [PK][P] prenet 2 columns
+  float* WP = F2 + PK * P;                                 // [DK][2H] projection columns cta + c * G
+  float* BPs = WP + DK * H2;                               // [DK]
 
   // exchange of parity q: [B][2H] h1 | h2, [B][D] mel, [B][P] p1, [B][P] p
   const size_t per_parity = (size_t)B * (H2 + D + 2 * P);
@@ -272,14 +297,15 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
   auto p1x = [&](int q) { return melx(q) + (size_t)B * D; };
   auto px = [&](int q) { return p1x(q) + (size_t)B * P; };
 
-  // local gate column c = gate * U + u is global column gate * H + j0 + u
-  auto gcol = [&](int c) { return (c >> lgU) * H + j0 + (c & (U - 1)); };
-  auto own = [&](int c) { return j0 + (c & (U - 1)) < H; };
+  // local gate column c = gate * U + u is global column gate * H + j0 + u;
+  // the last CTA's units past H are empty
+  auto gcol = [&](int c) { return (c / U) * H + j0 + c % U; };
+  auto own = [&](int c) { return j0 + c % U < H; };
 
   // one-time weight load: dst[c][r] = src[r0 + r][gate column c] for r < K
   auto load_gates = [&](float* dst, const float* src, int r0, int K) {
     for (int i = tid; i < K * NC; i += kThreads) {
-      const int r = i >> lgNC, c = i & (NC - 1);
+      const int r = i / NC, c = i % NC;
       dst[c * K + r] = own(c) ? src[(size_t)(r0 + r) * H4 + gcol(c)] : 0.f;
     }
   };
@@ -301,7 +327,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
   for (int c = tid; c < DK; c += kThreads) BPs[c] = cta + c * G < D ? bp[cta + c * G] : 0.f;
   // frame 0 starts from zero state: its gate sums are the conditioning gates
   for (int i = tid; i < B * NC; i += kThreads) {
-    const int b = i >> lgNC, c = i & (NC - 1);
+    const int b = i / NC, c = i % NC;
     const size_t g = (size_t)b * L * H4 + gcol(c);
     Rs[(b * 2 + 0) * NC + c] = own(c) ? g1c[g] : 0.f;
     Rs[(b * 2 + 1) * NC + c] = own(c) ? g2c[g] : 0.f;
@@ -312,11 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
   // A: mel_{t-1} = [h1, h2] @ Wp + b from frame t-1's h (tag t), published
   // for frame t; then R2 = g2c_t + h2 @ Wh2
   auto project = [&](int t) {
-    for (int b0 = 0; b0 < B; b0 += kStage) {
-      const int nb = min(kStage, B - b0);
+    for (int b0 = 0; b0 < B; b0 += S) {
+      const int nb = min(S, B - b0);
       gather(xs, hx((t - 1) & 1), H2, b0, nb, H2, t);
       if (cta < D) {
-        matvec(xs, H2, nb, WP, DK, H2, red, res);
+        matvec_pow2(xs, H2, nb, WP, DK, H2, red, res);
         if (tid < (nb << lgDK)) {
           const int bl = tid >> lgDK, c = tid & (DK - 1), col = cta + c * G;
           if (col < D) {
@@ -327,19 +353,19 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
         }
       }
       if (t == L) continue;
-      const int b = b0 + (tid >> lgNC), c = tid & (NC - 1);
-      const bool mine = tid < (nb << lgNC);
+      const int b = b0 + tid / NC, c = tid % NC;
+      const bool mine = tid < nb * NC;
       const float cond = mine && own(c) ? g2c[((size_t)b * L + t) * H4 + gcol(c)] : 0.f;
       __syncthreads();  // res is read above
-      matvec(xs + H, H2, nb, W2h, NC, H, red, res);
+      matvec<CPW>(xs + H, H2, nb, W2h, NC, H, red, res);
       if (mine) Rs[(b * 2 + 1) * NC + c] = cond + res[tid];
     }
   };
 
   // B, C: relu(x @ F) * keep_t * s for own prenet columns (x = 0 without src)
   auto prenet = [&](int t, const word* src, int K, const float* F, const uint8_t* keep, word* dst) {
-    for (int b0 = 0; b0 < B; b0 += kStage) {
-      const int nb = min(kStage, B - b0);
+    for (int b0 = 0; b0 < B; b0 += S) {
+      const int nb = min(S, B - b0);
       const int bl = tid >> lgPK, col = cta + (tid & (PK - 1)) * G;
       const bool mine = tid < (nb << lgPK) && col < P;
       const size_t at = (size_t)(b0 + bl) * P + col;
@@ -350,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
         for (int i = tid; i < nb * K; i += kThreads) xs[i] = 0.f;
         __syncthreads();
       }
-      matvec(xs, K, nb, F, PK, K, red, res);
+      matvec_pow2(xs, K, nb, F, PK, K, red, res);
       if (mine) publish(dst + at, kept ? fmaxf(res[tid], 0.f) * d.scale : 0.f, t + 1);
     }
   };
@@ -360,20 +386,20 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
   // x, the other layer's partial sums x @ W[NC:]: D: R2 += p @ W2p,
   // E: R1 = g1c_{t+1} + h1' @ Wh1.
   auto lstm = [&](int t, const word* src, int ld, int K, const float* W, int layer) {
-    for (int b0 = 0; b0 < B; b0 += kStage) {
-      const int nb = min(kStage, B - b0);
-      const int b = b0 + (tid >> lgNC), c = tid & (NC - 1);
-      const bool mine = tid < (nb << lgNC);
+    for (int b0 = 0; b0 < B; b0 += S) {
+      const int nb = min(S, B - b0);
+      const int b = b0 + tid / NC, c = tid % NC;
+      const bool mine = tid < nb * NC;
       const bool next = layer == 1 && t + 1 < L;
       const float cond = mine && next && own(c) ? g1c[((size_t)b * L + t + 1) * H4 + gcol(c)] : 0.f;
       gather(xs, src, ld, b0, nb, K, t + 1);
-      matvec(xs, K, nb, W, NC, K, red, res);
+      matvec<CPW>(xs, K, nb, W, NC, K, red, res);
       if (mine) res[tid] += Rs[(b * 2 + layer) * NC + c];
       __syncthreads();
-      if (tid < (nb << lgU)) {
-        const int bl = tid >> lgU, u = tid & (U - 1), j = j0 + u;
+      if (tid < nb * U) {
+        const int bl = tid / U, u = tid % U, j = j0 + u;
         if (j < H) {
-          const float* g = res + (bl << lgNC);
+          const float* g = res + bl * NC;
           float* cs = Cs + ((b0 + bl) * 2 + layer) * U + u;
           const float cn = sigmoid(g[2 * U + u] + 1.f) * *cs + sigmoid(g[u]) * tanhf(g[U + u]);
           *cs = cn;
@@ -383,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
       }
       if (layer == 1 && !next) continue;
       __syncthreads();
-      matvec(xs, K, nb, W + NC * K, NC, K, red, res);
+      matvec<CPW>(xs, K, nb, W + NC * K, NC, K, red, res);
       if (mine) {
         float* other = Rs + (b * 2 + 1 - layer) * NC + c;
         *other = (layer == 0 ? *other : cond) + res[tid];
@@ -404,36 +430,86 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_grid(
   project(L);
 }
 
+typedef void (*Kernel)(const float*, const float*, const uint8_t*, const uint8_t*, const float*,
+                       const float*, const float*, const float*, const float*, const float*, float*,
+                       word*, Dims);
+
+Kernel kernel_for(int U) {
+  switch (U) {
+    case 1: return ar_decode_grid<1>;
+    case 2: return ar_decode_grid<2>;
+    case 3: return ar_decode_grid<3>;
+    case 4: return ar_decode_grid<4>;
+    case 5: return ar_decode_grid<5>;
+    case 6: return ar_decode_grid<6>;
+    default: return nullptr;
+  }
+}
+
+bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+
+// The plan's shapes as the kernel takes them: a grid that covers H with
+// its last CTA non-empty, per-CTA counts it is instantiated for, one
+// output per thread for S staged rows, and the shared memory the plan
+// claims.
+bool valid_plan(int B, int H, int P, int D, int G, int U, int PK, int DK, int S, int R, int smem_bytes) {
+  return B >= 1 && B <= R && R <= kRows && S >= 1 && S <= kStage && S <= R && G * U >= H &&
+         (G - 1) * U < H && U >= 1 && U <= kMaxUnits && pow2(PK) && pow2(DK) &&
+         PK <= 2 * kWarps && DK <= 2 * kWarps && S * max3(4 * U, PK, DK) <= kThreads &&
+         (size_t)smem_bytes == sizeof(float) * smem_floats(H, P, D, U, PK, DK, S, R);
+}
+
 }  // namespace
 
+// Opt the kernel for plan (G, U, ..., R) in to the largest dynamic shared
+// memory of the current device and check that G CTAs of smem_bytes can be
+// co-resident.  Call it once per device and plan, outside any stream
+// capture, before viettts_ar_decode launches that plan.
+extern "C" int viettts_ar_decode_prepare(int H, int P, int D, int G, int U, int PK, int DK, int S,
+                                         int R, int smem_bytes) {
+  if (!valid_plan(1, H, P, D, G, U, PK, DK, S, R, smem_bytes)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(U);
+  int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (smem_bytes > optin) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  // the CTAs spin on each other's results: all must be resident; refuse, never shrink
+  if (per_sm * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return 0;
+}
+
+// One cooperative launch of a prepared plan on `stream`; under stream
+// capture it becomes a cooperative kernel node.  B <= R rows.
 extern "C" int viettts_ar_decode(const void* g1c, const void* g2c, const void* keep1,
                                  const void* keep2, const void* w_fc1, const void* w_fc2,
                                  const void* w1m, const void* w2m, const void* wp,
                                  const void* bp, void* out, void* exchange, int B, int L, int H,
-                                 int P, int D, int G, int U, int PK, int DK, int smem_bytes,
-                                 float scale, void* stream) {
-  const size_t smem = sizeof(float) * smem_floats(H, P, D, U, PK, DK);
-  if ((size_t)smem_bytes != smem || B < 1 || B > kRows || L < 1 || G * U < H ||
-      (G - 1) * U >= H || 4 * U > 2 * kWarps || PK > 2 * kWarps || DK > 2 * kWarps ||
-      (U & (U - 1)) || (PK & (PK - 1)) || (DK & (DK - 1)))
+                                 int P, int D, int G, int U, int PK, int DK, int S, int R,
+                                 int smem_bytes, float scale, void* stream) {
+  if (L < 1 || !valid_plan(B, H, P, D, G, U, PK, DK, S, R, smem_bytes))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ar_decode_grid,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ar_decode_grid, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  // the CTAs spin on each other's results: all must be resident; refuse, never shrink
-  if (per_sm * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
-  Dims d{B, L, H, P, D, G, U, PK, DK, scale};
+  Dims d{B, L, H, P, D, G, PK, DK, S, scale};
   void* args[] = {&g1c, &g2c, &keep1, &keep2, &w_fc1, &w_fc2, &w1m, &w2m, &wp, &bp, &out,
                   &exchange, &d};
-  err = cudaLaunchCooperativeKernel((const void*)ar_decode_grid, dim3(G), dim3(kThreads), args,
-                                    smem, static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(G);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = (size_t)smem_bytes;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelExC(&config, (const void*)kernel_for(U), args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -47,10 +47,10 @@ namespace {
 
 using viettts::Bf16Mma;
 using viettts::ConvArgs;
-using viettts::fit_smem;
 using viettts::launch_mma_conv;
 using viettts::launch_tile;
 using viettts::lrelu;
+using viettts::opt_in_smem_once;
 using viettts::pick_tile;
 using viettts::Tf32Mma;
 using viettts::to_f;
@@ -142,7 +142,8 @@ int launch_post(const void* x, const void* w, const void* bias, void* out, int B
   if (Cp > MAX_CP) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)(PT + k - 1) * (PK + 1) + (size_t)k * PK * Cp);
-  cudaError_t err = fit_smem(post_kernel<TW>, smem);
+  static std::atomic<int> opted_on[viettts::MAX_DEVICES];
+  const cudaError_t err = opt_in_smem_once(post_kernel<TW>, opted_on);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + PT - 1) / PT, B);
   post_kernel<TW><<<grid, PT, smem, s>>>(static_cast<const float*>(x),

@@ -46,12 +46,6 @@ __device__ __forceinline__ float lrelu(float v, float slope) { return v > 0.f ? 
 
 constexpr float INV127 = (float)(1.0 / 127.0);  // the f32 constant JAX uses
 
-template <typename K>
-cudaError_t fit_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // Host-side results kept per CUDA device: function attributes and device
 // properties belong to one device, and a process may launch on several.
 constexpr int MAX_DEVICES = 64;
@@ -75,7 +69,8 @@ cudaError_t opt_in_smem(K kernel, int dev) {
 }
 
 // opt_in_smem once per device instead of an API call per launch (a stage
-// launches 18 convs); a launch that needs more is refused.  ``state`` is
+// launches 18 convs), so that the launches a CUDA graph captures make no
+// other API call; a launch that needs more is refused.  ``state`` is
 // the kernel's own array of MAX_DEVICES flags (0: not yet, else error + 1),
 // a static of the launcher instantiated for that kernel: kernels of one
 // signature share a function-pointer type, so a static in here would be

@@ -40,8 +40,10 @@ LL = ctypes.c_longlong
 # holds the two in step); all return a cudaError_t as int but those in RESTYPES
 SIGNATURES = {
     # g1c, g2c, keep1, keep2, w_fc1, w_fc2, w1m, w2m, wp, bp, out, exchange,
-    # B, L, H, P, D, ctas, units, prenet_cols, proj_cols, smem_bytes, scale, stream
-    "viettts_ar_decode": [P] * 12 + [I] * 10 + [F, P],
+    # B, L, H, P, D, ctas, units, prenet_cols, proj_cols, stage, rows, smem_bytes, scale, stream
+    "viettts_ar_decode": [P] * 12 + [I] * 12 + [F, P],
+    # H, P, D, ctas, units, prenet_cols, proj_cols, stage, rows, smem_bytes
+    "viettts_ar_decode_prepare": [I] * 10,
     # w_bf16, x, w (bf16, or float32 TF32 hi/lo), bias, y,
     # B, L_in, C_in, C_out, k, u, pad_a, tile (-1: by shape), stream
     "viettts_mrf_convt_mma": [I, P, P, P, P] + [I] * 8 + [P],

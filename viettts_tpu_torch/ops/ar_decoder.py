@@ -18,12 +18,18 @@ launches and ``ar_decode.plain_calls`` counts calls of the twin.
 The kernel is one persistent launch over a grid of co-resident CTAs, each
 holding the float32 gate columns of its hidden units in shared memory for
 the whole decode; ``plan_decode`` sizes that grid (the wrapper and the CPU
-tests both call it) and refuses shapes whose slice does not fit.
+tests both call it) for the card's SM count and the launch's rows, and
+refuses shapes whose slice does not fit.  The launch is cooperative and
+capturable: inside a CUDA graph it becomes a cooperative kernel node,
+after one launch of the same plan outside the capture has opted the kernel
+in to its shared memory and checked its occupancy on the device.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -57,19 +63,22 @@ def ar_decode_plain(
 
 
 THREADS = 256  # per CTA; csrc/ar_decoder.cu kThreads
-STAGE_ROWS = 16  # batch rows staged at once; kStage
+STAGE_ROWS = 16  # batch rows staged at once, at most; kStage
 BATCH_CHUNK = 8  # batch rows summed per matrix-vector pass; kChunk
-MAX_COLS = 2 * THREADS // 32  # columns of one CTA's matrix-vector product (2 per warp)
 MAX_ROWS = 64  # batch rows per launch; kRows (larger batches take several launches)
+MAX_UNITS = 6  # hidden units per CTA the kernel is instantiated for; kMaxUnits
+MAX_COLS = 2 * THREADS // 32  # prenet / projection columns of a CTA (2 per warp)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on sm_90 (227 KB)
 
 
 @dataclass(frozen=True)
 class DecodePlan:
     ctas: int  # grid size, at most one CTA per SM
-    units: int  # hidden units per CTA (all 4 gate columns of each, both layers)
+    units: int  # hidden units per CTA (all 4 gate columns of each, both layers); the last CTA may hold fewer
     prenet_cols: int  # prenet output columns per CTA (cta + i * ctas)
     proj_cols: int  # mel projection columns per CTA (cta + i * ctas)
+    stage: int  # batch rows staged at once
+    rows: int  # batch rows of the launch: its gate sums and cell states
     smem_bytes: int  # dynamic shared memory per CTA
 
 
@@ -77,36 +86,56 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def plan_decode(H: int, P: int, D: int, num_sms: int) -> DecodePlan:
-    """Grid of the decode kernel: the fewest hidden units per CTA (a power
-    of two) that keeps the grid within ``num_sms`` CTAs, the prenet and
-    projection columns spread the same way, and the shared memory that
-    holds it all (as ``smem_floats`` in ``csrc/ar_decoder.cu`` counts it).
-    Raises ValueError when a CTA's slice does not fit ``SMEM_LIMIT``."""
-    units = _pow2(-(-H // num_sms))
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def smem_floats(H: int, P: int, D: int, U: int, PK: int, DK: int, S: int, R: int) -> int:
+    """``smem_floats`` of ``csrc/ar_decoder.cu``: the floats of dynamic
+    shared memory a CTA of the plan (U, PK, DK, S, R) uses."""
+    nc, ncm = 4 * U, max(4 * U, PK, DK)
+    return (
+        _pad4(S * max(2 * H, P, D)) + THREADS // 32 * BATCH_CHUNK + _pad4(S * ncm)
+        + R * 2 * nc + _pad4(R * 2 * U)
+        + (2 * P + 3 * H) * nc + (D + P) * PK + (2 * H + 1) * DK
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode(H: int, P: int, D: int, num_sms: int, rows: int = MAX_ROWS) -> DecodePlan:
+    """Grid of the decode kernel for ``rows`` batch rows on ``num_sms`` SMs:
+    the fewest hidden units per CTA that keeps the grid within ``num_sms``
+    CTAs (the last CTA takes what is left), the prenet and projection
+    columns spread the same way (powers of two), and the most staged rows
+    (16, 8, 4, 2 or 1, one output per thread) whose shared memory, as
+    ``smem_floats`` counts it, fits ``SMEM_LIMIT``.  Raises ValueError,
+    naming the SM count, when no such plan exists."""
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"ar_decode kernel: {rows} rows per launch, want 1..{MAX_ROWS}")
+    units = -(-H // num_sms)
     ctas = -(-H // units)
     prenet_cols, proj_cols = _pow2(-(-P // ctas)), _pow2(-(-D // ctas))
-    nc = 4 * units
-    ncm = max(nc, prenet_cols, proj_cols)
-    floats = (
-        STAGE_ROWS * max(2 * H, P, D) + THREADS // 32 * BATCH_CHUNK + STAGE_ROWS * ncm
-        + MAX_ROWS * (2 * nc + 2 * units)
-        + (2 * P + 3 * H) * nc + (D + P) * prenet_cols + (2 * H + 1) * proj_cols
-    )
-    smem = 4 * floats
-    if smem > SMEM_LIMIT:
+    ncm = max(4 * units, prenet_cols, proj_cols)
+    smem = None
+    for stage in sorted({min(s, rows) for s in (STAGE_ROWS, 8, 4, 2, 1)}, reverse=True):
+        if stage * ncm > THREADS:
+            continue
+        smem = 4 * smem_floats(H, P, D, units, prenet_cols, proj_cols, stage, rows)
+        if smem <= SMEM_LIMIT:
+            break
+    if smem is None or smem > SMEM_LIMIT:
         raise ValueError(
-            f"ar_decode kernel: H={H}, P={P}, D={D} needs {smem} bytes of shared memory per CTA "
-            f"({ctas} CTAs of {units} hidden units, whose float32 gate columns of both LSTM layers "
-            f"stay resident), above the {SMEM_LIMIT} bytes a block can use"
+            f"ar_decode kernel: H={H}, P={P}, D={D} on {num_sms} SMs needs {smem} bytes of shared memory "
+            f"per CTA ({ctas} CTAs of {units} hidden units, whose float32 gate columns of both LSTM layers "
+            f"stay resident, {rows} rows), above the {SMEM_LIMIT} bytes a block can use"
         )
-    if max(4 * units, prenet_cols, proj_cols) > MAX_COLS:
+    if units > MAX_UNITS or max(prenet_cols, proj_cols) > MAX_COLS:
         raise ValueError(
-            f"ar_decode kernel: H={H}, P={P}, D={D} over {num_sms} SMs needs {units} hidden units, "
+            f"ar_decode kernel: H={H}, P={P}, D={D} on {num_sms} SMs needs {units} hidden units, "
             f"{prenet_cols} prenet and {proj_cols} projection columns per CTA; at most "
-            f"{MAX_COLS // 4}, {MAX_COLS} and {MAX_COLS} fit its resident-weight layout"
+            f"{MAX_UNITS}, {MAX_COLS} and {MAX_COLS} fit its resident-weight layout"
         )
-    return DecodePlan(ctas, units, prenet_cols, proj_cols, smem)
+    return DecodePlan(ctas, units, prenet_cols, proj_cols, stage, rows, smem)
 
 
 def _check(g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bias):
@@ -137,6 +166,31 @@ def _check(g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bia
     return B, L, H, P, D
 
 
+# (device index, H, P, D, plan) prepared in this process: the opt-in is the
+# kernel's function attribute on that device, which lasts as long as the process
+_prepared = set()
+
+
+def _prepare(lib, device: torch.device, H: int, P: int, D: int, plan: DecodePlan) -> None:
+    """Opt the kernel of ``plan`` in to its shared memory on ``device`` and
+    check that its grid is co-resident, once per device and plan, never
+    inside a stream capture (the first launch outside one prepares it)."""
+    key = (device.index, H, P, D, plan)
+    if key in _prepared:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"ar_decode: the plan {plan} was never launched on {device} outside a CUDA graph capture; "
+            "launch it once eagerly before capturing"
+        )
+    _build.check(
+        lib.viettts_ar_decode_prepare(H, P, D, plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols,
+                                      plan.stage, plan.rows, plan.smem_bytes),
+        "ar_decode prepare",
+    )
+    _prepared.add(key)
+
+
 def ar_decode(
     g1c: torch.Tensor,  # [B, L, 4H] f32 conditioning gates, layer 1
     g2c: torch.Tensor,  # [B, L, 4H] f32 conditioning gates, layer 2
@@ -149,32 +203,43 @@ def ar_decode(
     proj_kernel: torch.Tensor,  # [2H, D]
     proj_bias: torch.Tensor,  # [D]
     dropout_scale: float,
+    num_sms: Optional[int] = None,
 ) -> torch.Tensor:
-    """Run the AR decode; returns mel frames [B, L, D] (pre-postnet)."""
+    """Run the AR decode; returns mel frames [B, L, D] (pre-postnet).
+
+    On CUDA the grid is planned for the card's SM count, or for
+    ``num_sms`` when given (at most the card's: a smaller card's plan,
+    still one co-resident cooperative launch).  Each launch zeroes its
+    exchange buffer on the stream, so a CUDA graph that captures it starts
+    every replay from frame tag 0."""
     args = (g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bias)
     B, L, H, P, D = _check(*args)
     if g1c.device.type == "cpu":
         return ar_decode_plain(*args, dropout_scale)
     if g1c.device.type != "cuda":
         raise ValueError(f"ar_decode: no kernel for device {g1c.device}")
-    plan = plan_decode(H, P, D, torch.cuda.get_device_properties(g1c.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(g1c.device).multi_processor_count
+    if num_sms is not None and not 1 <= num_sms <= sms:
+        raise ValueError(f"ar_decode: num_sms={num_sms}, the card has {sms}")
     out = torch.empty(B, L, D, dtype=torch.float32, device=g1c.device)
     lib = _build.load_library()
     for b0 in range(0, B if L else 0, MAX_ROWS):
         rows = slice(b0, min(b0 + MAX_ROWS, B))
         n = rows.stop - b0
+        plan = plan_decode(H, P, D, num_sms or sms, n)
         part = out if n == B else torch.empty(n, L, D, dtype=torch.float32, device=g1c.device)
         sliced = [t[rows] for t in args[:2]] + [t[:, rows].contiguous() for t in args[2:4]]
-        # exchange words (float | frame tag), two frame parities of
-        # [h1 | h2, mel, p1, p]; zeroed: tag 0 is no frame
-        exchange = torch.zeros(2 * 2 * n * (2 * H + D + 2 * P), dtype=torch.float32, device=g1c.device)
-        ar_decode.launches += 1
         with torch.cuda.device(g1c.device):
+            _prepare(lib, g1c.device, H, P, D, plan)
+            # exchange words (float | frame tag), two frame parities of
+            # [h1 | h2, mel, p1, p]; zeroed: tag 0 is no frame
+            exchange = torch.zeros(2 * 2 * n * (2 * H + D + 2 * P), dtype=torch.float32, device=g1c.device)
+            ar_decode.launches += 1
             _build.check(
                 lib.viettts_ar_decode(
                     *(t.data_ptr() for t in sliced + list(args[4:])), part.data_ptr(), exchange.data_ptr(),
                     n, L, H, P, D, plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols,
-                    plan.smem_bytes, float(dropout_scale), _build.stream_ptr(g1c.device),
+                    plan.stage, plan.rows, plan.smem_bytes, float(dropout_scale), _build.stream_ptr(g1c.device),
                 ),
                 "ar_decode",
             )

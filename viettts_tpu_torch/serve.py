@@ -17,6 +17,11 @@ Two layers, separable for testing and embedding:
     GET  /stats       -> request/batch counters, latency percentiles and, on
                       the calibrated int8 route, int8_max_clip_fraction
 
+A batch of one short text and a stream's chunk 0 take the Synthesizer's
+single-dispatch lead program: on CUDA one graph replay per request,
+captured by ``--warmup`` (or at a token bucket's first use, inside the
+first request that reaches it).
+
 One fault of the reference is not copied: its sampled int8 clip probe
 fires on the very first batch (``n_batches % every == 0`` at
 ``n_batches == 0``); the port's fires on every ``every``-th batch,
@@ -461,8 +466,8 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     p.add_argument("--num-devices", type=int, default=1,
                    help="shard each batch over cuda:0 .. cuda:N-1, one replica each")
     p.add_argument("--warmup", action="store_true",
-                   help="calibrate the int8 route and run every token bucket "
-                        "once before listening")
+                   help="calibrate the int8 route, run every token bucket once "
+                        "and capture the lead program's graphs before listening")
     p.add_argument("--int8-probe-every", type=int, default=200,
                    help="every N batches, probe one served mel for the int8 "
                         "clip rate (0 disables); see /stats int8_max_clip_fraction")

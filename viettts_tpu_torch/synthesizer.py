@@ -7,7 +7,9 @@ Usage:
     python -m viettts_tpu_torch.synthesizer --text-file lines.txt --output-dir out/
 
 There is no device fallback: ``--device cuda`` (the default) fails when no
-GPU is available.
+GPU is available.  A text of at most 64 tokens, and a stream's chunk 0,
+take the Synthesizer's single-dispatch lead program (on CUDA a graph,
+captured at its first use in the run).
 """
 
 from __future__ import annotations
