@@ -121,7 +121,22 @@
    checkpoint (K3 within the simulation's fault bar), and
    ``tools.validate_e2e_training`` at ``--tiny`` widths, each with the
    launch counters zeroed and read (K2; K2 and K3; K2 and K3; K1 and K2).
-8. A JSON line of per-kernel results, then the last line
+8. The port's benchmark programs (``viettts_tpu_torch/bench``) and F6 on
+   the card: (a) ``snap_check``: after ``warmup(token_buckets=(64,))``
+   (frame buckets 256 and 512), ``SENTENCE`` on the bucketed path with
+   durations pinned to 300 frames (natural bucket 384) must decode the
+   warmed 512, as JAX's dispatch snaps, and pinned to 600 frames (no
+   warmed bucket holds it within 2x) its own 640, which joins the set, the
+   frame counts read off the acoustic model's calls; (b) ``bench_phase``:
+   each program's ``run()`` with PyTorch's TF32 defaults (as ``python -m``
+   runs them), its JSON line printed and its launches counted (each must
+   launch its kernels and no twin; K1, K2 and K3 all launch): ``e2e`` at
+   ``bench.py``'s shapes (1 warm-up, 3 timed runs), ``batch`` at B=64 (1
+   warm-up, 2 timed runs), ``train`` (1 warm-up and 1 timed update of 4
+   steps; 1 warm-up and 2 timed GAN steps a precision), ``vocoder_batch``
+   at B = 1, 8 and 64 (1 warm-up, 2 timed runs), ``b1_vocoder`` at 1,024
+   frames (1 warm-up, 4 timed runs).
+9. A JSON line of per-kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -2088,6 +2103,113 @@ def validation_tools(tmp: Path, zero, read):
     return {"results": results, "seconds": times}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: F6 on the card, the benchmark programs
+# ---------------------------------------------------------------------------
+
+SNAP_TOKEN_BUCKET = 64  # SENTENCE's token bucket (41 tokens)
+SNAP_CASES = ((300, 512), (600, 640))  # (pinned frames, frames decoded after warmup's 256 and 512)
+BENCH_VOCODER_BATCHES = (1, 8, 64)  # of scripts/tune_vocoder_batch.py's five
+
+
+def snap_check(cfg, ckpt_dir: Path, device="cuda"):
+    """Phase 8a (F6): a bucketed dispatch snaps up to a frame bucket that
+    ``warmup`` ran, at most twice its natural one, as JAX's
+    ``_dispatch_decode`` does (``SNAP_CASES``); the frame count of each
+    decode is read off the acoustic model's call, the audio checked."""
+    import torch
+
+    from viettts_tpu_torch.config import WORD_END_INDEX
+    from viettts_tpu_torch.infer.pipeline import Synthesizer, _bucket_frames
+
+    synth = Synthesizer(cfg.replace(ckpt_dir=ckpt_dir), device=device)
+    synth.warmup(token_buckets=(SNAP_TOKEN_BUCKET,))
+    key = (1, SNAP_TOKEN_BUCKET)
+    warmed = sorted(synth._seen_nf.get(key, ()))
+    if warmed != [256, 512]:
+        raise AssertionError(f"F6: warmup ran frame buckets {warmed} at {key}, want JAX's [256, 512]")
+    synth.single_dispatch_max_tokens = 0
+    seen, decode = [], synth.acoustic_model.inference
+
+    def spy(toks, durs, n_frames, *args, **kwargs):
+        seen.append(n_frames)
+        return decode(toks, durs, n_frames, *args, **kwargs)
+
+    synth.acoustic_model.inference = spy
+    row = synth.text_to_token_ids(SENTENCE)
+    counted = sum(t != WORD_END_INDEX for t in row)  # word ends are zeroed
+    fps = cfg.dsp.sample_rate / cfg.dsp.hop_length
+    out = {"warmed": warmed}
+    for frames, want in SNAP_CASES:
+        synth.duration_model = lambda batch, s=frames / counted / fps, **_: torch.full(
+            batch.phonemes.shape, s, device=batch.phonemes.device)
+        seen.clear()
+        res = synth.synthesize(SENTENCE)
+        check_result(res, f"F6 snap ({frames} frames)")
+        natural = _bucket_frames(frames + 1)
+        out[f"{frames}_frames"] = {"natural": natural, "decoded": list(seen), "kept": int(res.mel.shape[0])}
+        if seen != [want]:
+            raise AssertionError(f"F6: {frames} frames (natural bucket {natural}) decoded {seen}, want [{want}]")
+    if sorted(synth._seen_nf[key]) != [256, 512, 640]:
+        raise AssertionError(f"F6: frame buckets at {key} after the requests: {sorted(synth._seen_nf[key])}")
+    log(f"F6 on the card: warmed {warmed} at (B, T) {key}; " + "; ".join(
+        f"{f} frames (natural {out[f'{f}_frames']['natural']}) decoded {out[f'{f}_frames']['decoded']}"
+        for f, _ in SNAP_CASES))
+    return out
+
+
+@contextlib.contextmanager
+def _torch_defaults():
+    """PyTorch's own TF32 defaults (cuDNN convs in TF32, matmuls in
+    float32), under which ``python -m`` runs the benchmark programs; the
+    flags before are restored."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def bench_phase(zero, read):
+    """Phase 8b: each benchmark program's ``run()`` at its shapes with
+    fewer iterations, its JSON line printed; the launch counters zeroed
+    before and read after each (the programs themselves refuse a twin or
+    a missing kernel on the card).  Returns the results, seconds and
+    launches by program."""
+    from viettts_tpu_torch.bench import b1_vocoder, batch, e2e, train, vocoder_batch
+
+    programs = (
+        ("e2e", lambda: e2e.run(iters=3, warmup=1), ["ar_decode", "fused_mrf"]),
+        ("batch", lambda: batch.run(iters=2, warmup=1), ["ar_decode", "fused_mrf"]),
+        ("train", lambda: train.run(iters=1, warmup=1, gan_steps=2), []),
+        ("vocoder_batch", lambda: vocoder_batch.run(iters=2, warmup=1, batches=BENCH_VOCODER_BATCHES),
+         ["fused_mrf"]),
+        ("b1_vocoder", lambda: b1_vocoder.run(iters=4, warmup=1), ["fused_mrf", "fused_mrf_int8"]),
+    )
+    results, seconds, launches = {}, {}, {}
+    with _torch_defaults():
+        for name, fn, kernels in programs:
+            zero()
+            t0 = time.perf_counter()
+            results[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = read(f"bench {name}", kernels)
+            print(json.dumps(results[name]), flush=True)
+    e, b, t, v, b1 = (results[n] for n, _, _ in programs)
+    log(f"bench e2e: RTF {e['value']:.5f} (vs 0.01 target {e['vs_baseline']:.3f}), stages "
+        + ", ".join(f"{k} {ms:.2f} ms" for k, ms in e["stage_ms"].items())
+        + f"; batch B=64: {b['full_pipeline_audio_secs_per_sec']:.1f} s-audio/s, full {b['full_pipeline_ms']:.1f} ms,"
+        f" vocoder {b['vocoder_ms']:.1f} ms; train: acoustic {t['optimizer_steps_per_sec']:.3f} steps/s, GAN "
+        f"{t['vocoder_gan']['steps_per_sec_f32']:.3f} (f32) / {t['vocoder_gan']['steps_per_sec_bf16']:.3f} (bf16) "
+        f"steps/s; vocoder " + ", ".join(f"B={r['batch']} {r['route']} {r['ms']:.2f} ms" for r in v["rows"])
+        + "; B=1 " + ", ".join(f"{k} {r['ms']:.2f} ms" for k, r in b1["routes"].items())
+        + "; seconds " + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
+    return {"results": results, "seconds": seconds}, launches
+
+
 def main() -> int:
     import torch
 
@@ -2170,6 +2292,11 @@ def main() -> int:
         multi["tools"] = tools_on_card(cfg, tmp)
         multi["dryrun"] = multihost_dryrun(tmp)
         validation, launches_validation = validation_tools(tmp, zero_counts, read_counts)
+        t0 = time.perf_counter()
+        snap = snap_check(cfg, tmp)
+        bench, launches_bench = bench_phase(zero_counts, read_counts)
+        bench["phase_seconds"] = time.perf_counter() - t0
+        log(f"phase 8 (F6 and the benchmark programs): {bench['phase_seconds']:.1f} s")
 
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -2196,6 +2323,7 @@ def main() -> int:
          "launches_replicated": launches_replicated["ar_decode"],
          "launches_validation": {tool: n["ar_decode"] for tool, n in launches_validation.items()},
          "launches_lead": {route: n["ar_decode"] for route, n in launches_lead.items()},
+         "launches_bench": {name: n["ar_decode"] for name, n in launches_bench.items()},
          "max_abs_err": max(k1_err, k1_plan_err), "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the fed-back decode",
@@ -2208,6 +2336,7 @@ def main() -> int:
          "launches_replicated": launches_replicated["fused_mrf"],
          "launches_validation": {tool: n["fused_mrf"] for tool, n in launches_validation.items()},
          "launches_lead": {route: n["fused_mrf"] for route, n in launches_lead.items()},
+         "launches_bench": {name: n["fused_mrf"] for name, n in launches_bench.items()},
          "max_abs_err": k2_err[f32], "max_abs_err_bf16": k2_err[bf16],
          "max_rel_rms_vs_bf16_dots_twin": k2_err["bf16_dots_rel_rms"],
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
@@ -2226,6 +2355,7 @@ def main() -> int:
          "launches_replicated": launches_replicated["fused_mrf_int8"],
          "launches_validation": {tool: n["fused_mrf_int8"] for tool, n in launches_validation.items()},
          "launches_lead": launches_lead["int8"]["fused_mrf_int8"],
+         "launches_bench": {name: n["fused_mrf_int8"] for name, n in launches_bench.items()},
          "max_abs_err": k3["max_abs_err"], "rel_rms": k3["rel_rms"],
          "first_conv_code_flips": k3["code_flips"], "first_conv_codes": k3["codes"],
          "ms": k3_sum("ms"), "plain_ms": k3_sum("plain_ms"),
@@ -2245,7 +2375,8 @@ def main() -> int:
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train,
-                    "multi_device": multi, "validation": validation}))
+                    "multi_device": multi, "validation": validation, "snap": snap,
+                    "bench_seconds": bench["seconds"], "phase8_seconds": bench["phase_seconds"]}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

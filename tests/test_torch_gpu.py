@@ -451,9 +451,10 @@ def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
     """``Synthesizer(devices=["cuda:0", "cuda:0"])`` at the default width on
     seeded weights, float32 route (``chip_smoke.replicated_serving``):
     mels and waves within 1e-4 of one device; K1 and K2 launch for both
-    replicas (warmup and one batch: 4 decodes, 4 vocoders of 4 stages)
-    and for the lead program that warmup captures on the first device
-    (its eager run and one replay: 2 decodes, 2 vocoders), no plain twin."""
+    replicas (warmup's two frame buckets and one batch: 6 decodes, 6
+    vocoders of 4 stages) and for the lead program that warmup captures on
+    the first device (its eager run and one replay: 2 decodes, 2
+    vocoders), no plain twin."""
     import chip_smoke
     from viettts_tpu_torch.config import Config
 
@@ -467,7 +468,7 @@ def test_two_replicas_on_one_card_match_one_device(cuda, tmp_path):
     out, counts = chip_smoke.replicated_serving(
         cfg, tmp_path, routes=("float32",), zero=zero,
         read=lambda: (dec.launches, dec.plain_calls, voc.launches, voc.plain_calls))
-    assert counts == (6, 0, 24, 0)
+    assert counts == (8, 0, 32, 0)
     assert out["float32"]["mel_max_abs"] <= 1e-4 and out["float32"]["wave_max_abs"] <= 1e-4
 
 
@@ -525,6 +526,17 @@ def test_lead_replays_are_counted(cuda, default_ckpts, route):
     int8 = route == "int8"
     assert (dec.launches, dec.plain_calls, voc.launches, voc.int8_launches, voc.plain_calls) == (
         3, 0, 12, 12 if int8 else 0, 0)
+
+
+def test_bucketed_dispatch_snaps_to_a_warmed_bucket(cuda, default_ckpts):
+    """F6 on the card (``chip_smoke.snap_check``): after ``warmup``, a
+    bucketed row of natural bucket 384 decodes the warmed 512, and one no
+    warmed bucket holds within 2x decodes its own 640."""
+    import chip_smoke
+    from viettts_tpu_torch.config import Config
+
+    out = chip_smoke.snap_check(Config(), default_ckpts)
+    assert out["300_frames"]["decoded"] == [512] and out["600_frames"]["decoded"] == [640]
 
 
 def test_lead_matches_bucketed_and_overflow_falls_back(cuda, default_ckpts):

@@ -112,8 +112,9 @@ def test_warmup_pads_to_the_device_count(ckpt_dir, monkeypatch):
 
     monkeypatch.setattr(synth, "_dispatch", spy)
     synth.warmup(batch_sizes=(1, 3, 4), token_buckets=(32,))
-    # 1 -> 2 rows and 3, 4 -> 4 rows, one shard per replica
-    assert calls == [(1, 0), (1, 1), (2, 0), (2, 1)]
+    # 1 -> 2 rows and 3, 4 -> 4 rows, one shard per replica, at each of
+    # the token bucket's two frame buckets (4 and 8 frames a token)
+    assert calls == [(1, 0), (1, 1)] * 2 + [(2, 0), (2, 1)] * 2
 
 
 def test_devices_argument_is_checked(ckpt_dir):

@@ -49,10 +49,22 @@ runs eagerly, and only where JAX's CPU backend takes it (with
 ``stream`` leads with it whenever ``lead_tokens`` is set, whatever that
 attribute says).
 
-Not ported: compiled-bucket snapping (``warmup`` compiles nothing a later
-frame bucket could reuse: eager kernels run at any length) and the
-scan-decode batch gate (the port has no scan decode: K1 runs every batch,
-in launches of up to 64 rows).  The decode always takes
+Frame-bucket snapping (JAX's ``_dispatch_decode``): a bucketed dispatch
+of padded shape (B, T) decodes its natural frame bucket unless a larger
+bucket of that shape, at most twice the natural one, has already run
+(``warmup`` or earlier traffic); then it decodes the smallest such
+bucket.  JAX snaps to reuse a compiled program; the port has nothing to
+compile, and snaps because the padding the vocoder sees is part of the
+result: its SAME convs near a row's last kept frame read decoded frames in
+the larger bucket and zero padding in the smaller, so the tail of the
+audio differs (up to 0.56 max abs on a tiny model).  ``warmup`` runs
+JAX's buckets (4 and 8 frames a token of each token bucket, and the 2x
+steps above 8 for each of ``silence_durations``).  The buckets are kept
+per padded global (B, T), as JAX keys them under a mesh; ``stream``'s
+chunks key by (device count, T), as JAX replicates a chunk over the mesh.
+
+Not ported: the scan-decode batch gate (the port has no scan decode: K1
+runs every batch, in launches of up to 64 rows).  The decode always takes
 ``ops.ar_decoder.ar_decode`` and the vocoder always
 ``models.hifigan.generator_apply_fused`` (the kernels on CUDA, their
 plain twins on CPU); ``acoustic.fused_decode`` and
@@ -115,6 +127,21 @@ def _bucket_tokens(n: int, buckets: Sequence[int]) -> int:
 
 def _bucket_frames(n: int, bucket: int = FRAME_BUCKET) -> int:
     return max(bucket, ((n + bucket - 1) // bucket) * bucket)
+
+
+def _warmup_frame_buckets(tb: int, silence_durations: Sequence[float], fps: float) -> List[int]:
+    """The frame buckets ``warmup`` runs for token bucket ``tb`` (JAX's
+    coverage): those of 4 and 8 frames a token, and for each silence clamp
+    of ``s`` seconds (which can pace a row of ``sil`` at ``s * fps`` frames
+    a token) the 2x steps above 8 frames a token up to that pace."""
+    cover = {_bucket_frames(tb * 4), _bucket_frames(tb * 8)}
+    for s in silence_durations:
+        ceil_f = tb * max(8.0, float(s) * fps)
+        f = tb * 8
+        while f < ceil_f:
+            f = min(f * 2, ceil_f)
+            cover.add(_bucket_frames(int(f)))
+    return sorted(cover)
 
 
 def _cut_once(rest: List[int], limit: int) -> Tuple[List[int], List[int]]:
@@ -275,6 +302,10 @@ class Synthesizer:
         self.lead_graphs: Dict[int, LeadGraph] = {}
         self._graph_pool = None
         self._lead_lock = threading.Lock()
+        # the frame buckets that have run per padded (rows, token bucket)
+        # shape, filled by warmup() and by every bucketed dispatch; a
+        # dispatch snaps up to one of them (_frame_bucket)
+        self._seen_nf: Dict[Tuple[int, int], set] = {}
 
     # Default calibration set (the JAX package's): a greeting, a long
     # multi-clause sentence, a short exclamation and digit-heavy text, so
@@ -360,15 +391,21 @@ class Synthesizer:
     @torch.inference_mode()
     def warmup(
         self,
+        frame_buckets: Optional[Sequence[int]] = None,
         batch_sizes: Sequence[int] = (1,),
         token_buckets: Optional[Sequence[int]] = None,
         lead_tokens: Optional[int] = None,
+        silence_durations: Sequence[float] = (),
     ) -> None:
         """Calibrate the int8 route (when it is not yet calibrated), then
-        synthesize once at each batch size and token bucket (default: every
-        configured bucket), decoding 4 frames a token, so kernels, cuDNN
-        plans and the caching allocator are ready before the first request.
-        There is no compile to warm: PyTorch runs eagerly.  Batch sizes
+        run the bucketed decode and vocoder once at each batch size, token
+        bucket (default: every configured bucket) and frame bucket, so
+        kernels, cuDNN plans and the caching allocator are ready before the
+        first request, and each frame bucket joins the set a later dispatch
+        snaps to.  There is no compile to warm: PyTorch runs eagerly.  The
+        frame buckets are ``frame_buckets`` if given, else JAX's coverage
+        (``_warmup_frame_buckets``: 4 and 8 frames a token, and the 2x
+        steps above that for each of ``silence_durations``).  Batch sizes
         are rounded up to a multiple of the device count, as
         ``synthesize_batch`` pads them, and run sharded.
 
@@ -387,8 +424,10 @@ class Synthesizer:
             for tb in buckets:
                 rows = [[SIL_INDEX] * tb] * b
                 toks, lengths, _ = self._durations_for(rows, -1.0)
-                dur_s = np.full(toks.shape, 4.0 / fps, np.float32)
-                self._finalize_shards(self._dispatch_shards(rows, toks, lengths, dur_s))
+                for nf in frame_buckets or _warmup_frame_buckets(tb, silence_durations, fps):
+                    dur_s = np.full(toks.shape, nf / tb / fps, np.float32)
+                    self._finalize_shards(self._dispatch_shards(rows, toks, lengths, dur_s, int(nf)))
+                    self._seen_nf.setdefault(toks.shape, set()).add(int(nf))
         if lead_tokens is None:
             lead_tokens = 0 if self.device.type == "cpu" else self.single_dispatch_max_tokens
         if lead_tokens and 1 in batch_sizes:
@@ -662,16 +701,35 @@ class Synthesizer:
 
     def _frames(self, dur_s: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
         """Durations (seconds) -> (frames, each row's frame total, the
-        frame bucket that holds every row)."""
+        natural frame bucket: the smallest that holds every row)."""
         dur_frames = dur_s * (self.cfg.dsp.sample_rate / self.cfg.dsp.hop_length)
         total_frames = dur_frames.sum(axis=1)
         return dur_frames, total_frames, _bucket_frames(int(np.max(total_frames)) + 1)
+
+    def _frame_bucket(self, shape: Tuple[int, int], dur_s: np.ndarray) -> int:
+        """The frame bucket a bucketed dispatch of ``shape`` (rows, token
+        bucket) decodes, as JAX's ``_dispatch_decode`` picks it: its
+        natural bucket if that has run at this shape; else the smallest
+        bucket that has run there, holds every row and is at most twice the
+        natural one; else the natural bucket, which then joins the set.
+        The rows are counted padded to the device count (JAX's global batch
+        under a mesh, which also replicates a ``stream`` chunk over it)."""
+        _, total_frames, n_frames = self._frames(dur_s)
+        needed = int(np.max(total_frames)) + 1
+        n_dev = len(self.devices)
+        seen = self._seen_nf.setdefault((-(-shape[0] // n_dev) * n_dev, shape[1]), set())
+        if n_frames not in seen:
+            snap = [f for f in seen if needed <= f <= 2 * n_frames]
+            if snap:
+                return min(snap)
+            seen.add(n_frames)
+        return n_frames
 
     def _decode(self, toks, lengths, dur_s, replica: int = 0, n_frames: Optional[int] = None,
                 seed: Optional[int] = None) -> Tuple[torch.Tensor, np.ndarray]:
         """AR-decode padded rows with known durations (seconds) on replica
         ``replica``: mels [B, n_frames, mel_dim] on its device (``n_frames``
-        defaults to the rows' own bucket) and each row's frame total.  The
+        defaults to the rows' natural bucket) and each row's frame total.  The
         prenet masks are drawn from ``seed`` (default ``prenet_seed``)."""
         dur_frames, total_frames, bucket = self._frames(dur_s)
         device, gen = self.devices[replica], self._prenet_gens[replica]
@@ -699,10 +757,13 @@ class Synthesizer:
                   seed: Optional[int] = None):
         """Queue decode + vocoder for rows with known durations on replica
         ``replica`` and start the copies of mels and waves to the host,
-        without waiting for them; ``_finalize`` waits.  On CUDA the copies
-        go to pinned memory and an event on the replica's device marks
-        their end."""
+        without waiting for them; ``_finalize`` waits.  ``n_frames``
+        defaults to ``_frame_bucket`` of the rows.  On CUDA the copies go
+        to pinned memory and an event on the replica's device marks their
+        end."""
         device = self.devices[replica]
+        if n_frames is None:
+            n_frames = self._frame_bucket(toks.shape, dur_s)
         with _device_scope(device):
             mels, total_frames = self._decode(toks, lengths, dur_s, replica, n_frames, seed)
             waves = self._vocode(mels, replica)[..., 0]
@@ -716,16 +777,18 @@ class Synthesizer:
                 event.record()
         return token_rows, mels, waves, dur_s, total_frames, event
 
-    def _dispatch_shards(self, token_rows, toks, lengths, dur_s) -> List:
+    def _dispatch_shards(self, token_rows, toks, lengths, dur_s, n_frames: Optional[int] = None) -> List:
         """``_dispatch`` of an equal shard of the rows on every replica, all
-        queued before any is waited for, with one frame budget for all;
-        one device dispatches the rows whole."""
+        queued before any is waited for, with one frame budget for all
+        (``n_frames``, default ``_frame_bucket`` of the whole batch); one
+        device dispatches the rows whole."""
         n_dev = len(self.devices)
+        if n_frames is None:
+            n_frames = self._frame_bucket(toks.shape, dur_s)
         if n_dev == 1:
-            return [self._dispatch(token_rows, toks, lengths, dur_s)]
+            return [self._dispatch(token_rows, toks, lengths, dur_s, 0, n_frames)]
         if len(token_rows) % n_dev:
             raise ValueError(f"{len(token_rows)} rows do not shard over {n_dev} devices")
-        n_frames = self._frames(dur_s)[2]
         k = len(token_rows) // n_dev
         return [
             self._dispatch(token_rows[i * k:(i + 1) * k], toks[i * k:(i + 1) * k], lengths[i * k:(i + 1) * k],

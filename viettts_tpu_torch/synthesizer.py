@@ -19,7 +19,10 @@ from argparse import ArgumentParser
 from pathlib import Path
 
 
-def main(argv=None):
+def main(argv=None, default_overrides=()):
+    """``default_overrides``: config overrides applied before ``--set`` and
+    ``--quality`` (so explicit flags win); the ``vietTTS`` shim defaults
+    its parity surface to the float32 vocoder route with them."""
     parser = ArgumentParser(description="Vietnamese TTS (PyTorch/CUDA port)")
     parser.add_argument("--text", type=str, help="text to synthesize")
     parser.add_argument(
@@ -69,7 +72,7 @@ def main(argv=None):
     from viettts_tpu_torch.infer.pipeline import Synthesizer
     from viettts_tpu_torch.text import normalize_text
 
-    cfg = apply_overrides(Config(), args.set)
+    cfg = apply_overrides(Config(), list(default_overrides) + args.set)
     if args.quality:
         cfg = apply_overrides(cfg, ["hifigan.inference_dtype=float32"])
     if args.ckpt_dir is not None:

@@ -22,6 +22,9 @@ model FLOPs utilization (MFU) against the card's dense peaks.
   ``mfu_peak`` which peak it divides by: the route's compute (bf16; TF32
   for the float32 route, whose 3xTF32 dots run on the TF32 tensor cores;
   int8).
+* ``parameter_counts``: the serving models' parameters at a config's
+  widths, which the benchmark programs (``viettts_tpu_torch/bench``)
+  hold their seeded models to.
 * The training-step counts and the kernels' roofline bounds of
   ``chip_smoke.py`` (``duration_step_flop``, ``acoustic_step_flop``,
   ``gan_step_flop``, ``ar_decode_bound``, ``mrf_bound``).
@@ -164,6 +167,43 @@ def pipeline_flops(cfg, n_tokens, n_frames, batch=1):
         + acoustic_decode_flops(cfg, n_tokens, n_frames, batch)
         + generator_flops(cfg, n_frames, batch)
     )
+
+
+# ---------------------------------------------------------------------------
+# Parameter counts of the three serving models (what a benchmark checks
+# its seeded models against: the widths of the config it claims).
+# ---------------------------------------------------------------------------
+
+
+def _lstm_params(d_in, hidden):
+    return 4 * hidden * (d_in + hidden + 1)  # w_i, w_h and b, haiku's fused gates
+
+
+def _encoder_params(vocab, dim):
+    """Embedding, 3 x (Conv1D k=3 + BatchNorm scale and bias), bi-LSTM."""
+    return vocab * dim + 3 * (3 * dim * dim + dim + 2 * dim) + 2 * _lstm_params(dim, dim)
+
+
+def parameter_counts(cfg) -> Dict[str, int]:
+    """Trainable parameters of the duration model, the acoustic model and
+    the (unnormalized) generator at ``cfg``'s widths: ``{"duration",
+    "acoustic", "generator"}``."""
+    d, a, h = cfg.duration, cfg.acoustic, _hifigan(cfg)
+    duration = _encoder_params(d.vocab_size, d.lstm_dim) + 2 * d.lstm_dim * d.lstm_dim + d.lstm_dim + d.lstm_dim + 1
+    C, P, H, D, Q = 2 * a.encoder_dim, a.prenet_dim, a.decoder_dim, a.mel_dim, a.postnet_dim
+    acoustic = (_encoder_params(a.vocab_size, a.encoder_dim) + _lstm_params(C + P, H) + _lstm_params(C + P + H, H)
+                + D * P + P * P + 2 * H * D + D
+                + 5 * (D * Q + 3 * Q * Q + Q * D) + 4 * Q + D + 4 * 2 * Q)
+    C0 = h.upsample_initial_channel
+    generator = 7 * h.mel_dim * C0 + C0
+    convs_per_dil = 2 if h.resblock == "1" else 1
+    for i, k in enumerate(h.upsample_kernel_sizes):
+        ch = C0 // 2 ** (i + 1)
+        generator += 2 * ch * ch * k + ch
+        generator += sum(len(rd) * convs_per_dil * (rk * ch * ch + ch)
+                         for rk, rd in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
+    generator += 7 * (C0 // 2 ** len(h.upsample_kernel_sizes)) + 1
+    return {"duration": duration, "acoustic": acoustic, "generator": generator}
 
 
 # ---------------------------------------------------------------------------
