@@ -173,6 +173,7 @@ K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
 MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s of audio)
+BULK = (64, 768)  # (B, mel frames): bench.vocoder_batch's largest batch at its frame count
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
 INT8_ROUTE_REL_RMS = 5e-3  # card vs CPU int8 vocoder on the same mel
@@ -332,6 +333,29 @@ def stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype):
     return prepare_mrf_weights(blocks, ups, pst, dtype)
 
 
+def cudnn_mrf_ms(cfg, h, weights, reps=5):
+    """The yardstick of a stage's MRF convs: its 18 convs as
+    ``torch.nn.functional.conv1d`` calls (cuDNN) on the stage input h [B,
+    C, L] in h's dtype, the weights cast to it, summed as one timed run
+    (bf16, or float32 with TF32 off).  The port never calls this."""
+    from torch.nn import functional as F
+
+    from viettts_tpu_torch.ops.mrf import _dense
+
+    convs = []
+    for (w1, b1, w2, b2), k, dils in zip(weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+        for j, d in enumerate(dils):
+            for w, b, dil in ((w1, b1, d), (w2, b2, 1)):
+                if w is not None:
+                    convs.append((_dense(w)[j].to(h.dtype).permute(2, 1, 0).contiguous(), b[j].to(h.dtype), dil, k))
+
+    def run():
+        for w, b, dil, k in convs:
+            F.conv1d(h, w, b, padding=dil * (k - 1) // 2, dilation=dil)
+
+    return time_ms(run, reps)
+
+
 def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
                     timed_cases=((2, 128), (1, MAIN_PATH_FRAMES))):
     """K2 against its twins at every stage of each (B, frames) case,
@@ -346,7 +370,8 @@ def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
     peaks = device_peaks()
     rng = np.random.default_rng(1)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0, "bf16_dots_rel_rms": 0.0}
-    # times[dtype][(B, T)] = per stage [kernel ms, twin ms, MRF-only kernel ms, MRF TFLOP/s]
+    # times[dtype][(B, T)] = per stage [kernel ms, twin ms, MRF-only kernel ms, MRF TFLOP/s,
+    #                                    cuDNN MRF convs ms]
     times = {torch.float32: {}, torch.bfloat16: {}}
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     for dtype in (torch.float32, torch.bfloat16):
@@ -390,14 +415,99 @@ def check_fused_mrf(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
                         h = torch.from_numpy(seeded(rng, B, L_in * u, C)).to(dev, dtype)
                         mrf_ms = time_ms(lambda: fused_mrf(h, w, ks, ds, compute_dtype=dtype))
                         rate = mrf_flop(cfg, B, L_in * u, C, resblock2) / mrf_ms / 1e9
-                        times[dtype].setdefault((B, T), []).append([ms, plain_ms, mrf_ms, rate])
+                        lib_ms = cudnn_mrf_ms(cfg, h.transpose(1, 2).contiguous(), w)
+                        times[dtype].setdefault((B, T), []).append([ms, plain_ms, mrf_ms, rate, lib_ms])
                         log(f"{tag}: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms; MRF convs alone "
                             f"{mrf_ms:.3f} ms = {rate:.1f} TFLOP/s ({100 * rate / peak:.1f}% of the "
-                            f"{peak:.0f} TFLOP/s dense {'bf16' if dtype == torch.bfloat16 else 'TF32'} peak)")
+                            f"{peak:.0f} TFLOP/s dense {'bf16' if dtype == torch.bfloat16 else 'TF32'} peak); "
+                            f"cuDNN conv1d of the 18 MRF convs {lib_ms:.3f} ms")
         for (B, T), rows in times[dtype].items():
             log(f"K2 fused_mrf {str(dtype)[6:]} B={B} {T} frames, 4 stages: kernel "
                 f"{sum(r[0] for r in rows):.3f} ms, twin {sum(r[1] for r in rows):.3f} ms")
     return worst, times
+
+
+def check_bulk(dev, cfg, reps=3):
+    """K2 (bf16, float32) and K3 (static and dynamic int8) on the MRF convs
+    of every default stage at the bulk shape (``BULK``: B=64, 768 mel
+    frames), each stage alone: the kernel's time, the cuDNN conv1d time of
+    the stage's 18 convs (bf16; float32 with TF32 off; the int8 route has
+    none), the MRF-only roofline bound and the issued TFLOP/s or TOP/s.
+    Stages 1-3 (C = 128 on the per-conv pipeline, C = 64 and 32 on the
+    fused one where the route takes it, one launch for the stage) are held
+    to their twins at the phase's bars: float32 rtol 1e-5 + atol 1e-4,
+    bf16 rel-RMS 1e-3 against the bf16-operand twin and 0.02 of the output
+    scale, static int8 bitwise."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights
+    from viettts_tpu_torch.utils.flops import device_peaks, mrf_issued_flops, mrf_stage_bound, stage_shapes
+
+    peaks = device_peaks()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(5)
+    ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
+    B, T = BULK
+    out = {r: {"stages_ms": [], "library_stages_ms": [], "bound_stages_ms": [], "issued_flop": 0,
+               "max_abs_err": 0.0, "rel_rms": 0.0}
+           for r in ("bfloat16", "float32", "int8", "int8_dynamic")}
+    for i, (C_in, C, k_u, u, L_in, post) in enumerate(stage_shapes(cfg, T)):
+        L = L_in * u
+        w32, ups32, _ = stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
+        h32 = torch.from_numpy(seeded(rng, B, L, C)).to(dev)
+        check = i > 0
+        for route in out:
+            if route.startswith("int8"):
+                dtype, h = torch.bfloat16, h32.to(torch.bfloat16)
+                act = None
+                if route == "int8":
+                    _, amax = mrf_walk(h.float().transpose(1, 2), w32, ks, ds, lambda j, y: y.abs().amax())
+                    act = torch.stack(amax)
+                w, _, _ = prepare_mrf_weights(w32, quantize_int8=True)
+                kw = dict(compute_dtype=dtype, quantize_int8=True, act_scales=act)
+            else:
+                dtype = torch.bfloat16 if route == "bfloat16" else torch.float32
+                h = h32.to(dtype)
+                w, _, _ = prepare_mrf_weights(w32, compute_dtype=dtype)
+                kw = dict(compute_dtype=dtype)
+            r = out[route]
+            r["stages_ms"].append(time_ms(lambda: fused_mrf(h, w, ks, ds, **kw), reps))
+            r["library_stages_ms"].append(
+                None if route.startswith("int8") else cudnn_mrf_ms(cfg, h.transpose(1, 2).contiguous(), w, reps))
+            bound_route = "int8" if route.startswith("int8") else route
+            r["bound_stages_ms"].append(mrf_stage_bound(cfg, B, L, C, bound_route, peaks)[0])
+            r["bound_by"] = mrf_stage_bound(cfg, B, L, C, bound_route, peaks)[1]
+            r["issued_flop"] += mrf_issued_flops(cfg, B, L, C, bound_route, sms, route == "int8")
+            if check and route != "int8_dynamic":
+                got = fused_mrf(h, w, ks, ds, **kw).float()
+                want = fused_mrf_plain(h, w, ks, ds, bf16_dots=route == "bfloat16", **kw).float()
+                err, rel = (got - want).abs().max().item(), rel_rms(got, want)
+                r["max_abs_err"], r["rel_rms"] = max(r["max_abs_err"], err), max(r["rel_rms"], rel)
+                if route == "float32":
+                    ok = bool(((got - want).abs() <= K2_F32["atol"] + K2_F32["rtol"] * want.abs()).all())
+                elif route == "bfloat16":
+                    ok = rel <= K2_BF16_DOTS_REL_RMS and err <= K2_BF16_REL * max(want.abs().max().item(), 1.0)
+                else:
+                    ok = err == 0.0
+                log(f"bulk B={B} {T} frames stage {i} (C={C}, L={L}) {route}: max|kernel - twin| {err:.3e}, "
+                    f"rel-RMS {rel:.2e}")
+                if not ok:
+                    raise AssertionError(f"bulk stage {i} {route} differs from its twin: max {err}, rel-RMS {rel}")
+                del got, want
+            log(f"bulk B={B} {T} frames stage {i} (C={C}) {route}: kernel {r['stages_ms'][-1]:.3f} ms, "
+                f"cuDNN {r['library_stages_ms'][-1]}, bound {r['bound_stages_ms'][-1]:.3f} ms")
+        del h32
+        torch.cuda.empty_cache()
+    for route, r in out.items():
+        r["ms"] = sum(r["stages_ms"])
+        r["library_ms"] = None if route.startswith("int8") else sum(r["library_stages_ms"])
+        r["bound_ms"] = sum(r["bound_stages_ms"])
+        r["issued_tflops"] = r["issued_flop"] / r["ms"] / 1e9
+        log(f"bulk B={B} {T} frames, 4 stages' MRF convs {route}: kernel {r['ms']:.3f} ms, cuDNN "
+            f"{r['library_ms']}, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), issued "
+            f"{r['issued_tflops']:.1f} T(FL)OP/s")
+    return out
 
 
 def rel_rms(got, want):
@@ -2242,6 +2352,9 @@ def main() -> int:
     k1_plan_err, k1_plan_times = check_ar_decode_plan(dev)
     k2_err, k2_times = check_fused_mrf(dev, cfg.hifigan)
     k3, k3_times = check_fused_mrf_int8(dev, cfg.hifigan)
+    t0 = time.perf_counter()
+    bulk = check_bulk(dev, cfg.hifigan)
+    log(f"bulk shape phase: {time.perf_counter() - t0:.1f} s")
 
     def zero_counts():
         ar_decode.launches = ar_decode.plain_calls = 0
@@ -2304,12 +2417,12 @@ def main() -> int:
         return sum(r[col] for r in times[case])
 
     k1_main = k1_times[(1, 512)]
+    b1 = (1, MAIN_PATH_FRAMES)
     peaks = device_peaks()
     k2_bound, k2_by = mrf_bound(cfg.hifigan, 2, 128, "bfloat16", peaks)
     k2_bound_f32, k2_by_f32 = mrf_bound(cfg.hifigan, 2, 128, "float32", peaks)
     k3_bound, k3_by = mrf_bound(cfg.hifigan, 2, 128, "int8", peaks)
     k3_bound_b1, _ = mrf_bound(cfg.hifigan, 1, MAIN_PATH_FRAMES, "int8", peaks)
-    b1 = (1, MAIN_PATH_FRAMES)
 
     def k3_sum(key, case=(2, 128)):
         return sum(r[key] for r in k3_times[case])
@@ -2342,13 +2455,18 @@ def main() -> int:
          "ms": stage_sum(k2_times[bf16], 0), "plain_ms": stage_sum(k2_times[bf16], 1),
          "ms_f32": stage_sum(k2_times[f32], 0), "plain_ms_f32": stage_sum(k2_times[f32], 1),
          "bound_ms": k2_bound, "bound_by": k2_by, "bound_ms_f32": k2_bound_f32, "bound_by_f32": k2_by_f32,
-         "library_ms": stage_sum(k2_times[bf16], 1),
-         "library": "cuDNN conv1d per conv, i.e. the plain twin (bf16; f32 in plain_ms_f32)",
+         "mrf_ms": stage_sum(k2_times[bf16], 2), "mrf_ms_f32": stage_sum(k2_times[f32], 2),
+         "library_ms": stage_sum(k2_times[bf16], 4), "library_ms_f32": stage_sum(k2_times[f32], 4),
+         "library": "the 18 MRF convs of each stage as torch conv1d calls (cuDNN), summed over the 4 stages: "
+                    "compare with mrf_ms (bf16; _f32: float32, TF32 off)",
+         "mrf_ms_b1": stage_sum(k2_times[bf16], 2, b1), "library_ms_b1": stage_sum(k2_times[bf16], 4, b1),
+         "bulk": {k: bulk[k] for k in ("bfloat16", "float32")},
          "stages": {f"{str(dt)[6:]} B={B} T={T}": {
              "ms": [r[0] for r in rows], "plain_ms": [r[1] for r in rows],
-             "mrf_ms": [r[2] for r in rows], "mrf_tflops": [r[3] for r in rows]}
+             "mrf_ms": [r[2] for r in rows], "mrf_tflops": [r[3] for r in rows], "library_ms": [r[4] for r in rows]}
              for dt in (bf16, f32) for (B, T), rows in k2_times[dt].items()},
-         "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1; ms in bf16"},
+         "shape": "4 default stages summed, B=2, 128 mel frames, ResBlock1; ms in bf16; bulk: the MRF convs "
+                  f"alone at B={BULK[0]}, {BULK[1]} frames"},
         {"name": "fused_mrf_int8", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_int8.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440 (quantize_int8)", "launches": launches_int8["fused_mrf_int8"],
          "launches_round_trip": launches_trained["fused_mrf_int8"],
@@ -2368,7 +2486,9 @@ def main() -> int:
          "mrf_ms_b1": k3_sum("mrf_ms", b1), "mrf_tops_b1": mrf_flop_sum(*b1) / k3_sum("mrf_ms", b1) / 1e9,
          "bf16_ms_b1": k3_sum("bf16_ms", b1), "bf16_mrf_ms_b1": k3_sum("bf16_mrf_ms", b1),
          "bound_ms": k3_bound, "bound_by": k3_by, "bound_ms_b1": k3_bound_b1, "library_ms": None,
-         "library": "none: no PyTorch call runs int8 convolutions",
+         "library": "none: no PyTorch call runs int8 convolutions (bulk: cuDNN bf16 as a yardstick)",
+         "bulk": {"static": bulk["int8"], "dynamic": bulk["int8_dynamic"],
+                  "cudnn_bf16_ms": bulk["bfloat16"]["library_ms"]},
          "stages": {f"B={B} T={T}": {key: [r[key] for r in rows] for key in rows[0]}
                     for (B, T), rows in k3_times.items()},
          "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "

@@ -2,14 +2,22 @@
 """Time of the four default generator stages (``fused_mrf``, kernels K2 and
 K3) on one CUDA GPU, for comparing two checkouts of the port.
 
-    python3 scripts/time_vocoder_stages.py [--reps 20]
+    python3 scripts/time_vocoder_stages.py [--reps 20] [--batch 2] [--frames 128] [--pipelines]
 
-B=2 at 128 mel frames, ResBlock1, ``chip_smoke.py``'s seeded stage
-weights: per route (bfloat16, float32, int8 with static and with dynamic
-scales) the CUDA-event time of the four stages called back to back, the
-mean over ``--reps`` calls after one warm-up (host enqueue included, as
-the pipeline pays it), and the host time to enqueue them.  Prints the
-card's name and power limit, then one JSON line.
+B=2 at 128 mel frames (``--batch``, ``--frames``), ResBlock1,
+``chip_smoke.py``'s seeded stage weights: per route (bfloat16, float32,
+int8 with static and with dynamic scales) the CUDA-event time of the four
+stages called back to back, the mean over ``--reps`` calls after one
+warm-up (host enqueue included, as the pipeline pays it), the host time to
+enqueue them, and each stage's time alone.  Prints the card's name and
+power limit, then one JSON line.
+
+``--pipelines`` times instead, for the bf16 and static int8 routes, the
+MRF convs alone of each stage that the fused pipeline takes
+(``mrf.FUSED_CHANNELS``) on the fused pipeline and on the per-conv one, in
+turns in one process (per-conv, fused, fused, per-conv; the per-conv runs
+with ``FUSED_CHANNELS`` emptied), and checks that the two agree (bitwise
+on int8).
 
 ``viettts_tpu_torch`` is imported from ``sys.path``: put another checkout
 first on ``PYTHONPATH`` to time it, and run two checkouts in turns in one
@@ -35,6 +43,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--frames", type=int, default=128)
+    parser.add_argument("--pipelines", action="store_true", help="fused against per-conv MRF convs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_vocoder_stages: no CUDA device", file=sys.stderr)
@@ -44,6 +55,7 @@ def main(argv=None) -> int:
     import viettts_tpu_torch
     from viettts_tpu_torch.config import Config
     from viettts_tpu_torch.ops.mrf import fused_mrf, mrf_walk, prepare_mrf_weights
+    from viettts_tpu_torch.utils.flops import stage_shapes
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -52,9 +64,11 @@ def main(argv=None) -> int:
     cfg, dev, bf16 = Config().hifigan, torch.device("cuda"), torch.bfloat16
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     rng = np.random.default_rng(7)
+    if args.pipelines:
+        return pipelines(args, smi, cfg, dev, rng)
     calls = {"bfloat16": [], "float32": [], "int8": [], "int8_dynamic": []}
-    for C_in, C, k_u, u, L_in, post in chip_smoke.stage_shapes(cfg, 128):
-        x = torch.from_numpy(chip_smoke.seeded(rng, 2, L_in, C_in)).to(dev)
+    for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, args.frames):
+        x = torch.from_numpy(chip_smoke.seeded(rng, args.batch, L_in, C_in)).to(dev)
         xb = x.to(bf16)
         for route, dtype, inp in (("bfloat16", bf16, xb), ("float32", torch.float32, x)):
             w, ups, pst = chip_smoke.stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, False, dtype)
@@ -67,7 +81,8 @@ def main(argv=None) -> int:
             kw = dict(upsample=ups, post=pst, compute_dtype=bf16, quantize_int8=True, act_scales=act)
             calls[route].append((xb, w, kw))
 
-    result = {"package": str(Path(viettts_tpu_torch.__file__).parent), "card": smi}
+    result = {"package": str(Path(viettts_tpu_torch.__file__).parent), "card": smi, "batch": args.batch,
+              "frames": args.frames}
     for route, stages in calls.items():
         def run():
             for inp, w, kw in stages:
@@ -79,9 +94,55 @@ def main(argv=None) -> int:
         run()
         enqueue_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
-        result[route] = {"ms": ms, "enqueue_ms": enqueue_ms}
-        print(f"{route}: 4 stages {ms:.3f} ms (host enqueue {enqueue_ms:.3f} ms)", flush=True)
+        stages_ms = [chip_smoke.time_ms(lambda: fused_mrf(inp, w, ks, ds, **kw), reps=args.reps)
+                     for inp, w, kw in stages]
+        result[route] = {"ms": ms, "enqueue_ms": enqueue_ms, "stages_ms": stages_ms}
+        print(f"{route}: 4 stages {ms:.3f} ms (host enqueue {enqueue_ms:.3f} ms), alone "
+              f"{', '.join(f'{t:.3f}' for t in stages_ms)} ms", flush=True)
     print(json.dumps(result), flush=True)
+    return 0
+
+
+def pipelines(args, smi, cfg, dev, rng) -> int:
+    """``--pipelines``: per fused stage and route, the MRF convs on the
+    per-conv and the fused pipeline, in turns."""
+    import torch
+
+    import chip_smoke
+    from viettts_tpu_torch.ops import mrf
+    from viettts_tpu_torch.utils.flops import stage_shapes
+
+    ks, ds, bf16 = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes, torch.bfloat16
+    fused_channels = mrf.FUSED_CHANNELS
+    rows = []
+    for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, args.frames):
+        if C not in fused_channels:
+            continue
+        w32, _, _ = chip_smoke.stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
+        h = torch.from_numpy(chip_smoke.seeded(rng, args.batch, L_in * u, C)).to(dev, bf16)
+        _, amax = mrf.mrf_walk(h.float().transpose(1, 2), w32, ks, ds, lambda j, y: y.abs().amax())
+        routes = (("bfloat16", mrf.prepare_mrf_weights(w32, compute_dtype=bf16)[0], dict(compute_dtype=bf16)),
+                  ("int8", mrf.prepare_mrf_weights(w32, quantize_int8=True)[0],
+                   dict(compute_dtype=bf16, quantize_int8=True, act_scales=torch.stack(amax))))
+        for route, w, kw in routes:
+            ms, outs = {"per_conv": [], "fused": []}, {}
+            for name in ("per_conv", "fused", "fused", "per_conv"):
+                mrf.FUSED_CHANNELS = fused_channels if name == "fused" else ()
+                ms[name].append(chip_smoke.time_ms(lambda: mrf.fused_mrf(h, w, ks, ds, **kw), reps=args.reps))
+                outs[name] = mrf.fused_mrf(h, w, ks, ds, **kw).float()
+            mrf.FUSED_CHANNELS = fused_channels
+            diff = (outs["fused"] - outs["per_conv"]).abs().max().item()
+            if route == "int8" and diff != 0.0:
+                print(f"C={C} int8: the pipelines differ by {diff}", file=sys.stderr)
+                return 1
+            rows.append({"C": C, "L": L_in * u, "route": route, **ms, "max_abs_diff": diff})
+            print(f"C={C} {route}: per-conv {ms['per_conv'][0]:.3f}; {ms['per_conv'][1]:.3f} ms, fused "
+                  f"{ms['fused'][0]:.3f}; {ms['fused'][1]:.3f} ms (fused / per-conv "
+                  f"{sum(ms['fused']) / sum(ms['per_conv']):.3f}), max |fused - per-conv| {diff:.3e}", flush=True)
+            del outs
+        del h
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": smi, "batch": args.batch, "frames": args.frames, "pipelines": rows}), flush=True)
     return 0
 
 

@@ -15,7 +15,9 @@ import pytest
 from viettts_tpu.config import Config as JaxConfig, HifiGanConfig as JaxHifiGanConfig
 from viettts_tpu.utils import flops as jax_flops
 from viettts_tpu_torch.config import Config
+from viettts_tpu_torch.ops import mrf
 from viettts_tpu_torch.utils import flops
+from tests.test_torch_mrf_fused import MACS_BY_HAND
 from tests.test_torch_pipeline import port_config
 
 CONFIGS = {
@@ -95,6 +97,21 @@ def test_kernel_plan_is_read_from_the_sources():
     assert plan.bf16_narrow[0] == 32 and sorted(plan.bf16_narrow[1]) == [2, 3, 4]
     assert plan.int8_narrow == (32, 2, (32, 128, 32))
     assert (plan.post_rows, plan.post_chunk, plan.warps_per_sm, plan.narrow_bn) == (256, 32, 8, 32)
+    assert plan.fused_block == mrf.FUSED_BLOCK == 64
+
+
+def _fused_excess(cfg, frames, batch, route, sm_count=flops.H100_SXM.sm_count, resblock2=False):
+    """2 x (MACs the fused stages compute - the MACs they need): the halo
+    recompute and the 64-row blocks of ``csrc/mrf_fused.cuh``."""
+    h = cfg.hifigan
+    ks, ds = h.resblock_kernel_sizes, h.resblock_dilation_sizes
+    excess = 0
+    for _, width, _, u, L_in, _ in flops.stage_shapes(h, frames):
+        launch = mrf.plan_fused(route, width, ks, ds, resblock2, batch, L_in * u, sm_count)
+        if launch is not None:
+            excess += 2 * flops.fused_issued_macs(launch, width, ks, ds, resblock2, batch)
+            excess -= flops.mrf_flop(h, batch, L_in * u, width, resblock2)
+    return excess
 
 
 @pytest.mark.parametrize("route", ["bfloat16", "float32", "int8"])
@@ -102,12 +119,23 @@ def test_kernel_plan_is_read_from_the_sources():
 def test_issued_flops_equal_analytic_where_tiles_divide(route, batch):
     """128 mel frames of the default generator: every stage's rows divide
     every tile's 128, its channels the chunks (int8's 32-channel stage
-    excepted where K3 takes 64-channel chunks), conv_post's rows its 256."""
+    excepted where K3 takes 64-channel chunks), conv_post's rows its 256.
+    The bf16 route's fused stages (C = 32 and 64) add their halo recompute
+    and 64-row blocks: at B=2 the counts worked out by hand in
+    tests/test_torch_mrf_fused.py."""
     cfg = Config()
     issued = flops.generator_issued_flops(cfg, 128, batch, route)
     analytic = flops.generator_flops(cfg, 128, batch)
-    if route != "int8":
+    if route == "float32":
         assert issued == analytic
+    elif route == "bfloat16":
+        assert issued == analytic + _fused_excess(cfg, 128, batch, "bf16")
+        assert issued > analytic
+        if batch == 2:
+            h = cfg.hifigan
+            needed = sum(flops.mrf_flop(h, 2, 128 * 64 * 128 // c, c, False) for c in (32, 64))
+            by_hand = MACS_BY_HAND[("bf16", 32)] + MACS_BY_HAND[("bf16", 64)]
+            assert issued == analytic + 2 * by_hand - needed
     else:  # the last stage's 32 channels padded to a 64-channel chunk where the tile is not the narrow one
         plan = flops.kernel_plan()
         tile = flops.pick_tile(plan, batch, 128 * 256, 32, flops.H100_SXM.sm_count)
@@ -122,13 +150,15 @@ def test_issued_flops_at_least_analytic(route, batch, frames, sm_count):
     cfg = Config()
     issued = flops.generator_issued_flops(cfg, frames, batch, route, sm_count=sm_count)
     assert issued >= flops.generator_flops(cfg, frames, batch)
-    # padded rows only: the count grows by less than one tile per conv row range
+    # padded rows and the fused stages' halo recompute (at most 1.6x a
+    # stage's MACs, tests/test_torch_mrf_fused.py)
     assert issued < 3 * flops.generator_flops(cfg, frames, batch)
 
 
 def test_issued_flops_of_resblock2_on_divisible_shapes():
     cfg = port_config(CONFIGS["resblock2"])
-    assert flops.generator_issued_flops(cfg, 256, 2, "bfloat16") == flops.generator_flops(cfg, 256, 2)
+    issued = flops.generator_issued_flops(cfg, 256, 2, "bfloat16")
+    assert issued == flops.generator_flops(cfg, 256, 2) + _fused_excess(cfg, 256, 2, "bf16", resblock2=True)
 
 
 def test_training_step_counts_and_kernel_bounds():
@@ -153,7 +183,11 @@ def test_training_step_counts_and_kernel_bounds():
 
 def test_a_narrower_card_is_counted_with_its_own_tiles():
     """Fewer SMs can pick a larger tile (fewer blocks needed to fill the
-    card), so the padding, and with it the issued count, follow the card."""
+    card), so the padding, and with it the issued count, follow the card:
+    the per-conv stages pad more, the fused stages recompute less halo."""
     cfg = Config()
     counts = {sm: flops.generator_issued_flops(cfg, 37, 1, "bfloat16", sm_count=sm) for sm in (132, 114, 16)}
-    assert counts[16] >= counts[114] >= counts[132] >= flops.generator_flops(cfg, 37)
+    excess = {sm: _fused_excess(cfg, 37, 1, "bf16", sm) for sm in counts}
+    assert excess[16] < excess[114] <= excess[132]
+    per_conv = {sm: counts[sm] - excess[sm] for sm in counts}
+    assert per_conv[16] >= per_conv[114] >= per_conv[132] >= flops.generator_flops(cfg, 37)

@@ -373,20 +373,138 @@ def test_fused_mrf_int8_kernel_matches_twin(cuda, mode, B, L_in, C_in, C, k_u, u
     assert _rel_rms(got, want) <= 1e-3
 
 
-def test_fused_mrf_int8_bare_static_is_exact(cuda):
+@pytest.mark.parametrize("C", [32, 128, 40])
+def test_fused_mrf_int8_bare_static_is_exact(cuda, C):
     """Without a prologue the stage input reaches K3 and the twin as the
-    same float32 values, so no code can flip: the outputs are equal."""
+    same float32 values, so no code can flip: the outputs are equal.  C =
+    32 runs the fused pipeline (one launch for the stage), C = 128 and 40
+    the per-conv pipeline: each bitwise the twin, so the two pipelines
+    agree bitwise."""
     rng = np.random.RandomState(3)
     kernel_sizes, dilations = (3, 7, 11), ((1, 3, 5),) * 3
-    weights, _, _ = _stage(rng, 0, 32, 0, 1, False, False, kernel_sizes, dilations)
+    weights, _, _ = _stage(rng, 0, C, 0, 1, False, False, kernel_sizes, dilations)
     weights = [tuple(t.to(cuda) for t in blk) for blk in weights]
-    x = _w(rng, 2, 200, 32).to(cuda)
+    x = _w(rng, 2, 200, C).to(cuda)
     _, amax = mrf.mrf_walk(x.transpose(1, 2), weights, kernel_sizes, dilations, lambda j, y: y.abs().amax())
+    act = torch.stack(amax)
+    assert (mrf.plan_fused("int8", C, kernel_sizes, dilations, False, 2, 200, 132) is None) == (C != 32)
     tw, _, _ = mrf.prepare_mrf_weights(weights, quantize_int8=True)
-    kw = dict(quantize_int8=True, act_scales=torch.stack(amax))
+    kw = dict(quantize_int8=True, act_scales=act)
     got = mrf.fused_mrf(x, tw, kernel_sizes, dilations, **kw)
     want = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _fused_case(rng, cuda, C, resblock2, route, B, L, kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3):
+    """Weights in the route's layout, the float32 stage trunk x [B, L, C]
+    and the twin's output for the fused kernel's comparisons: bf16-rounded
+    operands (``bf16_dots``) for bf16, static int8 at the calibrated amax
+    for int8."""
+    weights, _, _ = _stage(rng, 0, C, 0, 1, False, resblock2, kernel_sizes, dilations)
+    weights = [tuple(None if t is None else t.to(cuda) for t in blk) for blk in weights]
+    x = _w(rng, B, L, C).to(cuda)
+    kw = {}
+    if route == "int8":
+        _, amax = mrf.mrf_walk(x.transpose(1, 2), weights, kernel_sizes, dilations, lambda j, y: y.abs().amax())
+        kw = dict(quantize_int8=True, act_scales=torch.stack(amax))
+    tw, _, _ = mrf.prepare_mrf_weights(weights, compute_dtype=torch.bfloat16, quantize_int8=route == "int8")
+    want = mrf.fused_mrf_plain(x, tw, kernel_sizes, dilations, bf16_dots=route == "bf16", **kw)
+    return tw, x, kw.get("act_scales"), want
+
+
+def _run_fused(route, x, tw, act, launch, kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3):
+    """The fused kernel alone on the float32 trunk x with the given plan:
+    the stage output in float32."""
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    mrf._launch_fused(lib, _build.stream_ptr(x.device), route, x, tw, kernel_sizes, dilations, act,
+                      launch, out, 0)
+    torch.cuda.synchronize()
+    return out
+
+
+def _hold_fused(route, got, want):
+    """K2 bf16: rel-RMS 1e-3 against the bf16-operand twin and 0.02 of the
+    output scale; K3 static: bitwise (exact integer dots, the same float32
+    steps in the same order)."""
+    if route == "bf16":
+        assert _rel_rms(got, want) <= 1e-3
+        assert (got - want).abs().max().item() <= 0.02 * max(want.abs().max().item(), 1.0)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["bf16", "int8"])
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("resblock2", [False, True], ids=["resblock1", "resblock2"])
+@pytest.mark.parametrize("L", [5, 61, 203, 1001, 40448])
+def test_fused_resblocks_match_the_twin(cuda, route, C, resblock2, L):
+    """The fused pipeline at each width it takes on each route, as
+    ``plan_fused`` plans it: L = 5 and 61 are shorter than the k = 11
+    resblock's halo (60 rows), 203, 1001 and 40,448 (the lead request's
+    last stage) are ragged against every tile, the last in windows of two
+    TMA boxes."""
+    rng = np.random.RandomState(C + L)
+    tw, x, act, want = _fused_case(rng, cuda, C, resblock2, route, 2, L)
+    launch = mrf.plan_fused(route, C, (3, 7, 11), ((1, 3, 5),) * 3, resblock2, 2, L,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    _hold_fused(route, _run_fused(route, x, tw, act, launch), want)
+
+
+@pytest.mark.parametrize("route", ["bf16", "int8"])
+@pytest.mark.parametrize("C", [32, 64])
+def test_fused_resblocks_in_every_tile_shape(cuda, route, C):
+    """Other plans than ``plan_fused``'s: the smallest tile (64 rows), the
+    widest window, each ring depth the kernel takes that fits, and one CTA
+    walking every tile, against the same twin."""
+    rng = np.random.RandomState(7)
+    ks, ds, L = (3, 7, 11), ((1, 3, 5),) * 3, 1300
+    tw, x, act, want = _fused_case(rng, cuda, C, False, route, 2, L)
+    p = mrf.plan_fused(route, C, ks, ds, False, 2, L, 132)
+    tried = set()
+    for stages in range(mrf.FUSED_MIN_STAGES, mrf.FUSED_MAX_STAGES + 1):
+        wins = [w for w in mrf.fused_windows() if w - 2 * p.halo >= 64
+                and mrf.fused_smem_bytes(route, C, w, w - 2 * p.halo, stages) <= mrf.SMEM_LIMIT]
+        for win in {wins[0], wins[-1]} if wins else ():
+            tiles = -(-L // (win - 2 * p.halo))
+            ctas = 1 if win == wins[0] else 2 * tiles
+            tried.add((win, stages))
+            launch = p._replace(win=win, bm=win - 2 * p.halo, stages=stages, tiles_per_row=tiles, ctas=ctas)
+            _hold_fused(route, _run_fused(route, x, tw, act, launch), want)
+    assert len(tried) >= 4 and max(w for w, _ in tried) > 256
+
+
+def test_fused_kernel_refuses_a_plan_that_does_not_fit(cuda):
+    """A window that is not the tile plus twice the halo, one past the
+    kernel's blocks, one past a TMA box that two boxes cannot split into
+    aligned halves, or a ring too deep is refused by the C side: the
+    wrapper raises."""
+    rng = np.random.RandomState(8)
+    tw, x, act, _ = _fused_case(rng, cuda, 32, False, "bf16", 1, 100)
+    p = mrf.plan_fused("bf16", 32, (3, 7, 11), ((1, 3, 5),) * 3, False, 1, 100, 132)
+    for bad in (p._replace(win=p.win + 8), p._replace(win=528, bm=528 - 2 * p.halo),
+                p._replace(win=264, bm=264 - 2 * p.halo), p._replace(stages=5)):
+        with pytest.raises(RuntimeError, match="fused_mrf bf16 resblocks: CUDA error"):
+            _run_fused("bf16", x, tw, act, bad)
+
+
+@pytest.mark.parametrize("route", ["bf16", "int8"])
+@pytest.mark.parametrize("C", mrf.FUSED_CHANNELS)
+def test_fused_stage_at_the_bulk_shape(cuda, route, C):
+    """Each fused stage of the default generator at B = 64 and 768 mel
+    frames (C = 64: 98,304 rows a batch row, C = 32: 196,608) through
+    ``fused_mrf``, against the twin."""
+    rng = np.random.RandomState(9)
+    L = 768 * 64 * 128 // C
+    tw, x, act, want = _fused_case(rng, cuda, C, False, route, 64, L)
+    dtype = torch.bfloat16 if route == "bf16" else torch.float32
+    kw = dict(quantize_int8=True, act_scales=act) if route == "int8" else {}
+    got = mrf.fused_mrf(x.to(dtype), tw, (3, 7, 11), ((1, 3, 5),) * 3, compute_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    if route == "bf16":  # the stage output is stored in bf16: hold it to the twin's bf16 output
+        want = mrf.fused_mrf_plain(x.to(dtype), tw, (3, 7, 11), ((1, 3, 5),) * 3, compute_dtype=dtype,
+                                   bf16_dots=True).float()
+    _hold_fused(route, got.float(), want)
 
 
 # ---------------------------------------------------------------------------

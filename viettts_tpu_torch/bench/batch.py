@@ -140,7 +140,8 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = K, warmup: int
             "pipeline": mfu(pipeline_flops(cfg, n_tokens, n_frames, batch), t_full, device, route),
             "vocoder": mfu(generator_flops(cfg, n_frames, batch), t_voc, device, route),
             "vocoder_actual_issued": mfu(
-                generator_issued_flops(cfg, n_frames, batch, issued_route, sm_count(device)), t_voc, device, route),
+                generator_issued_flops(cfg, n_frames, batch, issued_route, sm_count(device), quant and int8_static),
+                t_voc, device, route),
         },
         "decode_sub_batch": min(batch, MAX_ROWS),
         "backend": device.type,

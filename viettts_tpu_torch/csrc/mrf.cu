@@ -29,6 +29,12 @@
 //   C_out, C_in] (ops/mrf.py::tf32_split); the activations are split as
 //   they are staged into shared memory.
 //
+// On the bf16 route the fused pipeline (mrf_fused.cuh, viettts_mrf_fused
+// below) takes the MRF convs of the stages that ops/mrf.py::plan_fused
+// gives it: one launch runs whole resblocks for time tiles on chip, on
+// wgmma with TMA, as the TPU kernel kept its tiles in VMEM.  The other
+// stages and the float32 route keep one launch a conv here.
+//
 // The float routes' ConvTranspose prologue runs on the same kernel, as u
 // interleaved stride-1 convs (one output phase per grid z): on the CUDA
 // cores it took 12-59% of a stage once the MRF convs moved to the tensor
@@ -42,6 +48,7 @@
 #include <cstdint>
 
 #include "mrf_common.cuh"
+#include "mrf_fused.cuh"
 
 namespace {
 
@@ -192,6 +199,17 @@ extern "C" int viettts_mrf_conv_plan(int w_bf16, int out_bf16, int B, int L, int
     if (err != 0) return err;
   }
   return 0;
+}
+
+// The MRF of a bf16-route stage on the fused pipeline (mrf_fused.cuh):
+// x the float32 stage input [B, L, C], res n_res rows of
+// viettts::FUSED_RES_FIELDS (w1, w2: bf16 [units, k, C, C]), out the mean
+// of the resblocks (bf16 if out_bf16).  win, bm, stages and ctas:
+// ops/mrf.py::plan_fused.
+extern "C" int viettts_mrf_fused(int out_bf16, int B, int L, int C, int n_res, int win, int bm, int stages,
+                                 int ctas, const void* x, const void* res, void* out, void* stream) {
+  return viettts::fused_launch<viettts::FRoute::kBf16>(out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res,
+                                                       nullptr, out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int viettts_mrf_post(int w_bf16, const void* x, const void* w, const void* bias,

@@ -1,8 +1,11 @@
 // Pieces shared by the generator-stage kernels K2 (mrf.cu) and K3
 // (mrf_int8.cu): storage-type conversions, leaky_relu, the opt-in to more
-// than 48 KB of dynamic shared memory, and the one tensor-core conv
+// than 48 KB of dynamic shared memory, and the per-conv tensor-core
 // pipeline (mma_conv_kernel) that both files instantiate, each for its own
-// routes:
+// routes.  It runs the ConvTranspose prologues, and the MRF convs where the
+// fused pipeline (mrf_fused.cuh) does not take the stage: the float32
+// route, dynamic int8 scales and the widths ops/mrf.py::plan_fused leaves
+// out.  Routes:
 //
 // * Bf16Mma (K2, bf16 route): A = bf16(lrelu(x)), weights bf16, float32
 //   accumulation, mma.sync m16n8k16.

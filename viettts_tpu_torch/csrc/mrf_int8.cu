@@ -38,6 +38,14 @@
 //   conv's input the same int8 codes (TF32 splits keep 22 of 24 bits and
 //   would flip some).
 //
+// With static (calibrated) scales the MRF convs of the stages that
+// ops/mrf.py::plan_fused gives the fused pipeline run there instead
+// (mrf_fused.cuh, viettts_mrf_fused_int8 below): wgmma s8 x s8 -> s32
+// over whole resblocks on chip, in the same float32 order, so each conv
+// stays bitwise the twin's.  Dynamic scales keep one launch a conv: a
+// conv's amax spans its whole input row, which no tile can know before the
+// previous conv ends.
+//
 // What bounds it on the H100: the MRF convs' 2 * B * L * C^2 * 126
 // operations at the dense int8 rate (1,979 TOP/s), the prologue's
 // 2 * B * L * C * C_in * k/u at the FP64 tensor rate (67 TFLOP/s); bytes
@@ -49,6 +57,7 @@
 #include <cstdint>
 
 #include "mrf_common.cuh"
+#include "mrf_fused.cuh"
 
 namespace {
 
@@ -148,4 +157,15 @@ extern "C" int viettts_mrf_conv_int8_plan(int out_bf16, int B, int L, int C, flo
     if (err != 0) return err;
   }
   return 0;
+}
+
+// The static-scale int8 MRF of a stage on the fused pipeline
+// (mrf_fused.cuh): as viettts_mrf_fused, with w1, w2 the K-major codes
+// [units, k, C_out, C_in], s1, s2 their scales [units, C] and act the
+// calibrated amaxes in flat conv order (act_scales).
+extern "C" int viettts_mrf_fused_int8(int out_bf16, int B, int L, int C, int n_res, int win, int bm, int stages,
+                                      int ctas, const void* x, const void* res, const void* act, void* out,
+                                      void* stream) {
+  return viettts::fused_launch<viettts::FRoute::kInt8>(out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res,
+                                                       act, out, static_cast<cudaStream_t>(stream));
 }

@@ -52,6 +52,11 @@ SIGNATURES = {
     "viettts_mrf_conv": [I, I] + [P] * 6 + [I] * 8 + [F, P],
     # w_bf16, out_bf16, B, L, C, div, n, plan (n rows of PLAN_FIELDS int64), stream
     "viettts_mrf_conv_plan": [I] * 5 + [F, I, P, P],
+    # out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res (n_res rows of
+    # FUSED_RES_FIELDS int64), out, stream
+    "viettts_mrf_fused": [I] * 9 + [P] * 4,
+    # out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res, act, out, stream
+    "viettts_mrf_fused_int8": [I] * 9 + [P] * 5,
     # w_bf16, x, w, bias, out, B, L, C, C_post, k, stream
     "viettts_mrf_post": [I, P, P, P, P] + [I] * 5 + [P],
     # x_bf16, y_f32, n, stream

@@ -41,6 +41,16 @@ of 128 lanes); longer inputs differ from JAX by design.
 
 ``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``) on CUDA
 tensors and ``fused_mrf_plain`` on CPU tensors; any other device raises.
+On CUDA the MRF convs take one of two pipelines, by the plan alone:
+
+* the fused pipeline (``csrc/mrf_fused.cuh``) on the bf16 and static
+  int8 routes at the widths of ``FUSED_CHANNELS``: a launch runs whole
+  resblocks for time tiles on chip (``plan_fused``; ``fused_mrf_tiled`` is
+  its schedule in plain PyTorch, for the tests);
+* the per-conv pipeline (``mma_conv_kernel``, one launch plan of 18 convs
+  a stage) at other widths (the default's first stage, C = 256, whose tile
+  does not fit beside its halo), on the float32 route and for dynamic int8
+  scales.
 ``fused_mrf.launches`` counts stages that launched K2 kernels (on the int8
 route: the epilogue or a bf16 input's cast), ``fused_mrf.int8_launches``
 stages that launched K3 (the int8 MRF convs and the float64 prologue), and
@@ -62,6 +72,26 @@ LRELU_SLOPE = 0.1
 POST_LRELU_SLOPE = 0.01  # torch's default slope, as upstream HiFi-GAN uses
 MAX_POST_CHANNELS = 4  # the epilogue kernel keeps one accumulator per channel
 PLAN_FIELDS = 13  # int64 fields of a conv in a launch plan (csrc/mrf_common.cuh)
+
+# The fused resblock pipeline (csrc/mrf_fused.cuh): its launch constants
+# and shared-memory formula, which tests/test_torch_mrf_fused.py holds to
+# the source; ``plan_fused`` plans a stage and the C side checks the plan.
+# It takes the bf16 and static int8 stages of these widths, where it beat
+# the per-conv pipeline on the H100 at B=1 (512 mel frames), B=2 (128) and
+# B=64 (768) alike; at C = 128 it did not, and the float32 route lost at
+# every width (PERF.md §6).
+FUSED_CHANNELS = (32, 64)
+FUSED_BOX = 256  # rows of a TMA box: a wider window takes two of half its rows
+FUSED_BLOCK = 64  # rows of a wgmma block; a tile has at least this many
+FUSED_MAX_BLOCKS = 8  # blocks a conv's range may span: windows of up to 512 rows
+FUSED_MAX_RES = 4
+FUSED_MAX_UNITS = 4
+FUSED_RES_FIELDS = 13  # int64 fields of a resblock in a launch's table
+FUSED_MIN_STAGES, FUSED_MAX_STAGES = 2, 4  # ring slots the kernel takes
+FUSED_SLOT_BYTES = 16384  # weight bytes a ring slot holds at most (as many taps as fit)
+FUSED_TRAITS = {"bf16": (2, 2), "int8": (1, 1)}  # route: (row-buffer element bytes, weight element bytes)
+FUSED_RING = (3, 2)  # ring depths the plan tries
+SMEM_LIMIT = 232_448  # shared memory a block may opt in to on the H100
 
 
 class Tf32Conv(NamedTuple):
@@ -184,10 +214,11 @@ def _conv_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> tor
 
 def _conv_int8(
     x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
-    d: int, act: Optional[torch.Tensor],
+    d: int, act: Optional[torch.Tensor], same: bool = True,
 ) -> torch.Tensor:
-    """One quantized SAME conv on the float32 conv input x [B, C, L], in
-    the TPU kernel's order of float32 operations (``mrf.py:280-357``).
+    """One quantized SAME conv (``same=False``: unpadded) on the float32
+    conv input x [B, C, L], in the TPU kernel's order of float32
+    operations (``mrf.py:280-357``).
     ``act`` is the calibrated amax (static; inputs beyond it clip) or None
     (dynamic: the amax of each batch row, no clip).  The integer dot runs
     as a float64 conv of the codes, which is exact: its sums stay far below
@@ -204,7 +235,7 @@ def _conv_int8(
     k = codes.shape[0]
     dot = F.conv1d(
         q.double(), codes.double().permute(2, 1, 0),
-        padding=d * (k - 1) // 2, dilation=d,
+        padding=d * (k - 1) // 2 if same else 0, dilation=d,
     )
     return dot.float() * mult + b[None, :, None]
 
@@ -256,6 +287,191 @@ def mrf_walk(
         return _conv_same(inp, _dense(w)[j], b[j], d)
 
     return _mrf_stack(h, weights, kernel_sizes, dilations, conv), vals
+
+
+# ---------------------------------------------------------------------------
+# The fused pipeline's plan, and its tile schedule in plain PyTorch.
+# ---------------------------------------------------------------------------
+
+
+class FusedLaunch(NamedTuple):
+    """The fused kernel's launch for a stage: its ``n_res`` resblocks on
+    tiles of ``bm`` output rows in windows of ``win = bm + 2 * halo`` rows,
+    ``tiles_per_row`` a batch row, by ``ctas`` persistent blocks with a
+    weight ring of ``stages`` slots."""
+
+    n_res: int
+    halo: int
+    win: int
+    bm: int
+    stages: int
+    tiles_per_row: int
+    ctas: int
+    smem_bytes: int
+
+
+def fused_halo(k: int, dils: Sequence[int], resblock2: bool) -> int:
+    """Rows a resblock's convs reach on each side: (k-1)/2 per unit of
+    dilation, (k-1)/2 * (d + 1) for a ResBlock1 unit's two convs."""
+    return (k - 1) // 2 * sum(d if resblock2 else d + 1 for d in dils)
+
+
+def fused_slot_bytes(route: str, C: int) -> int:
+    """``fused_slot_bytes`` of csrc/mrf_fused.cuh: as many weight taps (C x
+    C elements) as fit FUSED_SLOT_BYTES."""
+    we = FUSED_TRAITS[route][1]
+    return FUSED_SLOT_BYTES // (C * C * we) * (C * C * we)
+
+
+def fused_smem_bytes(route: str, C: int, win: int, bm: int, stages: int) -> int:
+    """``fused_smem_bytes`` of csrc/mrf_fused.cuh."""
+    op = FUSED_TRAITS[route][0]
+    return 256 + stages * fused_slot_bytes(route, C) + win * C * (4 + op) + bm * C * 4
+
+
+def fused_windows() -> List[int]:
+    """The window rows the kernel takes: multiples of 8 (128-byte aligned
+    TMA destinations) up to one box, of 16 past it (two boxes of half the
+    rows), up to FUSED_BLOCK * FUSED_MAX_BLOCKS."""
+    return list(range(8, FUSED_BOX + 1, 8)) + list(range(FUSED_BOX + 16, FUSED_BLOCK * FUSED_MAX_BLOCKS + 1, 16))
+
+
+def fused_block_rows(win: int, halo: int, k: int, dils: Sequence[int], resblock2: bool, block: int = FUSED_BLOCK) -> int:
+    """Rows the fused kernel computes for one resblock in one tile of a
+    ``win``-row window with the launch's ``halo``: each conv's output range
+    (shrinking by its reach) in whole ``block``-row blocks."""
+    lo = halo - fused_halo(k, dils, resblock2)
+    hi, rows = win - lo, 0
+    for d in dils:
+        for dil in (d,) if resblock2 else (d, 1):
+            lo, hi = lo + (k - 1) // 2 * dil, hi - (k - 1) // 2 * dil
+            rows += -(-(hi - lo) // block) * block
+    return rows
+
+
+def plan_fused(
+    route: str, C: int, kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]],
+    resblock2: bool, B: int, L: int, sms: int,
+) -> Optional[FusedLaunch]:
+    """The fused kernel's launch for a stage of width C on ``route``
+    (``bf16`` or ``int8`` with static scales), or None where it does not
+    take the stage (C outside ``FUSED_CHANNELS``, or no tile fits a
+    block's shared memory): those stages take the per-conv pipeline.  Of
+    the (ring depth in ``FUSED_RING``, window) pairs that fit, it takes the
+    one whose busiest block computes the fewest rows: tiles a block (the
+    persistent grid's waves, ``B * tiles_per_row`` tiles over ``sms``
+    blocks) times the rows a tile computes (``fused_block_rows``: the halo
+    and the 64-row blocks); then the fewest rows per output row, the deeper
+    ring, the wider window."""
+    return _plan_fused(route, C, tuple(kernel_sizes), tuple(map(tuple, dilations)), resblock2, B, L, sms)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_fused(route, C, kernel_sizes, dilations, resblock2, B, L, sms):
+    """``plan_fused`` on hashable arguments, once per shape: the search
+    costs ~0.6 ms of host time, more than a small stage's kernel."""
+    if (C not in FUSED_CHANNELS or route not in FUSED_TRAITS or len(kernel_sizes) > FUSED_MAX_RES
+            or any(len(d) > FUSED_MAX_UNITS for d in dilations)):
+        return None
+    H = max(fused_halo(k, d, resblock2) for k, d in zip(kernel_sizes, dilations))
+    fits = [(stages, w) for stages in FUSED_RING for w in fused_windows()
+            if w - 2 * H >= FUSED_BLOCK and fused_smem_bytes(route, C, w, w - 2 * H, stages) <= SMEM_LIMIT]
+    if not fits:
+        return None
+
+    def cost(pair):
+        stages, w = pair
+        rows = sum(fused_block_rows(w, H, k, d, resblock2) for k, d in zip(kernel_sizes, dilations))
+        waves = -(-B * -(-L // (w - 2 * H)) // sms)
+        return waves * rows, rows / (w - 2 * H), -stages, -w
+
+    stages, win = min(fits, key=cost)
+    bm = win - 2 * H
+    tiles = -(-L // bm)
+    return FusedLaunch(len(kernel_sizes), H, win, bm, stages, tiles, min(B * tiles, sms),
+                       fused_smem_bytes(route, C, win, bm, stages))
+
+
+def fused_route_name(route: str, int8_static: bool = False) -> Optional[str]:
+    """The fused kernel's route for a serving route (``bfloat16``,
+    ``float32``, ``int8``): None for float32 (its 3xTF32 fused tiles lost
+    to the per-conv pipeline at every width on the H100) and for int8 with
+    dynamic scales (their amax spans a conv's whole input row, so a conv
+    cannot start before its predecessor has finished every tile: one
+    launch a conv, ROADMAP K-c)."""
+    if route == "int8":
+        return "int8" if int8_static else None
+    return {"bfloat16": "bf16", "bf16": "bf16", "float32": None}[route]
+
+
+def fused_route(store, quantize_int8: bool, act_scales) -> Optional[str]:
+    """``fused_route_name`` of a ``fused_mrf`` call."""
+    if quantize_int8:
+        return fused_route_name("int8", act_scales is not None)
+    return fused_route_name("bfloat16" if store == torch.bfloat16 else "float32")
+
+
+def fused_mrf_tiled(
+    x: torch.Tensor,
+    weights: Sequence[Tuple],
+    kernel_sizes: Sequence[int],
+    dilations: Sequence[Sequence[int]],
+    launch: FusedLaunch,
+    *,
+    bf16_dots: bool = False,
+    quantize_int8: bool = False,
+    act_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The MRF stack on the float32 stage trunk x [B, L, C] as the fused
+    kernel schedules it (``launch``, from ``plan_fused``): every tile's
+    window of ``win`` rows from ``tile * bm - halo``, zero outside [0, L);
+    each conv computed on the rows its successors need (each input range
+    shrinks by the conv's reach) and its output set to 0 outside [0, L);
+    the ``bm`` centre rows summed over the resblocks.  Returns the float32
+    [B, L, C] stage output.  ``bf16_dots`` rounds each conv's lrelu input
+    as the bf16 route does; ``quantize_int8`` with ``act_scales`` runs the
+    static int8 convs.  Used by the tests, to hold the schedule (tile rows,
+    windows, re-zeroing) to ``fused_mrf_plain``."""
+    B, L, C = x.shape
+    h = x.float()
+    convs = [len(d) * (1 if w2 is None else 2) for (_, _, w2, _), d in zip(weights, dilations)]
+    H, W, bm, T = launch.halo, launch.win, launch.bm, launch.tiles_per_row
+    pos = torch.arange(T)[:, None] * bm - H + torch.arange(W)[None, :]  # [T, W]
+    valid = ((pos >= 0) & (pos < L)).to(h.device)
+    win = h[:, pos.clamp(0, L - 1).reshape(-1)].reshape(B, T, W, C) * valid[None, :, :, None]
+    win = win.reshape(B * T, W, C).transpose(1, 2)  # [tiles, C, W]
+    keep = valid.repeat(B, 1)[:, None, :].float()  # [tiles, 1, W]
+    tot = None
+    for i in range(len(kernel_sizes)):
+        w1, b1, w2, b2 = weights[i]
+        k = kernel_sizes[i]
+        lo = H - fused_halo(k, dilations[i], w2 is None)
+        hi = W - lo
+        index = sum(convs[:i])
+        r = win
+        for j, d in enumerate(dilations[i]):
+            src = r
+            steps = [(w1, b1, d)] + ([] if w2 is None else [(w2, b2, 1)])
+            for cv, (w, b, dil) in enumerate(steps):
+                inp = F.leaky_relu(src[:, :, lo:hi], LRELU_SLOPE)
+                if quantize_int8:
+                    y = _conv_int8(inp, w.codes[j], w.scales[j], b[j], dil, act_scales[index], same=False)
+                else:
+                    if bf16_dots:
+                        inp = inp.to(torch.bfloat16).float()
+                    y = F.conv1d(inp, _dense(w)[j].float().permute(2, 1, 0), b[j].float(), dilation=dil)
+                index += 1
+                p = (k - 1) // 2 * dil
+                lo, hi = lo + p, hi - p
+                y = y * keep[:, :, lo:hi]  # 0 outside [0, L): the next conv's SAME padding
+                out = torch.zeros_like(r)
+                out[:, :, lo:hi] = y + r[:, :, lo:hi] if cv == len(steps) - 1 else y
+                src = out
+            r = src
+        centre = r[:, :, H:H + bm]
+        tot = centre if tot is None else tot + centre
+    out = tot / _f32(len(kernel_sizes), tot)  # [B * T, C, bm]
+    return out.reshape(B, T, C, bm).permute(0, 1, 3, 2).reshape(B, T * bm, C)[:, :L].contiguous()
 
 
 def fused_mrf_plain(
@@ -544,15 +760,25 @@ def _fused_mrf_cuda(
         )
 
     n_blocks = len(kernel_sizes)
-    bufs = (torch.empty(B, L, C, **f32), torch.empty(B, L, C, **f32))
-    acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
     out_dtype = torch.float32 if post is not None else store
     out = torch.empty(B, L, C, dtype=out_dtype, device=x.device)
     out_bf = int(out_dtype == torch.bfloat16)
     if quantize_int8:
         fused_mrf.int8_launches += 1
-        # dynamic: one amax per (conv, batch row), filled by atomicMax
-        amax = torch.zeros(n_convs(weights), B, **f32) if act_scales is None else None
+    route = fused_route(store, quantize_int8, act_scales)
+    launch = None
+    if route is not None and C in FUSED_CHANNELS:
+        launch = plan_fused(route, C, kernel_sizes, dilations, weights[0][2] is None, B, L, _sm_count(x.device))
+    if launch is not None:
+        _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, launch, out, out_bf)
+        return out if post is None else _post(lib, stream, bf, out, post)
+
+    # the per-conv pipeline: the stages the fused one does not take, the
+    # float32 route and dynamic int8 scales (one amax per (conv, batch row),
+    # by atomicMax)
+    bufs = (torch.empty(B, L, C, **f32), torch.empty(B, L, C, **f32))
+    acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
+    amax = torch.zeros(n_convs(weights), B, **f32) if quantize_int8 and act_scales is None else None
     index = 0
 
     def other(t):
@@ -622,11 +848,16 @@ def _fused_mrf_cuda(
         code = lib.viettts_mrf_conv_plan(bf, out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows), stream)
     _build.check(code, "fused_mrf int8 convs" if quantize_int8 else "fused_mrf convs")
 
-    if post is None:
-        return out
+    return out if post is None else _post(lib, stream, bf, out, post)
+
+
+def _post(lib, stream, bf, out, post):
+    """The conv_post epilogue (leaky_relu(0.01), conv, tanh) on the stage
+    output [B, L, C] float32."""
     w_p, b_p = post
     kp, _, cp = w_p.shape
-    wave = torch.empty(B, L, cp, **f32)
+    B, L, C = out.shape
+    wave = torch.empty(B, L, cp, dtype=torch.float32, device=out.device)
     _build.check(
         lib.viettts_mrf_post(
             bf, out.data_ptr(), w_p.data_ptr(), b_p.data_ptr(), wave.data_ptr(),
@@ -635,6 +866,44 @@ def _fused_mrf_cuda(
         "fused_mrf epilogue",
     )
     return wave
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device) -> int:
+    return _device_sms(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, launch, out, out_bf):
+    """The stage's MRF on the fused pipeline: h the float32 trunk [B, L, C],
+    one C call for ``launch`` (``plan_fused``) with its table of
+    FUSED_RES_FIELDS int64 a resblock."""
+    B, L, C = h.shape
+    convs = [len(d) * (1 if w2 is None else 2) for (_, _, w2, _), d in zip(weights, dilations)]
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    rows = []
+    for i, (w1, b1, w2, b2) in enumerate(weights):
+        dils = list(dilations[i]) + [0] * (FUSED_MAX_UNITS - len(dilations[i]))
+        if route == "int8":  # the K-major codes and their scales
+            ws = [w1.kmajor.data_ptr(), 0 if w2 is None else w2.kmajor.data_ptr(), ptr(b1), ptr(b2),
+                  w1.scales.data_ptr(), 0 if w2 is None else w2.scales.data_ptr()]
+        else:
+            ws = [ptr(w1), ptr(w2), ptr(b1), ptr(b2), 0, 0]
+        rows += [*ws, kernel_sizes[i], len(dilations[i]), sum(convs[:i]), *dils]
+    table = (ctypes.c_longlong * len(rows))(*rows)
+    args = (B, L, C, launch.n_res, launch.win, launch.bm, launch.stages, launch.ctas, h.data_ptr(),
+            ctypes.addressof(table))
+    if route == "int8":
+        code = lib.viettts_mrf_fused_int8(out_bf, *args, act_scales.data_ptr(), out.data_ptr(), stream)
+    else:
+        code = lib.viettts_mrf_fused(out_bf, *args, out.data_ptr(), stream)
+    _build.check(code, f"fused_mrf {route} resblocks")
 
 
 def convt_f64(x: torch.Tensor, w_t: F64Conv, b_t: torch.Tensor, u: int, tile: int = -1) -> torch.Tensor:

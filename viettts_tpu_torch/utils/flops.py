@@ -11,10 +11,14 @@ model FLOPs utilization (MFU) against the card's dense peaks.
   Element-wise work (activations, norms, residual adds) is left out.
 * ``generator_issued_flops`` counts what the port's vocoder kernels issue
   instead: the tiles that ``mma_conv_kernel`` (``csrc/mrf_common.cuh``)
-  runs for each MRF conv and ConvTranspose prologue, their padding
-  included, and the conv_post epilogue's rows and channel chunks.  The tile
-  table, the chunk widths and the tile picker's constants are read from the
-  CUDA sources, so the count follows the kernels.
+  runs for each ConvTranspose prologue and the MRF convs of the stages
+  that the fused pipeline (``csrc/mrf_fused.cuh``) does not take, their
+  padding included; the fused pipeline's 64-row blocks over every tile's
+  window, its halo recompute included (``fused_issued_macs``); and the
+  conv_post epilogue's rows and channel chunks.  The tile table, the chunk
+  widths and the tile picker's constants are read from the CUDA sources,
+  so the count follows the kernels; the fused plan is ``ops/mrf.py``'s,
+  which the tests hold to its source.
 * ``device_peaks`` gives the dense peaks of the card it finds (H100 SXM and
   PCIe, NVIDIA's data sheets) and raises on any other: a utilization
   against some other card's peak would be a wrong number.
@@ -228,6 +232,7 @@ class KernelPlan(NamedTuple):
     int8_narrow: Tuple[int, int, Tuple[int, int, int]]  # (C_in bound, tile, (KC, BM, BN))
     post_rows: int  # conv_post: output rows per block
     post_chunk: int  # conv_post: input channels per chunk
+    fused_block: int  # the fused pipeline's wgmma block rows (mrf_fused.cuh)
 
 
 def _find(pattern: str, text: str, what: str) -> re.Match:
@@ -275,6 +280,8 @@ def kernel_plan() -> KernelPlan:
         int8_narrow=(int(i8.group(1)), int(i8.group(2)), (int(i8.group(3)), int(i8.group(4)), int(i8.group(5)))),
         post_rows=int(_find(r"constexpr int PT = (\d+);", float_cu, "conv_post's rows per block").group(1)),
         post_chunk=int(_find(r"constexpr int PK = (\d+);", float_cu, "conv_post's channel chunk").group(1)),
+        fused_block=int(_find(r"constexpr int FUSED_BLOCK = (\d+);", (CSRC / "mrf_fused.cuh").read_text(),
+                              "the fused pipeline's block rows").group(1)),
     )
 
 
@@ -315,15 +322,48 @@ def _issued_macs(plan, kind, B, L_rows, C_in, C_out, taps, phases, sm_count) -> 
     return -(-L_rows // bm) * bm * -(-C_out // bn) * bn * B * taps * -(-C_in // kc) * kc
 
 
-def generator_issued_flops(cfg, n_frames, batch=1, route="bfloat16", sm_count=H100_SXM.sm_count) -> int:
+def fused_issued_macs(launch, C, kernel_sizes, dilations, resblock2, batch, block=64) -> int:
+    """MACs the fused pipeline issues for a stage's MRF convs planned as
+    ``launch`` (``ops/mrf.py::plan_fused``): every tile computes, for each
+    resblock, ``fused_block_rows`` rows (each conv's output range in whole
+    ``block``-row blocks, over its window), taps x C x C MACs a row."""
+    from viettts_tpu_torch.ops.mrf import fused_block_rows
+
+    return sum(batch * launch.tiles_per_row * fused_block_rows(launch.win, launch.halo, k, d, resblock2, block)
+               * C * C * k for k, d in zip(kernel_sizes, dilations))
+
+
+def mrf_issued_flops(h, B, L, C, route, sm_count=H100_SXM.sm_count, int8_static=False) -> int:
+    """2 x the MACs the port issues for one stage's MRF convs (B rows of L
+    steps, C channels) on ``route``: the fused pipeline's blocks where
+    ``plan_fused`` takes the stage, else ``mma_conv_kernel``'s tiles."""
+    from viettts_tpu_torch.ops.mrf import fused_route_name, plan_fused
+
+    resblock2 = h.resblock != "1"
+    ks, ds = h.resblock_kernel_sizes, h.resblock_dilation_sizes
+    fused = fused_route_name(route, int8_static)
+    plan = kernel_plan()
+    launch = None if fused is None else plan_fused(fused, C, ks, ds, resblock2, B, L, sm_count)
+    if launch is not None:
+        return 2 * fused_issued_macs(launch, C, ks, ds, resblock2, B, plan.fused_block)
+    convs = 1 if resblock2 else 2
+    return 2 * sum(len(rd) * convs * _issued_macs(plan, ROUTE_PEAK[route], B, L, C, C, rk, 1, sm_count)
+                   for rk, rd in zip(ks, ds))
+
+
+def generator_issued_flops(cfg, n_frames, batch=1, route="bfloat16", sm_count=H100_SXM.sm_count,
+                           int8_static=False) -> int:
     """2 x the MACs the port's serving generator issues on ``route``
-    (``bfloat16``, ``float32`` or ``int8``) for a mel of ``n_frames``:
-    conv_pre (a torch conv, counted as needed), then per stage the
-    ConvTranspose prologue (bf16 or 3xTF32 tiles, float64 tiles on the int8
-    route) and the MRF convs (bf16, 3xTF32 or int8 tiles) as the kernels
-    tile them for a card of ``sm_count`` SMs, and conv_post's blocks.
-    3xTF32 runs three tensor-core products per MAC counted here.  Equals
-    ``generator_flops`` where every dimension divides its tile."""
+    (``bfloat16``, ``float32`` or ``int8``, with calibrated scales where
+    ``int8_static``) for a mel of ``n_frames``: conv_pre (a torch conv,
+    counted as needed), then per stage the ConvTranspose prologue (bf16 or
+    3xTF32 tiles, float64 tiles on the int8 route) and the MRF convs: on
+    the fused pipeline where it takes the stage (``fused_issued_macs``),
+    else bf16, 3xTF32 or int8 tiles as ``mma_conv_kernel`` tiles them, for
+    a card of ``sm_count`` SMs; and conv_post's blocks.  3xTF32 runs three
+    tensor-core products per MAC counted here.  Equals ``generator_flops``
+    where the fused pipeline takes no stage and every dimension divides
+    its tile."""
     h = _hifigan(cfg)
     plan = kernel_plan()
     kind = ROUTE_PEAK[route]
@@ -331,13 +371,11 @@ def generator_issued_flops(cfg, n_frames, batch=1, route="bfloat16", sm_count=H1
     L = n_frames
     macs = L * h.mel_dim * C0 * 7 * batch
     c_in = C0
-    convs = 2 if h.resblock == "1" else 1
     for i, (u, k) in enumerate(zip(h.upsample_rates, h.upsample_kernel_sizes)):
         C = C0 // 2 ** (i + 1)
         macs += _issued_macs(plan, "fp64" if kind == "int8" else kind, batch, L, c_in, C, k, u, sm_count)
         L *= u
-        for rk, rd in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes):
-            macs += len(rd) * convs * _issued_macs(plan, kind, batch, L, C, C, rk, 1, sm_count)
+        macs += mrf_issued_flops(h, batch, L, C, route, sm_count, int8_static) // 2
         c_in = C
     rows, chunk = plan.post_rows, plan.post_chunk
     macs += -(-L // rows) * rows * batch * 7 * -(-c_in // chunk) * chunk
@@ -431,6 +469,20 @@ def mrf_bound(h, B, T, route, peaks: Peaks) -> Tuple[float, str]:
         else:
             secs += mrf / peaks.int8 + pro_flop / peaks.fp64_tensor + post_flop / peaks.fp32
     return roofline(bytes_, secs, peaks)
+
+
+def mrf_stage_bound(h, B, L, C, route, peaks: Peaks) -> Tuple[float, str]:
+    """Roofline of one ResBlock1 stage's MRF convs alone (B rows of L
+    steps, C channels): the stage input read and its output written once in
+    the storage dtype (bf16; float32 on the float32 route), the MRF weights
+    read once (int8 codes on the int8 route); the products at the route's
+    peak (3xTF32: three TF32 products a product)."""
+    esize = {"bfloat16": 2, "float32": 4, "int8": 2}[route]
+    mrf_w = sum(len(d) * 2 * (k * C * C + C) for k, d in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
+    bytes_ = 2 * esize * B * L * C + (1 if route == "int8" else esize) * mrf_w
+    flop = mrf_flop(h, B, L, C, False)
+    peak = {"bfloat16": peaks.bf16, "float32": peaks.tf32 / 3, "int8": peaks.int8}[route]
+    return roofline(bytes_, flop / peak, peaks)
 
 
 # ---------------------------------------------------------------------------
