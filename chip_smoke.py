@@ -23,7 +23,11 @@
    beside this card's own plan), with both times and each kernel's roofline bound
    (``bound_ms``: the larger of its bytes over the HBM rate and its
    operations over the dense peak of their type, ``utils.flops``: the
-   card's data sheet).
+   card's data sheet).  Then ``check_bulk``: every stage's MRF convs at
+   B=64, 768 mel frames on each route beside cuDNN conv1d and the bound,
+   the C = 256 and 128 stages of the bf16 and static int8 routes on the
+   per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``) beside the same
+   stages on ``mma_conv_kernel``, held to their twins.
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
    counters zeroed just before it and read just after (every kernel of the
@@ -135,8 +139,10 @@
    warm-up, 2 timed runs), ``train`` (1 warm-up and 1 timed update of 4
    steps; 1 warm-up and 2 timed GAN steps a precision), ``vocoder_batch``
    at B = 1, 8 and 64 (1 warm-up, 2 timed runs), ``b1_vocoder`` at 1,024
-   frames (1 warm-up, 4 timed runs).
-9. A JSON line of per-kernel results, then the last line
+   frames (1 warm-up, 4 timed runs), ``stream`` (``bench_stream.py``'s
+   530-token text, 1 warm-up and the best of 2 runs of each).
+9. A JSON line of per-kernel results (K1, K2, K3, and the per-conv wgmma
+   pipeline of K2 and of K3 as their own entries), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -202,9 +208,9 @@ def time_ms(fn, reps=5):
 
 
 def seeded(rng, *shape, scale=1.0):
-    import numpy as np
+    from viettts_tpu_torch.bench.seeded import seeded as draw
 
-    return (rng.standard_normal(shape) * scale).astype(np.float32)
+    return draw(rng, *shape, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -433,14 +439,18 @@ def check_bulk(dev, cfg, reps=3):
     frames), each stage alone: the kernel's time, the cuDNN conv1d time of
     the stage's 18 convs (bf16; float32 with TF32 off; the int8 route has
     none), the MRF-only roofline bound and the issued TFLOP/s or TOP/s.
-    Stages 1-3 (C = 128 on the per-conv pipeline, C = 64 and 32 on the
-    fused one where the route takes it, one launch for the stage) are held
-    to their twins at the phase's bars: float32 rtol 1e-5 + atol 1e-4,
-    bf16 rel-RMS 1e-3 against the bf16-operand twin and 0.02 of the output
-    scale, static int8 bitwise."""
+    The bf16 and static int8 stages that the per-conv wgmma pipeline takes
+    (C = 256 and 128) are also timed on ``mma_conv_kernel``
+    (``mrf.CONV_WGMMA`` off) beside it, and their twins timed once.  Held
+    to their twins at the phase's bars: every bf16 and static int8 stage
+    (C = 256 and 128 on the wgmma pipeline, C = 64 and 32 on the fused
+    one, one launch for the stage) and stages 1-3 of the float32 route:
+    float32 rtol 1e-5 + atol 1e-4, bf16 rel-RMS 1e-3 against the
+    bf16-operand twin and 0.02 of the output scale, static int8 bitwise."""
     import numpy as np
     import torch
 
+    from viettts_tpu_torch.ops import mrf
     from viettts_tpu_torch.ops.mrf import fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights
     from viettts_tpu_torch.utils.flops import device_peaks, mrf_issued_flops, mrf_stage_bound, stage_shapes
 
@@ -450,14 +460,15 @@ def check_bulk(dev, cfg, reps=3):
     ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
     B, T = BULK
     out = {r: {"stages_ms": [], "library_stages_ms": [], "bound_stages_ms": [], "issued_flop": 0,
-               "max_abs_err": 0.0, "rel_rms": 0.0}
+               "max_abs_err": 0.0, "rel_rms": 0.0, "wgmma": {}}
            for r in ("bfloat16", "float32", "int8", "int8_dynamic")}
     for i, (C_in, C, k_u, u, L_in, post) in enumerate(stage_shapes(cfg, T)):
         L = L_in * u
         w32, ups32, _ = stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
         h32 = torch.from_numpy(seeded(rng, B, L, C)).to(dev)
-        check = i > 0
         for route in out:
+            check = i > 0 if route == "float32" else route != "int8_dynamic"
+            wgmma = route in ("bfloat16", "int8") and mrf.conv_takes("bf16" if route == "bfloat16" else "int8", B, L, C)
             if route.startswith("int8"):
                 dtype, h = torch.bfloat16, h32.to(torch.bfloat16)
                 act = None
@@ -479,9 +490,28 @@ def check_bulk(dev, cfg, reps=3):
             r["bound_stages_ms"].append(mrf_stage_bound(cfg, B, L, C, bound_route, peaks)[0])
             r["bound_by"] = mrf_stage_bound(cfg, B, L, C, bound_route, peaks)[1]
             r["issued_flop"] += mrf_issued_flops(cfg, B, L, C, bound_route, sms, route == "int8")
-            if check and route != "int8_dynamic":
+            if wgmma:  # the same stage on mma_conv_kernel, the pipeline it replaces
+                mrf.CONV_WGMMA = False
+                try:
+                    per_conv = time_ms(lambda: fused_mrf(h, w, ks, ds, **kw), reps)
+                finally:
+                    mrf.CONV_WGMMA = True
+                r["wgmma"][C] = {"ms": r["stages_ms"][-1], "per_conv_ms": per_conv,
+                                 "cudnn_bf16_ms": out["bfloat16"]["library_stages_ms"][i],
+                                 "bound_ms": r["bound_stages_ms"][-1], "bound_by": r["bound_by"],
+                                 "issued_flop": mrf_issued_flops(cfg, B, L, C, bound_route, sms, route == "int8")}
+                log(f"bulk B={B} {T} frames stage {i} (C={C}) {route}: per-conv wgmma {r['stages_ms'][-1]:.3f} ms, "
+                    f"mma_conv_kernel {per_conv:.3f} ms, cuDNN bf16 {r['wgmma'][C]['cudnn_bf16_ms']:.3f} ms, bound "
+                    f"{r['bound_stages_ms'][-1]:.3f} ms ({r['bound_by']})")
+            if check:
                 got = fused_mrf(h, w, ks, ds, **kw).float()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
                 want = fused_mrf_plain(h, w, ks, ds, bf16_dots=route == "bfloat16", **kw).float()
+                end.record()
+                torch.cuda.synchronize()
+                if wgmma:
+                    r["wgmma"][C]["plain_ms"] = start.elapsed_time(end)
                 err, rel = (got - want).abs().max().item(), rel_rms(got, want)
                 r["max_abs_err"], r["rel_rms"] = max(r["max_abs_err"], err), max(r["rel_rms"], rel)
                 if route == "float32":
@@ -490,6 +520,8 @@ def check_bulk(dev, cfg, reps=3):
                     ok = rel <= K2_BF16_DOTS_REL_RMS and err <= K2_BF16_REL * max(want.abs().max().item(), 1.0)
                 else:
                     ok = err == 0.0
+                if wgmma:
+                    r["wgmma"][C].update(max_abs_err=err, rel_rms=rel)
                 log(f"bulk B={B} {T} frames stage {i} (C={C}, L={L}) {route}: max|kernel - twin| {err:.3e}, "
                     f"rel-RMS {rel:.2e}")
                 if not ok:
@@ -632,102 +664,16 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
 # ---------------------------------------------------------------------------
 
 
-def _lstm(rng, d_in, h):
-    from viettts_tpu_torch.checkpoint import LSTMParams
-
-    s = (d_in + h) ** -0.5
-    return LSTMParams(seeded(rng, d_in, 4 * h, scale=s), seeded(rng, h, 4 * h, scale=s), seeded(rng, 4 * h, scale=0.05))
-
-
-def _dense(rng, i, o, bias=True):
-    d = {"kernel": seeded(rng, i, o, scale=i ** -0.5)}
-    if bias:
-        d["bias"] = seeded(rng, o, scale=0.05)
-    return d
-
-
-def _conv(rng, k, i, o, gain=1.0):
-    return {"kernel": seeded(rng, k, i, o, scale=gain * (k * i) ** -0.5), "bias": seeded(rng, o, scale=0.05)}
-
-
-def _bn(rng, c):
-    import numpy as np
-
-    params = {"scale": 1.0 + seeded(rng, c, scale=0.1), "bias": seeded(rng, c, scale=0.05)}
-    stats = {"mean": seeded(rng, c, scale=0.05), "var": np.abs(1.0 + seeded(rng, c, scale=0.1))}
-    return params, stats
-
-
-def _encoder(rng, vocab, C):
-    p = {"embed": {"embedding": seeded(rng, vocab, C)}}
-    s = {}
-    for i in range(3):
-        p[f"conv_{i}"] = _conv(rng, 3, C, C)
-        p[f"bn_{i}"], s[f"bn_{i}"] = _bn(rng, C)
-    p["lstm_fwd"], p["lstm_bwd"] = _lstm(rng, C, C), _lstm(rng, C, C)
-    return p, s
-
-
 def seeded_variables(cfg, seed=0):
-    """Seeded numpy variable trees in the JAX package's layout for the
-    three models of ``cfg``: weights at 1/sqrt(fan_in), BatchNorm near
-    identity, and a duration-head bias of -2.5 so that tokens last about
-    80 ms, a speaking pace."""
-    import numpy as np
+    from viettts_tpu_torch.bench.seeded import seeded_variables as variables
 
-    rng = np.random.default_rng(seed)
-    dc, ac, hc = cfg.duration, cfg.acoustic, cfg.hifigan
-
-    enc_p, enc_s = _encoder(rng, dc.vocab_size, dc.lstm_dim)
-    head = _dense(rng, dc.lstm_dim, 1)
-    head["bias"] = np.full((1,), -2.5, np.float32)
-    duration = {
-        "params": {"encoder": enc_p, "proj_0": _dense(rng, 2 * dc.lstm_dim, dc.lstm_dim), "proj_1": head},
-        "batch_stats": {"encoder": enc_s},
-    }
-
-    C, P, H, D = 2 * ac.encoder_dim, ac.prenet_dim, ac.decoder_dim, ac.mel_dim
-    enc_p, enc_s = _encoder(rng, ac.vocab_size, ac.encoder_dim)
-    params = {
-        "encoder": enc_p,
-        "decoder_lstm1": _lstm(rng, C + P, H),
-        "decoder_lstm2": _lstm(rng, C + P + H, H),
-        "prenet_fc1": _dense(rng, D, P, bias=False),
-        "prenet_fc2": _dense(rng, P, P, bias=False),
-        "projection": _dense(rng, 2 * H, D),
-    }
-    stats = {"encoder": enc_s}
-    dims = [D] + [ac.postnet_dim] * 4 + [D]
-    for i in range(5):
-        params[f"postnet_conv_{i}"] = _conv(rng, 5, dims[i], dims[i + 1])
-    for i in range(4):
-        params[f"postnet_bn_{i}"], stats[f"postnet_bn_{i}"] = _bn(rng, ac.postnet_dim)
-    acoustic = {"params": params, "batch_stats": stats}
-
-    c0 = hc.upsample_initial_channel
-    gen = {"conv_pre": _conv(rng, 7, hc.mel_dim, c0)}
-    n = len(hc.resblock_kernel_sizes)
-    for i, (u, k) in enumerate(zip(hc.upsample_rates, hc.upsample_kernel_sizes)):
-        ch = c0 // 2 ** (i + 1)
-        gen[f"ups_{i}"] = {
-            "kernel": seeded(rng, k, 2 * ch, ch, scale=(k * 2 * ch / u) ** -0.5),
-            "bias": seeded(rng, ch, scale=0.05),
-        }
-        for j, (rk, rd) in enumerate(zip(hc.resblock_kernel_sizes, hc.resblock_dilation_sizes)):
-            names = [f"convs1_{m}" for m in range(len(rd))] + [f"convs2_{m}" for m in range(len(rd))]
-            gen[f"resblock_{i * n + j}"] = {nm: _conv(rng, rk, ch, ch, gain=0.5) for nm in names}
-    gen["conv_post"] = _conv(rng, 7, c0 // 2 ** len(hc.upsample_rates), 1, gain=2.0)
-    return {"duration": duration, "acoustic": acoustic, "hifigan": {"params": gen}}
+    return variables(cfg, seed)
 
 
 def write_checkpoints(cfg, d: Path) -> None:
-    import pickle
+    from viettts_tpu_torch.bench.seeded import write_checkpoints as write
 
-    from viettts_tpu_torch.checkpoint import NATIVE_FORMAT
-
-    for kind, variables in seeded_variables(cfg).items():
-        with open(d / f"{kind}_latest_ckpt.pickle", "wb") as f:
-            pickle.dump({"format": NATIVE_FORMAT, "step": 0, "variables": variables}, f)
+    write(cfg, d)
 
 
 def check_result(res, what):
@@ -1188,16 +1134,19 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
             check_result(synth.synthesize(SENTENCE), f"synthesize ({route}, lead)")
         int8 = route == "int8"
         counted = (ar_decode.launches, ar_decode.plain_calls, fused_mrf.launches, fused_mrf.int8_launches,
-                   fused_mrf.plain_calls)
-        want = (LEAD_COUNTED, 0, 4 * LEAD_COUNTED, 4 * LEAD_COUNTED if int8 else 0, 0)
-        log(f"lead program ({route}): {LEAD_COUNTED} replays counted (K1, K1 twin, K2, K3, K2/K3 twin) "
-            f"{counted}, want {want}")
+                   fused_mrf.plain_calls, fused_mrf.conv_launches, fused_mrf.int8_conv_launches)
+        # the 512-frame lead's C = 256 and 128 stages on the per-conv wgmma pipeline (bf16, calibrated int8)
+        want = (LEAD_COUNTED, 0, 4 * LEAD_COUNTED, 4 * LEAD_COUNTED if int8 else 0, 0,
+                2 * LEAD_COUNTED if route == "bfloat16" else 0, 2 * LEAD_COUNTED if int8 else 0)
+        log(f"lead program ({route}): {LEAD_COUNTED} replays counted (K1, K1 twin, K2, K3, K2/K3 twin, "
+            f"their wgmma stages bf16, int8) {counted}, want {want}")
         if counted != want:
             raise AssertionError(f"lead program ({route}): replays counted {counted}, want {want}")
         zero()
         stats["timings"] = t = lead_timings(synth)
         stats["launches"] = read(f"lead program ({route})",
-                                 ["ar_decode", "fused_mrf"] + (["fused_mrf_int8"] if int8 else []))
+                                 ["ar_decode", "fused_mrf"] + (["fused_mrf_int8", "mrf_conv_wgmma_int8"] if int8 else [])
+                                 + (["mrf_conv_wgmma"] if route == "bfloat16" else []))
         log(f"lead program ({route}): B=1 latency of SENTENCE lead {1e3 * t['lead']['b1_latency_s']:.1f} ms "
             f"{[round(1e3 * v, 1) for v in t['lead']['b1_runs_s']]}, bucketed "
             f"{1e3 * t['bucketed']['b1_latency_s']:.1f} ms {[round(1e3 * v, 1) for v in t['bucketed']['b1_runs_s']]}; "
@@ -2289,15 +2238,17 @@ def bench_phase(zero, read):
     before and read after each (the programs themselves refuse a twin or
     a missing kernel on the card).  Returns the results, seconds and
     launches by program."""
-    from viettts_tpu_torch.bench import b1_vocoder, batch, e2e, train, vocoder_batch
+    from viettts_tpu_torch.bench import b1_vocoder, batch, e2e, stream, train, vocoder_batch
 
     programs = (
-        ("e2e", lambda: e2e.run(iters=3, warmup=1), ["ar_decode", "fused_mrf"]),
-        ("batch", lambda: batch.run(iters=2, warmup=1), ["ar_decode", "fused_mrf"]),
+        ("e2e", lambda: e2e.run(iters=3, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
+        ("batch", lambda: batch.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
         ("train", lambda: train.run(iters=1, warmup=1, gan_steps=2), []),
         ("vocoder_batch", lambda: vocoder_batch.run(iters=2, warmup=1, batches=BENCH_VOCODER_BATCHES),
-         ["fused_mrf"]),
-        ("b1_vocoder", lambda: b1_vocoder.run(iters=4, warmup=1), ["fused_mrf", "fused_mrf_int8"]),
+         ["fused_mrf", "mrf_conv_wgmma"]),
+        ("b1_vocoder", lambda: b1_vocoder.run(iters=4, warmup=1),
+         ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8"]),
+        ("stream", lambda: stream.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
     )
     results, seconds, launches = {}, {}, {}
     with _torch_defaults():
@@ -2308,7 +2259,7 @@ def bench_phase(zero, read):
             seconds[name] = time.perf_counter() - t0
             launches[name] = read(f"bench {name}", kernels)
             print(json.dumps(results[name]), flush=True)
-    e, b, t, v, b1 = (results[n] for n, _, _ in programs)
+    e, b, t, v, b1, st = (results[n] for n, _, _ in programs)
     log(f"bench e2e: RTF {e['value']:.5f} (vs 0.01 target {e['vs_baseline']:.3f}), stages "
         + ", ".join(f"{k} {ms:.2f} ms" for k, ms in e["stage_ms"].items())
         + f"; batch B=64: {b['full_pipeline_audio_secs_per_sec']:.1f} s-audio/s, full {b['full_pipeline_ms']:.1f} ms,"
@@ -2316,6 +2267,9 @@ def bench_phase(zero, read):
         f"{t['vocoder_gan']['steps_per_sec_f32']:.3f} (f32) / {t['vocoder_gan']['steps_per_sec_bf16']:.3f} (bf16) "
         f"steps/s; vocoder " + ", ".join(f"B={r['batch']} {r['route']} {r['ms']:.2f} ms" for r in v["rows"])
         + "; B=1 " + ", ".join(f"{k} {r['ms']:.2f} ms" for k, r in b1["routes"].items())
+        + f"; stream: first audio {1e3 * st['stream_first_chunk_s']:.1f} ms (lead 0: "
+        f"{1e3 * st['stream_first_chunk_full_lead_s']:.1f} ms), one shot {1e3 * st['one_shot_latency_s']:.1f} ms, "
+        f"{st['text_tokens']} tokens"
         + "; seconds " + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
     return {"results": results, "seconds": seconds}, launches
 
@@ -2359,11 +2313,14 @@ def main() -> int:
     def zero_counts():
         ar_decode.launches = ar_decode.plain_calls = 0
         fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
+        fused_mrf.conv_launches = fused_mrf.int8_conv_launches = 0
 
     def read_counts(path, kernels):
         counts = {"ar_decode": (ar_decode.launches, ar_decode.plain_calls),
                   "fused_mrf": (fused_mrf.launches, fused_mrf.plain_calls),
-                  "fused_mrf_int8": (fused_mrf.int8_launches, fused_mrf.plain_calls)}
+                  "fused_mrf_int8": (fused_mrf.int8_launches, fused_mrf.plain_calls),
+                  "mrf_conv_wgmma": (fused_mrf.conv_launches, fused_mrf.plain_calls),
+                  "mrf_conv_wgmma_int8": (fused_mrf.int8_conv_launches, fused_mrf.plain_calls)}
         log(f"{path} launches (kernel, plain twin): {counts}")
         for name in kernels:
             launches, plain = counts[name]
@@ -2376,10 +2333,11 @@ def main() -> int:
         write_checkpoints(cfg, tmp)
         zero_counts()
         stats = main_path(cfg, tmp, tmp)
-        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf"])
+        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf", "mrf_conv_wgmma"])
         zero_counts()
         stats["int8"], int8_synth = int8_path(cfg, tmp, tmp)
-        launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
+        launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8",
+                                                         "mrf_conv_wgmma_int8"])
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
         t0 = time.perf_counter()
@@ -2391,7 +2349,8 @@ def main() -> int:
         train["gan"], vocoder = gan_phase(cfg, tmp / "corpus", trained, tmp)
         zero_counts()
         train["round_trip"] = round_trip(cfg, trained, vocoder, GAN_STEPS + GTA_STEPS)
-        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf", "fused_mrf_int8"])
+        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf", "fused_mrf_int8",
+                                                            "mrf_conv_wgmma", "mrf_conv_wgmma_int8"])
         train["card_vs_cpu"] = train_card_vs_cpu()
         train["gan_card_vs_cpu"] = gan_card_vs_cpu()
 
@@ -2493,6 +2452,38 @@ def main() -> int:
                     for (B, T), rows in k3_times.items()},
          "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
+    ]
+    def wgmma_entry(name, counter, route, main, source_note):
+        """The per-conv wgmma pipeline on one route: its C = 256 and 128
+        stages' MRF convs at the bulk shape (``check_bulk``), beside the
+        twin, mma_conv_kernel, cuDNN bf16 and the bound; launches from the
+        paths that ran it."""
+        w = bulk[route]["wgmma"]
+        return {
+            "name": name, "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_conv_wgmma.cuh",
+            "replaces": f"viettts_tpu/ops/mrf.py:440 ({source_note})", "launches": main[counter],
+            "launches_lead": {r: n[counter] for r, n in launches_lead.items()},
+            "launches_round_trip": launches_trained[counter],
+            "launches_bench": {n: c[counter] for n, c in launches_bench.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in w.values()),
+            "max_rel_rms": max(v["rel_rms"] for v in w.values()),
+            "ms": sum(v["ms"] for v in w.values()), "plain_ms": sum(v["plain_ms"] for v in w.values()),
+            "per_conv_ms": sum(v["per_conv_ms"] for v in w.values()),
+            "bound_ms": sum(v["bound_ms"] for v in w.values()), "bound_by": w[max(w)]["bound_by"],
+            "library_ms": sum(v["cudnn_bf16_ms"] for v in w.values()) if route == "bfloat16" else None,
+            "cudnn_bf16_ms": sum(v["cudnn_bf16_ms"] for v in w.values()),
+            "library": ("the stages' 18 MRF convs each as torch conv1d calls (cuDNN), bf16" if route == "bfloat16"
+                        else "none: no PyTorch call runs int8 convolutions (cudnn_bf16_ms: cuDNN bf16 as a yardstick)"),
+            "issued_tflops": sum(v["issued_flop"] for v in w.values()) / sum(v["ms"] for v in w.values()) / 1e9,
+            "stages": {str(C): v for C, v in w.items()},
+            "shape": f"the MRF convs of the C = 256 and 128 stages summed, B={BULK[0]}, {BULK[1]} mel frames; "
+                     "per_conv_ms: the same on mma_conv_kernel; plain_ms: the twin, one run"}
+
+    kernels += [
+        wgmma_entry("mrf_conv_wgmma", "mrf_conv_wgmma", "bfloat16", launches,
+                    "the MRF convs of the C = 256 and 128 stages, bf16"),
+        wgmma_entry("mrf_conv_wgmma_int8", "mrf_conv_wgmma_int8", "int8", launches_int8,
+                    "quantize_int8 with static scales: the MRF convs of the C = 256 and 128 stages"),
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train,
                     "multi_device": multi, "validation": validation, "snap": snap,

@@ -28,7 +28,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # the same sentence and batch as chip_smoke.py's main path
 from chip_smoke import BATCH_TEXTS, SENTENCE, write_checkpoints  # noqa: E402
 
-PORT_KERNELS = {  # kernel names in viettts_tpu_torch/csrc; mma_conv_kernel and mrf_fused_kernel by their route
+# kernel names in viettts_tpu_torch/csrc: mma_conv_kernel by its traits; mrf_fused_kernel,
+# mrf_conv_wgmma_kernel and conv_operand_kernel by their route, (viettts::FRoute)0 bf16 or 1 int8
+PORT_KERNELS = {
     "K1": ("ar_decode_grid",),
     "K2": ("Bf16Mma", "Tf32Mma", "post_kernel", "to_f32_kernel", "FRoute)0"),
     "K3": ("Int8Mma", "F64Mma", "absmax_kernel", "FRoute)1"),

@@ -13,11 +13,14 @@ enqueue them, and each stage's time alone.  Prints the card's name and
 power limit, then one JSON line.
 
 ``--pipelines`` times instead, for the bf16 and static int8 routes, the
-MRF convs alone of each stage that the fused pipeline takes
-(``mrf.FUSED_CHANNELS``) on the fused pipeline and on the per-conv one, in
-turns in one process (per-conv, fused, fused, per-conv; the per-conv runs
-with ``FUSED_CHANNELS`` emptied), and checks that the two agree (bitwise
-on int8).
+MRF convs alone of each stage on the pipeline that takes it and on the
+per-conv ``mma_conv_kernel`` one, in turns in one process (per-conv, new,
+new, per-conv): the stages of ``mrf.FUSED_CHANNELS`` on the fused pipeline
+(the per-conv runs with ``FUSED_CHANNELS`` emptied), the C = 256 and 128
+stages on the per-conv wgmma pipeline (the per-conv runs with
+``mrf.CONV_WGMMA`` off); it checks that the two agree (bitwise on int8)
+and prints beside them the stage's 18 convs as cuDNN conv1d calls (bf16)
+and the stage's roofline bound (``utils.flops.mrf_stage_bound``).
 
 ``viettts_tpu_torch`` is imported from ``sys.path``: put another checkout
 first on ``PYTHONPATH`` to time it, and run two checkouts in turns in one
@@ -104,19 +107,21 @@ def main(argv=None) -> int:
 
 
 def pipelines(args, smi, cfg, dev, rng) -> int:
-    """``--pipelines``: per fused stage and route, the MRF convs on the
-    per-conv and the fused pipeline, in turns."""
+    """``--pipelines``: per stage and route, the MRF convs on the per-conv
+    pipeline and on the one that takes the stage, in turns."""
     import torch
 
     import chip_smoke
     from viettts_tpu_torch.ops import mrf
-    from viettts_tpu_torch.utils.flops import stage_shapes
+    from viettts_tpu_torch.utils.flops import device_peaks, mrf_stage_bound, stage_shapes
 
     ks, ds, bf16 = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes, torch.bfloat16
     fused_channels = mrf.FUSED_CHANNELS
+    peaks = device_peaks()
     rows = []
     for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, args.frames):
-        if C not in fused_channels:
+        wgmma = mrf.conv_takes("bf16", args.batch, L_in * u, C)
+        if C not in fused_channels and not wgmma:
             continue
         w32, _, _ = chip_smoke.stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
         h = torch.from_numpy(chip_smoke.seeded(rng, args.batch, L_in * u, C)).to(dev, bf16)
@@ -124,21 +129,29 @@ def pipelines(args, smi, cfg, dev, rng) -> int:
         routes = (("bfloat16", mrf.prepare_mrf_weights(w32, compute_dtype=bf16)[0], dict(compute_dtype=bf16)),
                   ("int8", mrf.prepare_mrf_weights(w32, quantize_int8=True)[0],
                    dict(compute_dtype=bf16, quantize_int8=True, act_scales=torch.stack(amax))))
+        new = "fused" if C in fused_channels else "wgmma"
         for route, w, kw in routes:
-            ms, outs = {"per_conv": [], "fused": []}, {}
-            for name in ("per_conv", "fused", "fused", "per_conv"):
+            ms, outs = {"per_conv": [], new: []}, {}
+            for name in ("per_conv", new, new, "per_conv"):
                 mrf.FUSED_CHANNELS = fused_channels if name == "fused" else ()
+                mrf.CONV_WGMMA = name == "wgmma"
                 ms[name].append(chip_smoke.time_ms(lambda: mrf.fused_mrf(h, w, ks, ds, **kw), reps=args.reps))
                 outs[name] = mrf.fused_mrf(h, w, ks, ds, **kw).float()
-            mrf.FUSED_CHANNELS = fused_channels
-            diff = (outs["fused"] - outs["per_conv"]).abs().max().item()
+            mrf.FUSED_CHANNELS, mrf.CONV_WGMMA = fused_channels, True
+            diff = (outs[new] - outs["per_conv"]).abs().max().item()
             if route == "int8" and diff != 0.0:
                 print(f"C={C} int8: the pipelines differ by {diff}", file=sys.stderr)
                 return 1
-            rows.append({"C": C, "L": L_in * u, "route": route, **ms, "max_abs_diff": diff})
-            print(f"C={C} {route}: per-conv {ms['per_conv'][0]:.3f}; {ms['per_conv'][1]:.3f} ms, fused "
-                  f"{ms['fused'][0]:.3f}; {ms['fused'][1]:.3f} ms (fused / per-conv "
-                  f"{sum(ms['fused']) / sum(ms['per_conv']):.3f}), max |fused - per-conv| {diff:.3e}", flush=True)
+            bound = mrf_stage_bound(cfg, args.batch, L_in * u, C, "int8" if route == "int8" else route, peaks)
+            lib_ms = (chip_smoke.cudnn_mrf_ms(cfg, h.transpose(1, 2).contiguous(), w, args.reps)
+                      if route == "bfloat16" else None)
+            rows.append({"C": C, "L": L_in * u, "route": route, "pipeline": new, "per_conv": ms["per_conv"],
+                         "new": ms[new], "max_abs_diff": diff, "cudnn_ms": lib_ms, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
+            print(f"C={C} {route}: per-conv {ms['per_conv'][0]:.3f}; {ms['per_conv'][1]:.3f} ms, {new} "
+                  f"{ms[new][0]:.3f}; {ms[new][1]:.3f} ms ({new} / per-conv "
+                  f"{sum(ms[new]) / sum(ms['per_conv']):.3f}), max |{new} - per-conv| {diff:.3e}; cuDNN "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms; bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
             del outs
         del h
         torch.cuda.empty_cache()

@@ -3,7 +3,7 @@ JAX package's measuring programs, on the CPU.
 
 The JAX programs (``bench.py``, ``scripts/bench_batch.py``,
 ``scripts/bench_train.py``, ``scripts/tune_vocoder_batch.py``,
-``scripts/bench_b1_vocoder.py``) are read with ``ast``, never imported or
+``scripts/bench_b1_vocoder.py``, ``scripts/bench_stream.py``) are read with ``ast``, never imported or
 run: each port module's shape constants must be theirs, its result must
 carry the keys they print or write, and its rates must be their
 arithmetic on the same timings.  The port's programs run here at tiny
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from viettts_tpu_torch.bench import b1_vocoder, batch, common, e2e, train, vocoder_batch
+from viettts_tpu_torch.bench import b1_vocoder, batch, common, e2e, stream, train, vocoder_batch
 
 from test_torch_pipeline import port_config
 
@@ -31,7 +31,9 @@ BENCH_BATCH = REPO / "scripts" / "bench_batch.py"
 BENCH_TRAIN = REPO / "scripts" / "bench_train.py"
 TUNE_VOCODER = REPO / "scripts" / "tune_vocoder_batch.py"
 BENCH_B1 = REPO / "scripts" / "bench_b1_vocoder.py"
-MODULES = {"e2e": e2e, "batch": batch, "train": train, "vocoder_batch": vocoder_batch, "b1_vocoder": b1_vocoder}
+BENCH_STREAM = REPO / "scripts" / "bench_stream.py"
+MODULES = {"e2e": e2e, "batch": batch, "train": train, "vocoder_batch": vocoder_batch, "b1_vocoder": b1_vocoder,
+           "stream": stream}
 
 
 def _tree(path):
@@ -150,6 +152,26 @@ def test_b1_vocoder_shapes_are_bench_b1_vocoder_s():
     assert [k.value for k in routes.keys] == ["float32", "bfloat16", "int8-dynamic", "int8-static"]
 
 
+def test_stream_shapes_are_bench_stream_s():
+    """The text (its sentence and repeats), the pinned 80 ms a token, the
+    lead chunk of 64 tokens against 0, and the best of 3 runs, read from
+    ``bench_stream.py``'s ``main``."""
+    main = _function(BENCH_STREAM, "main")
+    assert stream.SENTENCE == _eval(_assigned(BENCH_STREAM, "main", "sentence"))
+    text = _assigned(BENCH_STREAM, "main", "text")
+    assert isinstance(text, ast.BinOp) and isinstance(text.op, ast.Mult) and stream.REPEATS == _eval(text.right) == 12
+    fulls = [n for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr == "full"]
+    assert [_eval(f.args[1]) for f in fulls] == [stream.DURATION_S] == [0.08]
+    leads = {_eval(n.args[0]) for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+             and n.func.id == "streamed"}
+    assert leads == {stream.LEAD_TOKENS, 0} and stream.LEAD_TOKENS == 64
+    ranges = {_eval(n.args[0]) for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+              and n.func.id == "range"}
+    assert ranges == {stream.ITERS} == {3}
+    assert json.loads((REPO / "benchmarks" / "stream_results.json").read_text())["text_tokens"] == 530
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_run_defaults_are_the_module_constants(name):
     """``run`` measures the JAX program's shapes unless told otherwise."""
@@ -162,7 +184,8 @@ def test_run_defaults_are_the_module_constants(name):
               "train": dict(iters="UPDATES", batch="BATCH", seq_len="SEQ_LEN", wave_len="WAVE_LEN",
                             steps_per_update="STEPS_PER_UPDATE", gan_batch="GAN_BATCH", gan_steps="GAN_STEPS"),
               "vocoder_batch": dict(iters="K", batches="BATCHES", n_frames="N_FRAMES"),
-              "b1_vocoder": dict(iters="K", n_frames="N_FRAMES")}[name]
+              "b1_vocoder": dict(iters="K", n_frames="N_FRAMES"),
+              "stream": dict(iters="ITERS", warmup="WARMUP", repeats="REPEATS", lead_tokens="LEAD_TOKENS")}[name]
     for arg, const in consts.items():
         assert params[arg].default == getattr(module, const), (arg, const)
     assert params["device"].default == "cuda"
@@ -224,6 +247,7 @@ def results():
                            gan_steps=1, **small),
         "vocoder_batch": vocoder_batch.run(cfg, "cpu", batches=(1, 4), n_frames=64, **small),
         "b1_vocoder": b1_vocoder.run(cfg, "cpu", n_frames=64, **small),
+        "stream": stream.run(cfg, "cpu", iters=1, warmup=0),
     }
 
 
@@ -274,7 +298,7 @@ def test_vocoder_programs_report_every_route(results):
 @pytest.mark.parametrize("name,plain", [
     ("e2e", ("ar_decode", "fused_mrf")), ("batch", ("ar_decode", "fused_mrf")),
     ("batch_int8", ("ar_decode", "fused_mrf_int8")), ("train", ()),
-    ("vocoder_batch", ("fused_mrf",)), ("b1_vocoder", ("fused_mrf_int8",)),
+    ("vocoder_batch", ("fused_mrf",)), ("b1_vocoder", ("fused_mrf_int8",)), ("stream", ("ar_decode", "fused_mrf")),
 ])
 def test_counters_show_twins_and_no_kernel_on_the_cpu(results, name, plain):
     counts = results[name]["launches"]
@@ -292,6 +316,18 @@ def test_read_counters_refuses_a_twin_on_the_card():
     with pytest.raises(AssertionError, match="launch counters"):
         common.read_counters(torch.device("cuda"), [])
     common.zero_counters()
+
+
+def test_stream_keys_are_bench_stream_s(results):
+    """``bench_stream.py``'s keys, its 530-token text on the port's front
+    end, and the port's: the device, every run unrounded, the launches."""
+    got = results["stream"]
+    _assert_has_keys(got, _keys(_assigned(BENCH_STREAM, "main", "result")), "stream_results.json")
+    for key in ("device", "route", "runs_s", "launches"):
+        assert key in got
+    assert got["text_tokens"] == 530 and got["backend"].startswith("cpu") and got["samples_match"]
+    assert set(got["runs_s"]) == {"one_shot", "stream_first_chunk", "stream_total", "stream_first_chunk_full_lead"}
+    assert json.loads(json.dumps(got)) == got
 
 
 # --- the JAX programs' arithmetic ----------------------------------------------
@@ -325,6 +361,15 @@ def test_rates_are_the_jax_programs_arithmetic():
     for k, v in zip(results.keys, results.values):
         if k.value in got:
             assert got[k.value] == pytest.approx(_eval(v, ns), rel=1e-12), k.value
+
+    full_s, first_s, first_full, stream_total_s = 0.1711, 0.0523, 0.1379, 0.3397
+    ns = dict(full_s=full_s, first_s=first_s, first_full=first_full, stream_total_s=stream_total_s, round=round)
+    result = _assigned(BENCH_STREAM, "main", "result")
+    got = stream.rates(full_s, first_s, first_full, stream_total_s)
+    assert set(got) < {k.value for k in result.keys}
+    for k, v in zip(result.keys, result.values):
+        if k.value in got:
+            assert got[k.value] == _eval(v, ns), k.value
 
     dt = 12.5
     ns = dict(cfg=cfg, dt=dt, **_constants(BENCH_TRAIN))

@@ -13,7 +13,7 @@ import pytest
 
 from viettts_tpu_torch.ops import _build
 
-C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "int*": ctypes.c_void_p, "float": ctypes.c_float,
            "long long": ctypes.c_longlong, "char*": ctypes.c_char_p}
 EXTERN_C = re.compile(r'extern "C"\s+([\w\s\*]+?)\s*\b(\w+)\s*\(([^)]*)\)\s*\{')
 
@@ -64,3 +64,32 @@ def test_plan_rows_mirror_the_kernel_source():
     fields = int(re.search(r"constexpr int PLAN_FIELDS = (\d+);", src).group(1))
     assert mrf.PLAN_FIELDS == fields
     assert max(int(i) for i in re.findall(r"\br\[(\d+)\]", src)) == fields - 1
+
+
+def test_conv_rows_mirror_the_kernel_source():
+    """``ops/mrf.py`` builds the per-conv wgmma pipeline's launch table with
+    as many int64 fields a conv as ``conv_wgmma_stage`` in
+    csrc/mrf_conv_wgmma.cuh reads."""
+    from viettts_tpu_torch.ops import mrf
+
+    src = (_build.CSRC_DIR / "mrf_conv_wgmma.cuh").read_text()
+    fields = int(re.search(r"constexpr int CONV_FIELDS = (\d+);", src).group(1))
+    assert mrf.CONV_FIELDS == fields
+    stage = src[src.index("int conv_wgmma_stage("):]
+    assert max(int(i) for i in re.findall(r"\br\[(\d+)\]", stage[:stage.index("\n}\n")])) == fields - 1
+
+
+def test_plan_library_mirrors_its_source():
+    """``_build.PLAN_SIGNATURES`` against the ``extern "C"`` entry points of
+    csrc/mrf_conv_plan.cpp, which the plan library is built from, and
+    ``ops/mrf.py::ConvPlan`` against the fields its plan call writes."""
+    from viettts_tpu_torch.ops import mrf
+
+    src = _build.PLAN_SOURCE.read_text()
+    found = {name: [C_TYPES[_c_type(p)] for p in params.split(",") if p.strip()]
+             for ret, name, params in EXTERN_C.findall(src)}
+    assert found == _build.PLAN_SIGNATURES
+    header = (_build.CSRC_DIR / "mrf_conv_plan.h").read_text()
+    fields = re.search(r"struct ConvPlan \{\s*int ([\w, ]+);", header).group(1).split(", ")
+    assert list(mrf.ConvPlan._fields) == fields
+    assert int(re.search(r"constexpr int CONV_PLAN_FIELDS = (\d+);", header).group(1)) == len(fields)

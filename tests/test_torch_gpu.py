@@ -12,6 +12,8 @@ main path's stage widths at short lengths; the main path's full shapes are
 checked by ``chip_smoke.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -377,9 +379,9 @@ def test_fused_mrf_int8_kernel_matches_twin(cuda, mode, B, L_in, C_in, C, k_u, u
 def test_fused_mrf_int8_bare_static_is_exact(cuda, C):
     """Without a prologue the stage input reaches K3 and the twin as the
     same float32 values, so no code can flip: the outputs are equal.  C =
-    32 runs the fused pipeline (one launch for the stage), C = 128 and 40
-    the per-conv pipeline: each bitwise the twin, so the two pipelines
-    agree bitwise."""
+    32 runs the fused pipeline (one launch for the stage), C = 128 the
+    per-conv wgmma pipeline and C = 40 mma_conv_kernel: each bitwise the
+    twin, so the pipelines agree bitwise."""
     rng = np.random.RandomState(3)
     kernel_sizes, dilations = (3, 7, 11), ((1, 3, 5),) * 3
     weights, _, _ = _stage(rng, 0, C, 0, 1, False, False, kernel_sizes, dilations)
@@ -505,6 +507,107 @@ def test_fused_stage_at_the_bulk_shape(cuda, route, C):
         want = mrf.fused_mrf_plain(x.to(dtype), tw, (3, 7, 11), ((1, 3, 5),) * 3, compute_dtype=dtype,
                                    bf16_dots=True).float()
     _hold_fused(route, got.float(), want)
+
+
+# ---------------------------------------------------------------------------
+# The per-conv wgmma pipeline (csrc/mrf_conv_wgmma.cuh): the C = 256 and 128
+# stages on the bf16 and static int8 routes.
+# ---------------------------------------------------------------------------
+
+STAGE_ROWS = {256: 8, 128: 64}  # rows of the default stage of width C a mel frame
+# (B, mel frames, rows): the lead's B=1 at 512 frames, B=2 at 128, the bulk
+# B=64 at 768, and ragged rows shorter than a k = 11 conv's reach and past
+# one tile; tests/test_torch_mrf_conv.py holds that these reach every tile
+# shape of the plan
+CONV_CASES = [(1, 512, None), (2, 128, None), (64, 768, None), (2, None, 5), (2, None, 1001), (1, None, 12800)]
+
+
+def _run_conv(route, x, tw, act, kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3):
+    """The stage's MRF convs on the per-conv wgmma pipeline alone, whatever
+    the router would choose: the float32 stage output."""
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    mrf._launch_conv_wgmma(lib, _build.stream_ptr(x.device), route, x, tw, kernel_sizes, dilations, act, out, 0)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("route", ["bf16", "int8"])
+@pytest.mark.parametrize("C", [256, 128])
+@pytest.mark.parametrize("B,frames,L", CONV_CASES)
+def test_conv_wgmma_stage_matches_the_twin(cuda, route, C, B, frames, L):
+    """Each stage the pipeline takes, at the lead's, the B=2 and the bulk
+    shapes and at ragged lengths, held to K2's bars (0.02 of the output
+    scale against the float32 twin, rel-RMS 1e-3 against the bf16-operand
+    twin) and K3's (bitwise: the same codes, exact integer dots, the same
+    float32 steps)."""
+    L = L or frames * STAGE_ROWS[C]
+    rng = np.random.RandomState(C + L + B)
+    tw, x, act, want = _fused_case(rng, cuda, C, False, route, B, L)
+    got = _run_conv(route, x, tw, act)
+    if route == "bf16":
+        f32 = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3)
+        assert (got - f32).abs().max().item() <= 0.02 * max(f32.abs().max().item(), 1.0)
+        assert _rel_rms(got, want) <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["bf16", "int8"])
+def test_conv_wgmma_resblock2_stage_matches_the_twin(cuda, route):
+    """ResBlock2 (one dilated conv a unit, the operands alternating between
+    two buffers) at C = 128."""
+    rng = np.random.RandomState(11)
+    tw, x, act, want = _fused_case(rng, cuda, 128, True, route, 2, 777)
+    got = _run_conv(route, x, tw, act)
+    _hold_fused(route, got, want)
+
+
+def test_conv_wgmma_int8_conv_is_bitwise_and_flips_no_code(cuda):
+    """One K3 conv: the stage input's codes from the operand pass equal the
+    twin's (0 flips), the conv's float32 output is bitwise
+    ``_conv_int8``'s, and the codes its epilogue writes for the next conv
+    are the twin's codes of that output at the next scale."""
+    rng = np.random.RandomState(12)
+    B, L, C, k, dil = 2, 3001, 256, 11, 5
+    x = _w(rng, B, L, C).to(cuda)
+    w = _w(rng, 1, k, C, C, s=0.5 / (k * C) ** 0.5).to(cuda)
+    b = _w(rng, 1, C, s=0.05).to(cuda)
+    q = mrf.quantize_weight_int8(w)
+    act = torch.stack([F.leaky_relu(x, 0.1).abs().amax(), torch.tensor(3.0, device=cuda)])
+    lib, stream = _build.load_library(), _build.stream_ptr(cuda)
+    codes = torch.empty(B, C // 16, L, 16, dtype=torch.int8, device=cuda)
+    rows = (ctypes.c_longlong * 2)(codes.data_ptr(), act.data_ptr())
+    _build.check(lib.viettts_mrf_conv_operands_int8(B, L, C, x.data_ptr(), 1, ctypes.addressof(rows), stream), "operands")
+    want_codes = mrf.pack_operand(mrf.operand_of(x.transpose(1, 2), "int8", act[0]))
+    torch.cuda.synchronize()
+    assert int((codes != want_codes).sum()) == 0
+    y = torch.empty(B, L, C, device=cuda)
+    nxt = torch.empty_like(codes)
+    table = [codes.data_ptr(), q.slots.data_ptr(), b.data_ptr(), q.scales.data_ptr(), act.data_ptr(),
+             act.data_ptr() + 4, 0, y.data_ptr(), 0, nxt.data_ptr(), k, dil, 0]
+    t = (ctypes.c_longlong * len(table))(*table)
+    _build.check(lib.viettts_mrf_conv_wgmma_int8(0, B, L, C, 1.0, 1, ctypes.addressof(t), stream), "conv")
+    torch.cuda.synchronize()
+    want = mrf._conv_int8(F.leaky_relu(x.transpose(1, 2), 0.1), q.codes[0], q.scales[0], b[0], dil, act[0])
+    torch.testing.assert_close(y, want.transpose(1, 2), rtol=0, atol=0)
+    assert torch.equal(nxt, mrf.pack_operand(mrf.operand_of(want, "int8", act[1])))
+
+
+def test_conv_wgmma_refuses_a_bad_table(cuda):
+    """The C side refuses a width its plan does not tile (C = 64), a conv
+    that accumulates without y, and an int8 conv without its scale: the
+    wrapper raises."""
+    lib, stream = _build.load_library(), _build.stream_ptr(cuda)
+    x = torch.zeros(1, 16, 100, 8, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(1, 2, 3, 8, 128, 8, dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(128, device=cuda)
+    good = [x.data_ptr(), w.data_ptr(), bias.data_ptr(), 0, 0, 0, 0, 0, 0, x.data_ptr(), 3, 1, 0]
+    for fn, C, row in ((lib.viettts_mrf_conv_wgmma, 64, good), (lib.viettts_mrf_conv_wgmma, 128, good[:12] + [1]),
+                       (lib.viettts_mrf_conv_wgmma_int8, 128, good)):
+        t = (ctypes.c_longlong * 13)(*row)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(fn(0, 1, 100, C, 1.0, 1, ctypes.addressof(t), stream), "wgmma convs")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """What the benchmark programs share: the device (the card unless the
 caller asks for the CPU; no fallback), the card's line, seeded models at a
-config's widths, the launch counters of the three kernels, host and
+config's widths, the launch counters of the kernels (K1; K2 and K3, and
+the stages of each that ran the per-conv wgmma pipeline), host and
 per-stage timing, and the JSON each program prints and writes.
 
 Timing: each timed run is host wall time with ``torch.cuda.synchronize()``
@@ -37,7 +38,8 @@ OUT_DIR = Path("runs/bench")  # git-ignored; benchmarks/ holds the JAX package's
 JAX_RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 # kernel -> (wrapper, its launch counter); every twin counts plain_calls
 KERNELS = {"ar_decode": (ar_decode, "launches"), "fused_mrf": (fused_mrf, "launches"),
-           "fused_mrf_int8": (fused_mrf, "int8_launches")}
+           "fused_mrf_int8": (fused_mrf, "int8_launches"), "mrf_conv_wgmma": (fused_mrf, "conv_launches"),
+           "mrf_conv_wgmma_int8": (fused_mrf, "int8_conv_launches")}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -111,6 +113,17 @@ def check_widths(cfg, models: Dict[str, torch.nn.Module]) -> Dict[str, int]:
 def zero_counters() -> None:
     ar_decode.launches = ar_decode.plain_calls = 0
     fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
+    fused_mrf.conv_launches = fused_mrf.int8_conv_launches = 0
+
+
+def wgmma_counters(route: str, int8_static: bool = True) -> List[str]:
+    """The per-conv wgmma pipeline's counter that a run of the programs'
+    shapes on ``route`` (a ``hifigan.inference_dtype``) must show: its C =
+    256 and 128 stages take it on the bf16 route and, with calibrated
+    scales, on the int8 route (``ops/mrf.py::conv_takes``)."""
+    if route in ("bfloat16", "bf16"):
+        return ["mrf_conv_wgmma"]
+    return ["mrf_conv_wgmma_int8"] if route == "int8" and int8_static else []
 
 
 def read_counters(device: torch.device, expect: Sequence[str]) -> Dict[str, Dict[str, int]]:

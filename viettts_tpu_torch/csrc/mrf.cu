@@ -32,8 +32,10 @@
 // On the bf16 route the fused pipeline (mrf_fused.cuh, viettts_mrf_fused
 // below) takes the MRF convs of the stages that ops/mrf.py::plan_fused
 // gives it: one launch runs whole resblocks for time tiles on chip, on
-// wgmma with TMA, as the TPU kernel kept its tiles in VMEM.  The other
-// stages and the float32 route keep one launch a conv here.
+// wgmma with TMA, as the TPU kernel kept its tiles in VMEM.  The C = 256
+// and 128 stages take the per-conv wgmma pipeline (mrf_conv_wgmma.cuh,
+// viettts_mrf_conv_wgmma below), whose epilogues write the next conv's
+// bf16 operand.  The float32 route keeps mma_conv_kernel.
 //
 // The float routes' ConvTranspose prologue runs on the same kernel, as u
 // interleaved stride-1 convs (one output phase per grid z): on the CUDA
@@ -48,6 +50,7 @@
 #include <cstdint>
 
 #include "mrf_common.cuh"
+#include "mrf_conv_wgmma.cuh"
 #include "mrf_fused.cuh"
 
 namespace {
@@ -210,6 +213,23 @@ extern "C" int viettts_mrf_fused(int out_bf16, int B, int L, int C, int n_res, i
                                  int ctas, const void* x, const void* res, void* out, void* stream) {
   return viettts::fused_launch<viettts::FRoute::kBf16>(out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res,
                                                        nullptr, out, static_cast<cudaStream_t>(stream));
+}
+
+// The MRF convs of a bf16-route stage of width C = 128 or 256 on the
+// per-conv wgmma pipeline (mrf_conv_wgmma.cuh): n rows of
+// viettts::CONV_FIELDS int64, one launch each, planned by
+// mrf_conv_plan.h.
+extern "C" int viettts_mrf_conv_wgmma(int out_bf16, int B, int L, int C, float div, int n, const void* table,
+                                      void* stream) {
+  return viettts::conv_wgmma_stage<viettts::FRoute::kBf16>(out_bf16, B, L, C, div, n, table,
+                                                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 operand lrelu(h) of a stage input h float32 [B, L, C],
+// chunk-major [B][C / 8][L][8] (rows: n x (out, unused) int64).
+extern "C" int viettts_mrf_conv_operands(int B, int L, int C, const void* h, int n, const void* rows,
+                                         void* stream) {
+  return viettts::conv_operands<viettts::FRoute::kBf16>(B, L, C, h, n, rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int viettts_mrf_post(int w_bf16, const void* x, const void* w, const void* bias,

@@ -42,7 +42,11 @@
 // ops/mrf.py::plan_fused gives the fused pipeline run there instead
 // (mrf_fused.cuh, viettts_mrf_fused_int8 below): wgmma s8 x s8 -> s32
 // over whole resblocks on chip, in the same float32 order, so each conv
-// stays bitwise the twin's.  Dynamic scales keep one launch a conv: a
+// stays bitwise the twin's; at C = 128 and 256 they take the per-conv
+// wgmma pipeline (mrf_conv_wgmma.cuh, viettts_mrf_conv_wgmma_int8 below),
+// whose epilogues write the next conv's int8 codes, bitwise the codes
+// mma_conv_kernel computes from the float32 values.  Dynamic scales keep
+// mma_conv_kernel, one launch a conv: a
 // conv's amax spans its whole input row, which no tile can know before the
 // previous conv ends.
 //
@@ -57,6 +61,7 @@
 #include <cstdint>
 
 #include "mrf_common.cuh"
+#include "mrf_conv_wgmma.cuh"
 #include "mrf_fused.cuh"
 
 namespace {
@@ -168,4 +173,20 @@ extern "C" int viettts_mrf_fused_int8(int out_bf16, int B, int L, int C, int n_r
                                       void* stream) {
   return viettts::fused_launch<viettts::FRoute::kInt8>(out_bf16, B, L, C, n_res, win, bm, stages, ctas, x, res,
                                                        act, out, static_cast<cudaStream_t>(stream));
+}
+
+// The static-scale int8 MRF convs of a stage of width C = 128 or 256 on the
+// per-conv wgmma pipeline (mrf_conv_wgmma.cuh): as viettts_mrf_conv_wgmma,
+// w the int8 weight slots, scale and act (act_next) the conv's scales.
+extern "C" int viettts_mrf_conv_wgmma_int8(int out_bf16, int B, int L, int C, float div, int n, const void* table,
+                                           void* stream) {
+  return viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table,
+                                                           static_cast<cudaStream_t>(stream));
+}
+
+// The int8 codes of lrelu(h), one tensor per calibrated amax: rows n x
+// (out, act) int64, out chunk-major [B][C / 16][L][16].
+extern "C" int viettts_mrf_conv_operands_int8(int B, int L, int C, const void* h, int n, const void* rows,
+                                              void* stream) {
+  return viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, n, rows, static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,11 @@ ignores.
 Every C entry point takes raw pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` right after its launches; ``check``
 turns a non-zero code into an exception.
+
+``load_plan_library`` builds ``csrc/mrf_conv_plan.cpp`` with the system's
+C++ compiler (no CUDA: it runs on the CPU too) into a small library with
+the per-conv wgmma pipeline's plan, the same header the kernel library
+plans its launches with.
 """
 
 from __future__ import annotations
@@ -73,10 +78,25 @@ SIGNATURES = {
     "viettts_mrf_conv_int8_plan": [I] * 4 + [F, I, P, P],
     # x, amax, B, n, stream
     "viettts_mrf_absmax": [P, P, I, LL, P],
+    # out_bf16, B, L, C, div, n, table (n rows of CONV_FIELDS int64), stream
+    "viettts_mrf_conv_wgmma": [I] * 4 + [F, I, P, P],
+    "viettts_mrf_conv_wgmma_int8": [I] * 4 + [F, I, P, P],
+    # B, L, C, h, n, rows (n x (out, act) int64), stream
+    "viettts_mrf_conv_operands": [I] * 3 + [P, I, P, P],
+    "viettts_mrf_conv_operands_int8": [I] * 3 + [P, I, P, P],
 }
+# the plan library (csrc/mrf_conv_plan.cpp)
+PLAN_SIGNATURES = {
+    # route, B, L, C
+    "viettts_conv_wgmma_takes": [I] * 4,
+    # B, L, C, k, dil, sms, out (CONV_PLAN_FIELDS ints)
+    "viettts_conv_wgmma_plan": [I] * 6 + [P],
+}
+PLAN_SOURCE = CSRC_DIR / "mrf_conv_plan.cpp"
 RESTYPES = {"viettts_error_string": ctypes.c_char_p}
 
 _lib: Optional[ctypes.CDLL] = None
+_plan_lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
 
 
@@ -91,7 +111,7 @@ def _nvcc() -> str:
 
 
 def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh")) + sorted(CSRC_DIR.glob("*.h"))
 
 
 def library_path() -> Path:
@@ -144,6 +164,39 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
+    return lib
+
+
+def load_plan_library() -> ctypes.CDLL:
+    """Build (if needed) and load the plan library; cached per process.
+    Its file name carries a hash of its sources, as the kernel library's."""
+    global _plan_lib
+    if _plan_lib is not None:
+        return _plan_lib
+    sources = [PLAN_SOURCE] + sorted(CSRC_DIR.glob("*.h"))
+    h = hashlib.sha256()
+    for path in sources:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    so = BUILD_DIR / f"libviettts_plan_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+        cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no C++ compiler found (c++, g++ or $CXX) to build the plan library")
+        cmd = [cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(PLAN_SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        tmp.replace(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in PLAN_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _plan_lib = lib
     return lib
 
 

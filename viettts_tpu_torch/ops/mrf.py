@@ -41,19 +41,28 @@ of 128 lanes); longer inputs differ from JAX by design.
 
 ``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``) on CUDA
 tensors and ``fused_mrf_plain`` on CPU tensors; any other device raises.
-On CUDA the MRF convs take one of two pipelines, by the plan alone:
+On CUDA the MRF convs take one of three pipelines, by the plan alone:
 
 * the fused pipeline (``csrc/mrf_fused.cuh``) on the bf16 and static
   int8 routes at the widths of ``FUSED_CHANNELS``: a launch runs whole
   resblocks for time tiles on chip (``plan_fused``; ``fused_mrf_tiled`` is
   its schedule in plain PyTorch, for the tests);
-* the per-conv pipeline (``mma_conv_kernel``, one launch plan of 18 convs
-  a stage) at other widths (the default's first stage, C = 256, whose tile
-  does not fit beside its halo), on the float32 route and for dynamic int8
-  scales.
+* the per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``) on the bf16
+  and static int8 routes for the stages its plan takes
+  (``csrc/mrf_conv_plan.h``, asked through ``conv_takes``: C = 256 and
+  128): one launch a conv, each epilogue writing the next conv's bf16 or
+  int8 operand (chunk-major, ``pack_operand``), float32 only for the
+  residual trunk and the resblocks' sum; the weights come in their slot
+  layout (``Bf16Conv.slots``, ``Int8Conv.slots``, ``conv_slots``);
+  ``mrf_conv_stage_plain`` is that storage in plain PyTorch, for the tests;
+* the per-conv ``mma_conv_kernel`` pipeline (one launch plan of 18 convs a
+  stage) on the float32 route, for dynamic int8 scales and at widths
+  neither of the others takes.
 ``fused_mrf.launches`` counts stages that launched K2 kernels (on the int8
 route: the epilogue or a bf16 input's cast), ``fused_mrf.int8_launches``
-stages that launched K3 (the int8 MRF convs and the float64 prologue), and
+stages that launched K3 (the int8 MRF convs and the float64 prologue),
+``fused_mrf.conv_launches`` and ``fused_mrf.int8_conv_launches`` the
+stages among them whose MRF convs ran on the per-conv wgmma pipeline, and
 ``fused_mrf.plain_calls`` calls of the twin.
 """
 
@@ -93,6 +102,15 @@ FUSED_TRAITS = {"bf16": (2, 2), "int8": (1, 1)}  # route: (row-buffer element by
 FUSED_RING = (3, 2)  # ring depths the plan tries
 SMEM_LIMIT = 232_448  # shared memory a block may opt in to on the H100
 
+# The per-conv wgmma pipeline (csrc/mrf_conv_wgmma.cuh) reads its operands
+# and weights in K chunks of this many bytes a row (64 bf16 or 128 int8
+# input channels), in 16-byte planes: the layout of ``conv_slots`` and
+# ``pack_operand``.  Which stages it takes, and each conv's tiles, are the
+# C plan's (csrc/mrf_conv_plan.h: ``conv_takes``, ``conv_plan``).
+CONV_CHUNK_BYTES = 128
+CONV_ROUTES = {"bf16": 0, "int8": 1}  # the plan's route codes
+CONV_WGMMA = True  # False sends those stages to mma_conv_kernel (for timing the two in turns)
+
 
 class Tf32Conv(NamedTuple):
     """A resblock's stacked float32 convs for the kernel's 3xTF32 dots:
@@ -120,6 +138,16 @@ def tf32_split(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_round(w - hi)], dim=1).transpose(-1, -2).contiguous()
 
 
+class Bf16Conv(NamedTuple):
+    """A resblock's stacked bf16 convs: ``w`` [D, k, C_in, C_out] (what
+    the twin and ``mma_conv_kernel`` read) and ``slots``, the same weights
+    in the per-conv wgmma pipeline's layout (``conv_slots``), or None
+    where C_in is not a whole number of its chunks."""
+
+    w: torch.Tensor
+    slots: Optional[torch.Tensor] = None
+
+
 class F64Conv(NamedTuple):
     """The int8 route's ConvTranspose weight: ``w`` [k, C_in, C_out] in the
     storage dtype (what the twin reads) and ``kmajor`` float64 [k, C_out,
@@ -131,9 +159,9 @@ class F64Conv(NamedTuple):
 
 
 def _dense(w):
-    """The float weight tensor of an entry (a tensor, a ``Tf32Conv`` or an
-    ``F64Conv``)."""
-    return w.w if isinstance(w, (Tf32Conv, F64Conv)) else w
+    """The float weight tensor of an entry (a tensor, a ``Tf32Conv``, a
+    ``Bf16Conv`` or an ``F64Conv``)."""
+    return w.w if isinstance(w, (Tf32Conv, Bf16Conv, F64Conv)) else w
 
 
 class Int8Conv(NamedTuple):
@@ -142,11 +170,27 @@ class Int8Conv(NamedTuple):
     so that ``w ~= codes * scales``; ``kmajor`` int8 [D, k, C_out, C_in],
     the codes in the layout of the kernel's int8 dots (``ldmatrix`` cannot
     transpose 8-bit elements, so the B tile rows must be contiguous in
-    C_in).  The twin reads ``codes``; the kernel needs ``kmajor``."""
+    C_in); ``slots``, the codes in the per-conv wgmma pipeline's layout
+    (``conv_slots``; None where C_in is not a whole number of its chunks).
+    The twin reads ``codes``; the kernels need ``kmajor`` and ``slots``."""
 
     codes: torch.Tensor
     scales: torch.Tensor
     kmajor: Optional[torch.Tensor] = None
+    slots: Optional[torch.Tensor] = None
+
+
+def conv_slots(w: torch.Tensor) -> Optional[torch.Tensor]:
+    """Stacked bf16 weights or int8 codes [D, k, C_in, C_out] in the per-conv
+    wgmma pipeline's layout, [D, C_in / KC, k, KC / e, C_out, e]: for each
+    (input chunk of KC = ``CONV_CHUNK_BYTES`` bytes, tap) one weight slot
+    of KC / e planes, each C_out rows of e inputs (16 bytes), the K-major
+    B operand a bulk copy lands as; None where KC does not divide C_in."""
+    D, k, c_in, c_out = w.shape
+    e, kc = 16 // w.element_size(), CONV_CHUNK_BYTES // w.element_size()
+    if c_in % kc:
+        return None
+    return w.reshape(D, k, c_in // kc, kc // e, e, c_out).permute(0, 2, 1, 3, 5, 4).contiguous()
 
 
 def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
@@ -158,7 +202,8 @@ def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
         raise ValueError(f"quantize_weight_int8: quantize from float32 weights, got {w.dtype}")
     s = torch.clamp_min(w.abs().amax(dim=(-3, -2)), 1e-12) / _f32(127.0, w)
     codes = torch.clamp(torch.round(w / s[..., None, None, :]), -127.0, 127.0).to(torch.int8)
-    return Int8Conv(codes.contiguous(), s.contiguous(), codes.transpose(-1, -2).contiguous())
+    slots = conv_slots(codes) if codes.dim() == 4 else None
+    return Int8Conv(codes.contiguous(), s.contiguous(), codes.transpose(-1, -2).contiguous(), slots)
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -532,7 +577,8 @@ def prepare_mrf_weights(
     turns W1/W2 into ``Int8Conv``, quantized from the float32 values (the
     TPU kernel packs and quantizes in float32, never from bf16), and the
     upsample weight into ``F64Conv``; on the float32 route they become
-    ``Tf32Conv`` (split once here, not per call)."""
+    ``Tf32Conv`` (split once here, not per call), on the bf16 route
+    ``Bf16Conv`` with the per-conv wgmma pipeline's slots."""
     store = storage_dtype(compute_dtype)
 
     def w(t):
@@ -544,7 +590,8 @@ def prepare_mrf_weights(
         if store == torch.float32:
             t = t.float().contiguous()
             return Tf32Conv(t, tf32_split(t))
-        return t.to(store).contiguous()
+        t = t.to(store).contiguous()
+        return Bf16Conv(t, conv_slots(t))
 
     def b(t):
         return None if t is None else t.float().contiguous()
@@ -772,10 +819,17 @@ def _fused_mrf_cuda(
     if launch is not None:
         _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, launch, out, out_bf)
         return out if post is None else _post(lib, stream, bf, out, post)
+    if route is not None and CONV_WGMMA and conv_takes(route, B, L, C):
+        _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf)
+        if quantize_int8:
+            fused_mrf.int8_conv_launches += 1
+        else:
+            fused_mrf.conv_launches += 1
+        return out if post is None else _post(lib, stream, bf, out, post)
 
-    # the per-conv pipeline: the stages the fused one does not take, the
-    # float32 route and dynamic int8 scales (one amax per (conv, batch row),
-    # by atomicMax)
+    # mma_conv_kernel: the stages neither wgmma pipeline takes, the
+    # float32 route and dynamic int8 scales (one amax per (conv, batch
+    # row), by atomicMax)
     bufs = (torch.empty(B, L, C, **f32), torch.empty(B, L, C, **f32))
     acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
     amax = torch.zeros(n_convs(weights), B, **f32) if quantize_int8 and act_scales is None else None
@@ -806,7 +860,7 @@ def _fused_mrf_cuda(
         # where v = conv_k,d(lrelu(inp)) + b (+ res)
         nonlocal index
         if not quantize_int8:
-            wj = row(w.split if isinstance(w, Tf32Conv) else w, j)
+            wj = row(w.split if isinstance(w, Tf32Conv) else _dense(w), j)
             plan.extend((row(inp), wj, row(b, j), row(res), row(y), out_ptr, 0, 0, k, d, mode, 0, 0))
             return
         if amax is None:
@@ -894,7 +948,7 @@ def _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_s
             ws = [w1.kmajor.data_ptr(), 0 if w2 is None else w2.kmajor.data_ptr(), ptr(b1), ptr(b2),
                   w1.scales.data_ptr(), 0 if w2 is None else w2.scales.data_ptr()]
         else:
-            ws = [ptr(w1), ptr(w2), ptr(b1), ptr(b2), 0, 0]
+            ws = [ptr(_dense(w1)), ptr(_dense(w2)), ptr(b1), ptr(b2), 0, 0]
         rows += [*ws, kernel_sizes[i], len(dilations[i]), sum(convs[:i]), *dils]
     table = (ctypes.c_longlong * len(rows))(*rows)
     args = (B, L, C, launch.n_res, launch.win, launch.bm, launch.stages, launch.ctas, h.data_ptr(),
@@ -904,6 +958,229 @@ def _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_s
     else:
         code = lib.viettts_mrf_fused(out_bf, *args, out.data_ptr(), stream)
     _build.check(code, f"fused_mrf {route} resblocks")
+
+
+def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf):
+    """The stage's MRF convs on the per-conv wgmma pipeline: h the float32
+    trunk [B, L, C]; one pass writes its operands (one bf16 tensor, or the
+    int8 codes at each resblock's first scale), then one C call launches
+    the convs from a table of ``CONV_FIELDS`` int64 a conv.  Each conv reads
+    one chunk-major operand and writes the next conv's into another (a
+    conv's halo is other tiles' rows, so never its own input): ResBlock1's
+    dilated conv writes ``pa``, its dilation-1 conv ``pb``; ResBlock2's
+    convs alternate between the two."""
+    B, L, C = h.shape
+    f32 = dict(dtype=torch.float32, device=h.device)
+    e = 8 if route == "bf16" else 16
+    op_dtype = torch.bfloat16 if route == "bf16" else torch.int8
+
+    def operand():
+        return torch.empty(B, C // e, L, e, dtype=op_dtype, device=h.device)
+
+    def ptr(t, j=0):
+        return 0 if t is None else t.data_ptr() + j * t.stride(0) * t.element_size()
+
+    n_blocks = len(kernel_sizes)
+    convs = [len(d) * (1 if w2 is None else 2) for (_, _, w2, _), d in zip(weights, dilations)]
+    firsts = [sum(convs[:i]) for i in range(n_blocks)]
+    for blk, (w1, _, w2, _) in enumerate(weights):
+        for name, w in (("W1", w1), ("W2", w2)):
+            if w is None:
+                continue
+            slots = getattr(w, "slots", None)
+            want = (convs[blk] // (1 if w2 is None else 2), C // (CONV_CHUNK_BYTES // (1 if route == "int8" else 2)),
+                    kernel_sizes[blk], CONV_CHUNK_BYTES // 16, C, e)
+            if slots is None or tuple(slots.shape) != want or slots.dtype != op_dtype or not slots.is_contiguous():
+                raise ValueError(f"fused_mrf kernel: block {blk} {name} needs its wgmma weight slots {want} {op_dtype} "
+                                 f"(prepare_mrf_weights), got "
+                                 f"{None if slots is None else (tuple(slots.shape), slots.dtype)}")
+            if slots.device != h.device:
+                raise ValueError(f"fused_mrf: block {blk} {name} slots are on {slots.device}, x on {h.device}")
+    # the stage input's operands (the row array must outlive the call)
+    if route == "bf16":
+        h_ops = [operand()] * n_blocks
+        rows = (ctypes.c_longlong * 2)(h_ops[0].data_ptr(), 0)
+        code = lib.viettts_mrf_conv_operands(B, L, C, h.data_ptr(), 1, ctypes.addressof(rows), stream)
+    else:
+        h_ops = [operand() for _ in range(n_blocks)]
+        pairs = [v for i, op in enumerate(h_ops) for v in (op.data_ptr(), ptr(act_scales, firsts[i]))]
+        rows = (ctypes.c_longlong * len(pairs))(*pairs)
+        code = lib.viettts_mrf_conv_operands_int8(B, L, C, h.data_ptr(), n_blocks, ctypes.addressof(rows), stream)
+    _build.check(code, f"fused_mrf {route} stage operands")
+
+    trunk = torch.empty(B, L, C, **f32) if any(len(d) > 1 for d in dilations) else None
+    acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
+    pa, pb = operand(), operand()
+    table = []
+
+    def conv(x_op, w, j, b, ci, k, dil, res=None, y=None, mode=0, out_ptr=0, pout=None):
+        wslots = ptr(w.slots, j)
+        scale = ptr(w.scales, j) if route == "int8" else 0
+        act = ptr(act_scales, ci) if route == "int8" else 0
+        act_next = ptr(act_scales, ci + 1) if route == "int8" and pout is not None else 0
+        table.extend((x_op.data_ptr(), wslots, ptr(b, j), scale, act, act_next, ptr(res), ptr(y), out_ptr, ptr(pout),
+                      k, dil, mode))
+
+    for blk, k in enumerate(kernel_sizes):
+        w1, b1, w2, b2 = weights[blk]
+        dils = dilations[blk]
+        cur, res, ci = h_ops[blk], h, firsts[blk]
+        for j, d in enumerate(dils):
+            if w2 is not None:  # ResBlock1: the dilated conv writes only its successor's operand
+                conv(cur, w1, j, b1, ci, k, d, pout=pa)
+                ci += 1
+                src, w, b, dil, nxt = pa, w2, b2, 1, pb
+            else:
+                src, w, b, dil, nxt = cur, w1, b1, d, (pb if cur is pa else pa)
+            if j < len(dils) - 1:
+                conv(src, w, j, b, ci, k, dil, res=res, y=trunk, pout=nxt)
+                cur, res = nxt, trunk
+            elif blk < n_blocks - 1:
+                conv(src, w, j, b, ci, k, dil, res=res, y=acc, mode=0 if blk == 0 else 1)
+            else:
+                conv(src, w, j, b, ci, k, dil, res=res, y=acc, mode=2, out_ptr=out.data_ptr())
+            ci += 1
+
+    rows = (ctypes.c_longlong * len(table))(*table)
+    n = len(table) // CONV_FIELDS
+    fn = lib.viettts_mrf_conv_wgmma if route == "bf16" else lib.viettts_mrf_conv_wgmma_int8
+    _build.check(fn(out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows), stream), f"fused_mrf {route} wgmma convs")
+
+
+CONV_FIELDS = 13  # int64 fields of a conv in the wgmma pipeline's launch table (csrc/mrf_conv_wgmma.cuh)
+
+
+class ConvPlan(NamedTuple):
+    """One conv's launch on the per-conv wgmma pipeline, as the C plan
+    (``csrc/mrf_conv_plan.h``) gives it: tiles of ``bm`` rows x ``bn``
+    channels, a weight ring of ``stages`` slots, windows of ``win`` rows
+    (TMA boxes of ``xbox``), ``tiles`` tiles over ``ctas`` persistent
+    blocks, ``smem`` bytes of shared memory."""
+
+    bm: int
+    bn: int
+    stages: int
+    win: int
+    xbox: int
+    tiles: int
+    ctas: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_takes(route: str, B: int, L: int, C: int) -> bool:
+    """Whether the per-conv wgmma pipeline takes a stage's MRF convs on the
+    fused route ``route`` (``fused_route_name``): the C plan's answer."""
+    if route not in CONV_ROUTES:
+        return False
+    return bool(_build.load_plan_library().viettts_conv_wgmma_takes(CONV_ROUTES[route], B, L, C))
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_plan(B: int, L: int, C: int, k: int, dil: int, sms: int) -> Optional[ConvPlan]:
+    """The C plan's launch of one conv (kernel size k, dilation dil) of a
+    stage of width C, B rows of L steps, on a card of ``sms`` SMs; None
+    where no tile fits."""
+    out = (ctypes.c_int * len(ConvPlan._fields))()
+    if not _build.load_plan_library().viettts_conv_wgmma_plan(B, L, C, k, dil, sms, ctypes.addressof(out)):
+        return None
+    return ConvPlan(*out)
+
+
+def conv_issued_macs(B: int, L: int, C: int, kernel_sizes, dilations, resblock2: bool, sms: int) -> int:
+    """MACs the per-conv wgmma pipeline issues for a stage's MRF convs: each
+    conv's tiles (``bm`` rows x ``bn`` channels, the ragged last row tile
+    whole) over k taps and C input channels."""
+    total = 0
+    for k, dils in zip(kernel_sizes, dilations):
+        for d in dils:
+            for dil in (d,) if resblock2 else (d, 1):
+                p = conv_plan(B, L, C, k, dil, sms)
+                total += p.tiles * p.bm * p.bn * k * C
+    return total
+
+
+def operand_of(v: torch.Tensor, route: str, act: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stored operand of a conv whose input is lrelu(v): bf16(lrelu(v)),
+    or on the int8 route the codes at the calibrated amax ``act`` (as
+    ``_conv_int8`` quantizes its input)."""
+    y = F.leaky_relu(v.float(), LRELU_SLOPE)
+    if route == "bf16":
+        return y.to(torch.bfloat16)
+    c127 = _f32(127.0, y)
+    return torch.round(torch.clamp(y * (c127 / torch.clamp_min(act, 1e-12)), -127.0, 127.0)).to(torch.int8)
+
+
+def pack_operand(op: torch.Tensor) -> torch.Tensor:
+    """An operand [B, C, L] (bf16 or int8 codes) in the kernel's chunk-major
+    layout [B, C / e, L, e] (e = 16 bytes of channels): channel c of row l
+    at flat element ((b * C / e + c / e) * L + l) * e + c % e."""
+    B, C, L = op.shape
+    e = 16 // op.element_size()
+    return op.reshape(B, C // e, e, L).transpose(2, 3).contiguous()
+
+
+def unpack_operand(p: torch.Tensor) -> torch.Tensor:
+    """``pack_operand``'s inverse: [B, C / e, L, e] -> [B, C, L]."""
+    B, n, L, e = p.shape
+    return p.transpose(2, 3).reshape(B, n * e, L)
+
+
+def mrf_conv_stage_plain(
+    x: torch.Tensor,
+    weights: Sequence[Tuple],
+    kernel_sizes: Sequence[int],
+    dilations: Sequence[Sequence[int]],
+    route: str,
+    act_scales: Optional[torch.Tensor] = None,
+    operands: Optional[List[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The MRF stack on the float32 stage trunk x [B, L, C] with the per-conv
+    wgmma pipeline's storage, in plain PyTorch: every conv reads a stored,
+    chunk-major operand (``pack_operand`` of ``operand_of``) that the
+    previous conv's epilogue (or, for the stage input, one pass) wrote;
+    float32 is kept only for the residual trunk and the resblocks' sum.
+    ``route`` ``bf16`` (bf16 operands, float32 convs of their values) or
+    ``int8`` (codes at ``act_scales``, ``_conv_int8``'s dot and dequant).
+    Returns the float32 [B, L, C] stage output, which equals
+    ``fused_mrf_plain``'s (``bf16_dots=True`` on the bf16 route; int8 with
+    the same ``act_scales``) bit for bit; ``operands``, where given,
+    collects every stored operand in launch order."""
+    h = x.float().transpose(1, 2)  # [B, C, L]
+    stored = operands if operands is not None else []
+
+    def store(v, index):
+        act = None if route == "bf16" else act_scales[index]
+        stored.append(pack_operand(operand_of(v, route, act)))
+        return stored[-1]
+
+    def conv(p, w, b, j, d, index):
+        op = unpack_operand(p)
+        if route == "int8":
+            k = w.codes.shape[1]
+            act = torch.clamp_min(act_scales[index], 1e-12)
+            mult = (w.scales[j] * (act / _f32(127.0, act)))[None, :, None]
+            dot = F.conv1d(op.double(), w.codes[j].double().permute(2, 1, 0), padding=d * (k - 1) // 2, dilation=d)
+            return dot.float() * mult + b[j][None, :, None]
+        return _conv_same(op.float(), _dense(w)[j], b[j], d)
+
+    index, acc = 0, None
+    h_op = store(h, 0) if route == "bf16" else None
+    for blk in range(len(kernel_sizes)):
+        w1, b1, w2, b2 = weights[blk]
+        r = h
+        cur = h_op if route == "bf16" else store(h, index)
+        for j, d in enumerate(dilations[blk]):
+            y = conv(cur, w1, b1, j, d, index)
+            index += 1
+            if w2 is not None:
+                y = conv(store(y, index), w2, b2, j, 1, index)
+                index += 1
+            r = y + r
+            if j < len(dilations[blk]) - 1:
+                cur = store(r, index)
+        acc = r if acc is None else acc + r
+    return (acc / _f32(len(kernel_sizes), acc)).transpose(1, 2).contiguous()
 
 
 def convt_f64(x: torch.Tensor, w_t: F64Conv, b_t: torch.Tensor, u: int, tile: int = -1) -> torch.Tensor:
@@ -933,4 +1210,6 @@ def convt_f64(x: torch.Tensor, w_t: F64Conv, b_t: torch.Tensor, u: int, tile: in
 
 fused_mrf.launches = 0
 fused_mrf.int8_launches = 0
+fused_mrf.conv_launches = 0
+fused_mrf.int8_conv_launches = 0
 fused_mrf.plain_calls = 0

@@ -14,11 +14,14 @@ model FLOPs utilization (MFU) against the card's dense peaks.
   runs for each ConvTranspose prologue and the MRF convs of the stages
   that the fused pipeline (``csrc/mrf_fused.cuh``) does not take, their
   padding included; the fused pipeline's 64-row blocks over every tile's
-  window, its halo recompute included (``fused_issued_macs``); and the
-  conv_post epilogue's rows and channel chunks.  The tile table, the chunk
-  widths and the tile picker's constants are read from the CUDA sources,
-  so the count follows the kernels; the fused plan is ``ops/mrf.py``'s,
-  which the tests hold to its source.
+  window, its halo recompute included (``fused_issued_macs``); the per-conv
+  wgmma pipeline's tiles (``csrc/mrf_conv_wgmma.cuh``, the C = 256 and 128
+  stages: ``ops/mrf.py::conv_issued_macs`` over the C plan's tiles); and
+  the conv_post epilogue's rows and channel chunks.  The tile table, the
+  chunk widths and the tile picker's constants are read from the CUDA
+  sources, so the count follows the kernels; the fused plan is
+  ``ops/mrf.py``'s, which the tests hold to its source; the wgmma plan is
+  the C header's own, through the plan library.
 * ``device_peaks`` gives the dense peaks of the card it finds (H100 SXM and
   PCIe, NVIDIA's data sheets) and raises on any other: a utilization
   against some other card's peak would be a wrong number.
@@ -336,8 +339,9 @@ def fused_issued_macs(launch, C, kernel_sizes, dilations, resblock2, batch, bloc
 def mrf_issued_flops(h, B, L, C, route, sm_count=H100_SXM.sm_count, int8_static=False) -> int:
     """2 x the MACs the port issues for one stage's MRF convs (B rows of L
     steps, C channels) on ``route``: the fused pipeline's blocks where
-    ``plan_fused`` takes the stage, else ``mma_conv_kernel``'s tiles."""
-    from viettts_tpu_torch.ops.mrf import fused_route_name, plan_fused
+    ``plan_fused`` takes the stage, the per-conv wgmma pipeline's tiles
+    where its C plan does, else ``mma_conv_kernel``'s tiles."""
+    from viettts_tpu_torch.ops.mrf import conv_issued_macs, conv_takes, fused_route_name, plan_fused
 
     resblock2 = h.resblock != "1"
     ks, ds = h.resblock_kernel_sizes, h.resblock_dilation_sizes
@@ -346,6 +350,8 @@ def mrf_issued_flops(h, B, L, C, route, sm_count=H100_SXM.sm_count, int8_static=
     launch = None if fused is None else plan_fused(fused, C, ks, ds, resblock2, B, L, sm_count)
     if launch is not None:
         return 2 * fused_issued_macs(launch, C, ks, ds, resblock2, B, plan.fused_block)
+    if fused is not None and conv_takes(fused, B, L, C):
+        return 2 * conv_issued_macs(B, L, C, ks, ds, resblock2, sm_count)
     convs = 1 if resblock2 else 2
     return 2 * sum(len(rd) * convs * _issued_macs(plan, ROUTE_PEAK[route], B, L, C, C, rk, 1, sm_count)
                    for rk, rd in zip(ks, ds))
@@ -359,6 +365,7 @@ def generator_issued_flops(cfg, n_frames, batch=1, route="bfloat16", sm_count=H1
     counted as needed), then per stage the ConvTranspose prologue (bf16 or
     3xTF32 tiles, float64 tiles on the int8 route) and the MRF convs: on
     the fused pipeline where it takes the stage (``fused_issued_macs``),
+    the per-conv wgmma pipeline where its plan does (``conv_issued_macs``),
     else bf16, 3xTF32 or int8 tiles as ``mma_conv_kernel`` tiles them, for
     a card of ``sm_count`` SMs; and conv_post's blocks.  3xTF32 runs three
     tensor-core products per MAC counted here.  Equals ``generator_flops``
