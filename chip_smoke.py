@@ -25,9 +25,10 @@
    operations over the dense peak of their type, ``utils.flops``: the
    card's data sheet).  Then ``check_bulk``: every stage's MRF convs at
    B=64, 768 mel frames on each route beside cuDNN conv1d and the bound,
-   the C = 256 and 128 stages of the bf16 and static int8 routes on the
-   per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``) beside the same
-   stages on ``mma_conv_kernel``, held to their twins.
+   the stages the per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``)
+   takes (bf16 and static int8 at C = 256 and 128, the float32 route's
+   3xTF32 and dynamic int8 at every width) beside the same stages on
+   ``mma_conv_kernel``, every stage of every route held to its twin.
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
    counters zeroed just before it and read just after (every kernel of the
@@ -142,7 +143,7 @@
    frames (1 warm-up, 4 timed runs), ``stream`` (``bench_stream.py``'s
    530-token text, 1 warm-up and the best of 2 runs of each).
 9. A JSON line of per-kernel results (K1, K2, K3, and the per-conv wgmma
-   pipeline of K2 and of K3 as their own entries), then the last line
+   pipeline on each of its four routes as its own entry), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -439,14 +440,15 @@ def check_bulk(dev, cfg, reps=3):
     frames), each stage alone: the kernel's time, the cuDNN conv1d time of
     the stage's 18 convs (bf16; float32 with TF32 off; the int8 route has
     none), the MRF-only roofline bound and the issued TFLOP/s or TOP/s.
-    The bf16 and static int8 stages that the per-conv wgmma pipeline takes
-    (C = 256 and 128) are also timed on ``mma_conv_kernel``
-    (``mrf.CONV_WGMMA`` off) beside it, and their twins timed once.  Held
-    to their twins at the phase's bars: every bf16 and static int8 stage
-    (C = 256 and 128 on the wgmma pipeline, C = 64 and 32 on the fused
-    one, one launch for the stage) and stages 1-3 of the float32 route:
-    float32 rtol 1e-5 + atol 1e-4, bf16 rel-RMS 1e-3 against the
-    bf16-operand twin and 0.02 of the output scale, static int8 bitwise."""
+    The stages that the per-conv wgmma pipeline takes on each route (bf16
+    and static int8 at C = 256 and 128; float32 and dynamic int8 at every
+    width: ``mrf.conv_takes``) are also timed on ``mma_conv_kernel``
+    (``mrf.CONV_WGMMA`` off) beside it, and their twins timed once.  Every
+    stage of every route is held to its twin at the phase's bars (bf16 and
+    static int8 at C = 64 and 32 on the fused pipeline, one launch for the
+    stage): float32 rtol 1e-5 + atol 1e-4, bf16 rel-RMS 1e-3 against the
+    bf16-operand twin and 0.02 of the output scale, int8 (static and
+    dynamic) bitwise."""
     import numpy as np
     import torch
 
@@ -467,8 +469,7 @@ def check_bulk(dev, cfg, reps=3):
         w32, ups32, _ = stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
         h32 = torch.from_numpy(seeded(rng, B, L, C)).to(dev)
         for route in out:
-            check = i > 0 if route == "float32" else route != "int8_dynamic"
-            wgmma = route in ("bfloat16", "int8") and mrf.conv_takes("bf16" if route == "bfloat16" else "int8", B, L, C)
+            wgmma = mrf.conv_takes(mrf.conv_route_name(route.removesuffix("_dynamic"), route == "int8"), B, L, C)
             if route.startswith("int8"):
                 dtype, h = torch.bfloat16, h32.to(torch.bfloat16)
                 act = None
@@ -497,36 +498,39 @@ def check_bulk(dev, cfg, reps=3):
                 finally:
                     mrf.CONV_WGMMA = True
                 r["wgmma"][C] = {"ms": r["stages_ms"][-1], "per_conv_ms": per_conv,
+                                 "library_ms": r["library_stages_ms"][-1],
                                  "cudnn_bf16_ms": out["bfloat16"]["library_stages_ms"][i],
                                  "bound_ms": r["bound_stages_ms"][-1], "bound_by": r["bound_by"],
                                  "issued_flop": mrf_issued_flops(cfg, B, L, C, bound_route, sms, route == "int8")}
+                lib = "cuDNN float32" if route == "float32" else "cuDNN bf16"
+                lib_ms = r["library_stages_ms"][-1] if route == "float32" else r["wgmma"][C]["cudnn_bf16_ms"]
                 log(f"bulk B={B} {T} frames stage {i} (C={C}) {route}: per-conv wgmma {r['stages_ms'][-1]:.3f} ms, "
-                    f"mma_conv_kernel {per_conv:.3f} ms, cuDNN bf16 {r['wgmma'][C]['cudnn_bf16_ms']:.3f} ms, bound "
+                    f"mma_conv_kernel {per_conv:.3f} ms, {lib} {lib_ms:.3f} ms, bound "
                     f"{r['bound_stages_ms'][-1]:.3f} ms ({r['bound_by']})")
-            if check:
-                got = fused_mrf(h, w, ks, ds, **kw).float()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                want = fused_mrf_plain(h, w, ks, ds, bf16_dots=route == "bfloat16", **kw).float()
-                end.record()
-                torch.cuda.synchronize()
-                if wgmma:
-                    r["wgmma"][C]["plain_ms"] = start.elapsed_time(end)
-                err, rel = (got - want).abs().max().item(), rel_rms(got, want)
-                r["max_abs_err"], r["rel_rms"] = max(r["max_abs_err"], err), max(r["rel_rms"], rel)
-                if route == "float32":
-                    ok = bool(((got - want).abs() <= K2_F32["atol"] + K2_F32["rtol"] * want.abs()).all())
-                elif route == "bfloat16":
-                    ok = rel <= K2_BF16_DOTS_REL_RMS and err <= K2_BF16_REL * max(want.abs().max().item(), 1.0)
-                else:
-                    ok = err == 0.0
-                if wgmma:
-                    r["wgmma"][C].update(max_abs_err=err, rel_rms=rel)
-                log(f"bulk B={B} {T} frames stage {i} (C={C}, L={L}) {route}: max|kernel - twin| {err:.3e}, "
-                    f"rel-RMS {rel:.2e}")
-                if not ok:
-                    raise AssertionError(f"bulk stage {i} {route} differs from its twin: max {err}, rel-RMS {rel}")
-                del got, want
+            # every stage of every route against its twin
+            got = fused_mrf(h, w, ks, ds, **kw).float()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = fused_mrf_plain(h, w, ks, ds, bf16_dots=route == "bfloat16", **kw).float()
+            end.record()
+            torch.cuda.synchronize()
+            if wgmma:
+                r["wgmma"][C]["plain_ms"] = start.elapsed_time(end)
+            err, rel = (got - want).abs().max().item(), rel_rms(got, want)
+            r["max_abs_err"], r["rel_rms"] = max(r["max_abs_err"], err), max(r["rel_rms"], rel)
+            if route == "float32":
+                ok = bool(((got - want).abs() <= K2_F32["atol"] + K2_F32["rtol"] * want.abs()).all())
+            elif route == "bfloat16":
+                ok = rel <= K2_BF16_DOTS_REL_RMS and err <= K2_BF16_REL * max(want.abs().max().item(), 1.0)
+            else:
+                ok = err == 0.0
+            if wgmma:
+                r["wgmma"][C].update(max_abs_err=err, rel_rms=rel)
+            log(f"bulk B={B} {T} frames stage {i} (C={C}, L={L}) {route}: max|kernel - twin| {err:.3e}, "
+                f"rel-RMS {rel:.2e}")
+            if not ok:
+                raise AssertionError(f"bulk stage {i} {route} differs from its twin: max {err}, rel-RMS {rel}")
+            del got, want
             log(f"bulk B={B} {T} frames stage {i} (C={C}) {route}: kernel {r['stages_ms'][-1]:.3f} ms, "
                 f"cuDNN {r['library_stages_ms'][-1]}, bound {r['bound_stages_ms'][-1]:.3f} ms")
         del h32
@@ -1134,19 +1138,23 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
             check_result(synth.synthesize(SENTENCE), f"synthesize ({route}, lead)")
         int8 = route == "int8"
         counted = (ar_decode.launches, ar_decode.plain_calls, fused_mrf.launches, fused_mrf.int8_launches,
-                   fused_mrf.plain_calls, fused_mrf.conv_launches, fused_mrf.int8_conv_launches)
-        # the 512-frame lead's C = 256 and 128 stages on the per-conv wgmma pipeline (bf16, calibrated int8)
+                   fused_mrf.plain_calls, fused_mrf.conv_launches, fused_mrf.int8_conv_launches,
+                   fused_mrf.tf32_conv_launches, fused_mrf.int8_dynamic_conv_launches)
+        # the 512-frame lead's stages on the per-conv wgmma pipeline: C = 256 and 128 on the bf16 and
+        # calibrated int8 routes, all four on the float32 route
         want = (LEAD_COUNTED, 0, 4 * LEAD_COUNTED, 4 * LEAD_COUNTED if int8 else 0, 0,
-                2 * LEAD_COUNTED if route == "bfloat16" else 0, 2 * LEAD_COUNTED if int8 else 0)
+                2 * LEAD_COUNTED if route == "bfloat16" else 0, 2 * LEAD_COUNTED if int8 else 0,
+                4 * LEAD_COUNTED if route == "float32" else 0, 0)
         log(f"lead program ({route}): {LEAD_COUNTED} replays counted (K1, K1 twin, K2, K3, K2/K3 twin, "
-            f"their wgmma stages bf16, int8) {counted}, want {want}")
+            f"their wgmma stages bf16, int8, tf32, int8 dynamic) {counted}, want {want}")
         if counted != want:
             raise AssertionError(f"lead program ({route}): replays counted {counted}, want {want}")
         zero()
         stats["timings"] = t = lead_timings(synth)
         stats["launches"] = read(f"lead program ({route})",
                                  ["ar_decode", "fused_mrf"] + (["fused_mrf_int8", "mrf_conv_wgmma_int8"] if int8 else [])
-                                 + (["mrf_conv_wgmma"] if route == "bfloat16" else []))
+                                 + (["mrf_conv_wgmma"] if route == "bfloat16" else [])
+                                 + (["mrf_conv_wgmma_tf32"] if route == "float32" else []))
         log(f"lead program ({route}): B=1 latency of SENTENCE lead {1e3 * t['lead']['b1_latency_s']:.1f} ms "
             f"{[round(1e3 * v, 1) for v in t['lead']['b1_runs_s']]}, bucketed "
             f"{1e3 * t['bucketed']['b1_latency_s']:.1f} ms {[round(1e3 * v, 1) for v in t['bucketed']['b1_runs_s']]}; "
@@ -2245,9 +2253,10 @@ def bench_phase(zero, read):
         ("batch", lambda: batch.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
         ("train", lambda: train.run(iters=1, warmup=1, gan_steps=2), []),
         ("vocoder_batch", lambda: vocoder_batch.run(iters=2, warmup=1, batches=BENCH_VOCODER_BATCHES),
-         ["fused_mrf", "mrf_conv_wgmma"]),
+         ["fused_mrf", "mrf_conv_wgmma", "mrf_conv_wgmma_tf32"]),
         ("b1_vocoder", lambda: b1_vocoder.run(iters=4, warmup=1),
-         ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8"]),
+         ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8", "mrf_conv_wgmma_tf32",
+          "mrf_conv_wgmma_int8_dynamic"]),
         ("stream", lambda: stream.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
     )
     results, seconds, launches = {}, {}, {}
@@ -2314,13 +2323,16 @@ def main() -> int:
         ar_decode.launches = ar_decode.plain_calls = 0
         fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
         fused_mrf.conv_launches = fused_mrf.int8_conv_launches = 0
+        fused_mrf.tf32_conv_launches = fused_mrf.int8_dynamic_conv_launches = 0
 
     def read_counts(path, kernels):
         counts = {"ar_decode": (ar_decode.launches, ar_decode.plain_calls),
                   "fused_mrf": (fused_mrf.launches, fused_mrf.plain_calls),
                   "fused_mrf_int8": (fused_mrf.int8_launches, fused_mrf.plain_calls),
                   "mrf_conv_wgmma": (fused_mrf.conv_launches, fused_mrf.plain_calls),
-                  "mrf_conv_wgmma_int8": (fused_mrf.int8_conv_launches, fused_mrf.plain_calls)}
+                  "mrf_conv_wgmma_int8": (fused_mrf.int8_conv_launches, fused_mrf.plain_calls),
+                  "mrf_conv_wgmma_tf32": (fused_mrf.tf32_conv_launches, fused_mrf.plain_calls),
+                  "mrf_conv_wgmma_int8_dynamic": (fused_mrf.int8_dynamic_conv_launches, fused_mrf.plain_calls)}
         log(f"{path} launches (kernel, plain twin): {counts}")
         for name in kernels:
             launches, plain = counts[name]
@@ -2333,11 +2345,12 @@ def main() -> int:
         write_checkpoints(cfg, tmp)
         zero_counts()
         stats = main_path(cfg, tmp, tmp)
-        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf", "mrf_conv_wgmma"])
+        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf", "mrf_conv_wgmma",
+                                                          "mrf_conv_wgmma_tf32"])
         zero_counts()
         stats["int8"], int8_synth = int8_path(cfg, tmp, tmp)
         launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8",
-                                                         "mrf_conv_wgmma_int8"])
+                                                         "mrf_conv_wgmma_int8", "mrf_conv_wgmma_int8_dynamic"])
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
         t0 = time.perf_counter()
@@ -2350,7 +2363,8 @@ def main() -> int:
         zero_counts()
         train["round_trip"] = round_trip(cfg, trained, vocoder, GAN_STEPS + GTA_STEPS)
         launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf", "fused_mrf_int8",
-                                                            "mrf_conv_wgmma", "mrf_conv_wgmma_int8"])
+                                                            "mrf_conv_wgmma", "mrf_conv_wgmma_int8",
+                                                            "mrf_conv_wgmma_tf32"])
         train["card_vs_cpu"] = train_card_vs_cpu()
         train["gan_card_vs_cpu"] = gan_card_vs_cpu()
 
@@ -2454,11 +2468,15 @@ def main() -> int:
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]
     def wgmma_entry(name, counter, route, main, source_note):
-        """The per-conv wgmma pipeline on one route: its C = 256 and 128
-        stages' MRF convs at the bulk shape (``check_bulk``), beside the
-        twin, mma_conv_kernel, cuDNN bf16 and the bound; launches from the
-        paths that ran it."""
+        """The per-conv wgmma pipeline on one route: the MRF convs of the
+        stages it takes at the bulk shape (``check_bulk``), beside the
+        twin, mma_conv_kernel, the library call (cuDNN bf16, or float32
+        with TF32 off; int8 has none: cuDNN bf16 as a yardstick) and the
+        bound; launches from the paths that ran it."""
         w = bulk[route]["wgmma"]
+        widths = " and ".join(f"C = {C}" for C in w)
+        library = {"bfloat16": "the stages' 18 MRF convs each as torch conv1d calls (cuDNN), bf16",
+                   "float32": "the stages' 18 MRF convs each as torch conv1d calls (cuDNN), float32, TF32 off"}
         return {
             "name": name, "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf_conv_wgmma.cuh",
             "replaces": f"viettts_tpu/ops/mrf.py:440 ({source_note})", "launches": main[counter],
@@ -2470,13 +2488,13 @@ def main() -> int:
             "ms": sum(v["ms"] for v in w.values()), "plain_ms": sum(v["plain_ms"] for v in w.values()),
             "per_conv_ms": sum(v["per_conv_ms"] for v in w.values()),
             "bound_ms": sum(v["bound_ms"] for v in w.values()), "bound_by": w[max(w)]["bound_by"],
-            "library_ms": sum(v["cudnn_bf16_ms"] for v in w.values()) if route == "bfloat16" else None,
+            "library_ms": sum(v["library_ms"] for v in w.values()) if route in library else None,
             "cudnn_bf16_ms": sum(v["cudnn_bf16_ms"] for v in w.values()),
-            "library": ("the stages' 18 MRF convs each as torch conv1d calls (cuDNN), bf16" if route == "bfloat16"
-                        else "none: no PyTorch call runs int8 convolutions (cudnn_bf16_ms: cuDNN bf16 as a yardstick)"),
+            "library": library.get(route, "none: no PyTorch call runs int8 convolutions "
+                                          "(cudnn_bf16_ms: cuDNN bf16 as a yardstick)"),
             "issued_tflops": sum(v["issued_flop"] for v in w.values()) / sum(v["ms"] for v in w.values()) / 1e9,
             "stages": {str(C): v for C, v in w.items()},
-            "shape": f"the MRF convs of the C = 256 and 128 stages summed, B={BULK[0]}, {BULK[1]} mel frames; "
+            "shape": f"the MRF convs of the {widths} stages summed, B={BULK[0]}, {BULK[1]} mel frames; "
                      "per_conv_ms: the same on mma_conv_kernel; plain_ms: the twin, one run"}
 
     kernels += [
@@ -2484,6 +2502,10 @@ def main() -> int:
                     "the MRF convs of the C = 256 and 128 stages, bf16"),
         wgmma_entry("mrf_conv_wgmma_int8", "mrf_conv_wgmma_int8", "int8", launches_int8,
                     "quantize_int8 with static scales: the MRF convs of the C = 256 and 128 stages"),
+        wgmma_entry("mrf_conv_wgmma_tf32", "mrf_conv_wgmma_tf32", "float32", launches,
+                    "the float32 route's MRF convs, 3xTF32"),
+        wgmma_entry("mrf_conv_wgmma_int8_dynamic", "mrf_conv_wgmma_int8_dynamic", "int8_dynamic", launches_int8,
+                    "quantize_int8 with dynamic scales: the MRF convs"),
     ]
     log(json.dumps({"card": smi, "main_path": stats, "reference_errors": ref, "train": train,
                     "multi_device": multi, "validation": validation, "snap": snap,

@@ -12,15 +12,18 @@ warm-up (host enqueue included, as the pipeline pays it), the host time to
 enqueue them, and each stage's time alone.  Prints the card's name and
 power limit, then one JSON line.
 
-``--pipelines`` times instead, for the bf16 and static int8 routes, the
-MRF convs alone of each stage on the pipeline that takes it and on the
+``--pipelines`` times instead, for each route, the MRF convs alone of each
+stage on the pipeline that takes it (or would: ``--routes``) and on the
 per-conv ``mma_conv_kernel`` one, in turns in one process (per-conv, new,
-new, per-conv): the stages of ``mrf.FUSED_CHANNELS`` on the fused pipeline
-(the per-conv runs with ``FUSED_CHANNELS`` emptied), the C = 256 and 128
-stages on the per-conv wgmma pipeline (the per-conv runs with
-``mrf.CONV_WGMMA`` off); it checks that the two agree (bitwise on int8)
-and prints beside them the stage's 18 convs as cuDNN conv1d calls (bf16)
-and the stage's roofline bound (``utils.flops.mrf_stage_bound``).
+new, per-conv): on the bf16 and static int8 routes the stages of
+``mrf.FUSED_CHANNELS`` on the fused pipeline (the per-conv runs with
+``FUSED_CHANNELS`` emptied) and the C = 256 and 128 stages on the per-conv
+wgmma pipeline; on the float32 route (3xTF32) and dynamic int8 every
+stage on the wgmma pipeline, whatever its router says (``mrf.CONV_WGMMA =
+"any"``; the per-conv runs with it off).  It checks that the two agree
+(bitwise on int8) and prints beside them the stage's 18 convs as cuDNN
+conv1d calls (bf16; float32 with TF32 off), the stage's roofline bound
+(``utils.flops.mrf_stage_bound``) and whether the router takes the stage.
 
 ``viettts_tpu_torch`` is imported from ``sys.path``: put another checkout
 first on ``PYTHONPATH`` to time it, and run two checkouts in turns in one
@@ -48,7 +51,9 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--frames", type=int, default=128)
-    parser.add_argument("--pipelines", action="store_true", help="fused against per-conv MRF convs")
+    parser.add_argument("--pipelines", action="store_true", help="fused or wgmma against per-conv MRF convs")
+    parser.add_argument("--routes", default="bfloat16,int8,float32,int8_dynamic",
+                        help="--pipelines: the routes to time, comma-separated")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_vocoder_stages: no CUDA device", file=sys.stderr)
@@ -118,42 +123,53 @@ def pipelines(args, smi, cfg, dev, rng) -> int:
     ks, ds, bf16 = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes, torch.bfloat16
     fused_channels = mrf.FUSED_CHANNELS
     peaks = device_peaks()
+    wanted = args.routes.split(",")
     rows = []
     for C_in, C, k_u, u, L_in, post in stage_shapes(cfg, args.frames):
-        wgmma = mrf.conv_takes("bf16", args.batch, L_in * u, C)
-        if C not in fused_channels and not wgmma:
-            continue
+        L = L_in * u
         w32, _, _ = chip_smoke.stage_weights(rng, dev, cfg, C_in, C, k_u, u, False, False, torch.float32)
-        h = torch.from_numpy(chip_smoke.seeded(rng, args.batch, L_in * u, C)).to(dev, bf16)
+        h32 = torch.from_numpy(chip_smoke.seeded(rng, args.batch, L, C)).to(dev)
+        h = h32.to(bf16)
         _, amax = mrf.mrf_walk(h.float().transpose(1, 2), w32, ks, ds, lambda j, y: y.abs().amax())
-        routes = (("bfloat16", mrf.prepare_mrf_weights(w32, compute_dtype=bf16)[0], dict(compute_dtype=bf16)),
-                  ("int8", mrf.prepare_mrf_weights(w32, quantize_int8=True)[0],
-                   dict(compute_dtype=bf16, quantize_int8=True, act_scales=torch.stack(amax))))
-        new = "fused" if C in fused_channels else "wgmma"
-        for route, w, kw in routes:
+        w8 = mrf.prepare_mrf_weights(w32, quantize_int8=True)[0]
+        routes = {"bfloat16": (h, mrf.prepare_mrf_weights(w32, compute_dtype=bf16)[0], dict(compute_dtype=bf16)),
+                  "int8": (h, w8, dict(compute_dtype=bf16, quantize_int8=True, act_scales=torch.stack(amax))),
+                  "float32": (h32, mrf.prepare_mrf_weights(w32)[0], {}),
+                  "int8_dynamic": (h, w8, dict(compute_dtype=bf16, quantize_int8=True))}
+        for route in wanted:
+            x, w, kw = routes[route]
+            conv_route = mrf.conv_route_name(route.removesuffix("_dynamic"), route == "int8")
+            if route in ("bfloat16", "int8"):
+                if C not in fused_channels and not mrf.conv_takes(conv_route, args.batch, L, C):
+                    continue
+                new = "fused" if C in fused_channels else "wgmma"
+            else:
+                new = "wgmma"
             ms, outs = {"per_conv": [], new: []}, {}
             for name in ("per_conv", new, new, "per_conv"):
                 mrf.FUSED_CHANNELS = fused_channels if name == "fused" else ()
-                mrf.CONV_WGMMA = name == "wgmma"
-                ms[name].append(chip_smoke.time_ms(lambda: mrf.fused_mrf(h, w, ks, ds, **kw), reps=args.reps))
-                outs[name] = mrf.fused_mrf(h, w, ks, ds, **kw).float()
+                mrf.CONV_WGMMA = {"per_conv": False, "fused": True, "wgmma": "any"}[name]
+                ms[name].append(chip_smoke.time_ms(lambda: mrf.fused_mrf(x, w, ks, ds, **kw), reps=args.reps))
+                outs[name] = mrf.fused_mrf(x, w, ks, ds, **kw).float()
             mrf.FUSED_CHANNELS, mrf.CONV_WGMMA = fused_channels, True
             diff = (outs[new] - outs["per_conv"]).abs().max().item()
-            if route == "int8" and diff != 0.0:
-                print(f"C={C} int8: the pipelines differ by {diff}", file=sys.stderr)
+            if route.startswith("int8") and diff != 0.0:
+                print(f"C={C} {route}: the pipelines differ by {diff}", file=sys.stderr)
                 return 1
-            bound = mrf_stage_bound(cfg, args.batch, L_in * u, C, "int8" if route == "int8" else route, peaks)
-            lib_ms = (chip_smoke.cudnn_mrf_ms(cfg, h.transpose(1, 2).contiguous(), w, args.reps)
-                      if route == "bfloat16" else None)
-            rows.append({"C": C, "L": L_in * u, "route": route, "pipeline": new, "per_conv": ms["per_conv"],
+            bound = mrf_stage_bound(cfg, args.batch, L, C, "int8" if route.startswith("int8") else route, peaks)
+            lib_ms = (chip_smoke.cudnn_mrf_ms(cfg, x.transpose(1, 2).contiguous(), w, args.reps)
+                      if route in ("bfloat16", "float32") else None)
+            routed = new == "fused" or mrf.conv_takes(conv_route, args.batch, L, C)
+            rows.append({"C": C, "L": L, "route": route, "pipeline": new, "per_conv": ms["per_conv"],
                          "new": ms[new], "max_abs_diff": diff, "cudnn_ms": lib_ms, "bound_ms": bound[0],
-                         "bound_by": bound[1]})
+                         "bound_by": bound[1], "routed": routed})
             print(f"C={C} {route}: per-conv {ms['per_conv'][0]:.3f}; {ms['per_conv'][1]:.3f} ms, {new} "
                   f"{ms[new][0]:.3f}; {ms[new][1]:.3f} ms ({new} / per-conv "
                   f"{sum(ms[new]) / sum(ms['per_conv']):.3f}), max |{new} - per-conv| {diff:.3e}; cuDNN "
-                  f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms; bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
+                  f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms; bound {bound[0]:.3f} ms ({bound[1]}); "
+                  f"router {'takes' if routed else 'leaves'} it", flush=True)
             del outs
-        del h
+        del h, h32, routes
         torch.cuda.empty_cache()
     print(json.dumps({"card": smi, "batch": args.batch, "frames": args.frames, "pipelines": rows}), flush=True)
     return 0

@@ -611,6 +611,141 @@ def test_conv_wgmma_refuses_a_bad_table(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The per-conv wgmma pipeline's float32 route (3xTF32) and dynamic-scale int8
+# route, at C = 256, 128, 64 and 32.
+# ---------------------------------------------------------------------------
+
+STAGE_ROWS.update({64: 128, 32: 256})
+NEW_ROUTES = ["tf32", "int8_dynamic"]
+
+
+def _new_route_case(rng, cuda, C, resblock2, route, B, L):
+    """Weights in the route's layout (float32 ``Tf32Conv``, or ``Int8Conv``
+    without calibrated scales), the float32 stage trunk x [B, L, C] and the
+    float32 twin's output: the float32 route, or dynamic int8."""
+    weights, _, _ = _stage(rng, 0, C, 0, 1, False, resblock2, (3, 7, 11), ((1, 3, 5),) * 3)
+    weights = [tuple(None if t is None else t.to(cuda) for t in blk) for blk in weights]
+    x = _w(rng, B, L, C).to(cuda)
+    tw, _, _ = mrf.prepare_mrf_weights(weights, quantize_int8=route == "int8_dynamic")
+    want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, quantize_int8=route == "int8_dynamic")
+    return tw, x, want
+
+
+def _hold_new_route(route, got, want):
+    """K2 float32: rtol 1e-5 + atol 1e-4 (3xTF32 keeps 22 of 24 bits a
+    part; the sums' order differs); K3 dynamic: bitwise."""
+    if route == "tf32":
+        assert bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all()), (got - want).abs().max().item()
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", NEW_ROUTES)
+@pytest.mark.parametrize("C", [256, 128, 64, 32])
+@pytest.mark.parametrize("resblock2", [False, True], ids=["resblock1", "resblock2"])
+@pytest.mark.parametrize("B,frames", [(1, 512), (2, 128)])
+def test_conv_wgmma_new_route_matches_the_twin(cuda, route, C, resblock2, B, frames):
+    """The float32 route and dynamic int8 on the per-conv wgmma pipeline, at
+    each width and the lead's B=1 (512 frames) and B=2 (128 frames)
+    shapes, whatever the router would choose, against the float32 twin
+    and the dynamic int8 twin."""
+    L = frames * STAGE_ROWS[C]
+    rng = np.random.RandomState(C + L + B + resblock2)
+    tw, x, want = _new_route_case(rng, cuda, C, resblock2, route, B, L)
+    _hold_new_route(route, _run_conv(route, x, tw, None), want)
+
+
+@pytest.mark.parametrize("route", NEW_ROUTES)
+@pytest.mark.parametrize("C", [256, 32])
+@pytest.mark.parametrize("L", [5, 1001])
+def test_conv_wgmma_new_route_at_ragged_lengths(cuda, route, C, L):
+    """L shorter than a k = 11 conv's reach and past one tile."""
+    rng = np.random.RandomState(C + L)
+    tw, x, want = _new_route_case(rng, cuda, C, False, route, 2, L)
+    _hold_new_route(route, _run_conv(route, x, tw, None), want)
+
+
+@pytest.mark.parametrize("route", NEW_ROUTES)
+@pytest.mark.parametrize("C", [256, 128, 64, 32])
+def test_new_route_stage_is_routed_counted_and_capturable(cuda, route, C):
+    """Through ``fused_mrf`` at B=1 x 512 frames: a width the router gives
+    the pipeline counts one stage on its counter and none on
+    ``mma_conv_kernel``'s routes; a CUDA graph of the call replays it
+    (the dynamic route's amax memset and passes included) with the same
+    output, bitwise, and the same count a replay."""
+    B, L = 1, 512 * STAGE_ROWS[C]
+    rng = np.random.RandomState(C)
+    tw, x, want = _new_route_case(rng, cuda, C, False, route, B, L)
+    kw = dict(quantize_int8=True) if route == "int8_dynamic" else {}
+    counter = mrf.CONV_COUNTERS[route]
+    before = getattr(mrf.fused_mrf, counter)
+    got = mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    routed = mrf.conv_takes(route, B, L, C)
+    assert getattr(mrf.fused_mrf, counter) - before == int(routed)
+    _hold_new_route(route, got, want)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)  # warm: opt-ins, plans
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            out = mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+
+
+def test_conv_wgmma_dynamic_conv_is_bitwise_and_flips_no_code(cuda):
+    """One dynamic K3 conv through the stage entry: the amax of the stage
+    input (row 0) is the twin's row amax, its codes flip none, the conv's
+    float32 output is bitwise ``_conv_int8``'s with that amax, its folded
+    amax (row 1) is the row amax of lrelu(output), and the quantize pass's
+    codes are the twin's codes of the output at it."""
+    rng = np.random.RandomState(13)
+    B, L, C, k, dil = 2, 3001, 256, 11, 5
+    x = _w(rng, B, L, C).to(cuda)
+    w = _w(rng, 1, k, C, C, s=0.5 / (k * C) ** 0.5).to(cuda)
+    b = _w(rng, 1, C, s=0.05).to(cuda)
+    q = mrf.quantize_weight_int8(w)
+    lib, stream = _build.load_library(), _build.stream_ptr(cuda)
+    codes = torch.empty(B, C // 16, L, 16, dtype=torch.int8, device=cuda)
+    amax = torch.full((2, B), 7.0, device=cuda)  # the entry zeroes it
+    y = torch.empty(B, L, C, device=cuda)
+    nxt = torch.empty_like(codes)
+    table = [codes.data_ptr(), q.slots.data_ptr(), b.data_ptr(), q.scales.data_ptr(), amax.data_ptr(),
+             amax.data_ptr() + 4 * B, 0, y.data_ptr(), 0, nxt.data_ptr(), k, dil, 0]
+    t = (ctypes.c_longlong * len(table))(*table)
+    _build.check(lib.viettts_mrf_conv_wgmma_int8_dynamic(0, B, L, C, 1.0, 1, ctypes.addressof(t), x.data_ptr(),
+                                                         codes.data_ptr(), amax.data_ptr(), 2, stream), "conv")
+    torch.cuda.synchronize()
+    xin = F.leaky_relu(x.transpose(1, 2), 0.1)
+    assert torch.equal(amax[0], mrf.row_amax(xin))
+    assert int((codes != mrf.pack_operand(mrf.operand_of(x.transpose(1, 2), "int8_dynamic"))).sum()) == 0
+    want = mrf._conv_int8(xin, q.codes[0], q.scales[0], b[0], dil, None)
+    torch.testing.assert_close(y, want.transpose(1, 2), rtol=0, atol=0)
+    assert torch.equal(amax[1], mrf.row_amax(F.leaky_relu(want, 0.1)))
+    assert torch.equal(nxt, mrf.pack_operand(mrf.operand_of(want, "int8_dynamic")))
+
+
+def test_conv_wgmma_tf32_operands_are_the_split(cuda):
+    """The float32 route's stage operand pass writes lrelu(h)'s TF32 parts
+    hi and lo chunk-major, bit for bit the host's split (``tf32_parts``)."""
+    rng = np.random.RandomState(14)
+    B, L, C = 2, 777, 64
+    x = _w(rng, B, L, C).to(cuda)
+    lib, stream = _build.load_library(), _build.stream_ptr(cuda)
+    op = torch.empty(B, C // 2, L, 4, device=cuda)
+    rows = (ctypes.c_longlong * 2)(op.data_ptr(), 0)
+    _build.check(lib.viettts_mrf_conv_operands_tf32(B, L, C, x.data_ptr(), 1, ctypes.addressof(rows), stream), "op")
+    torch.cuda.synchronize()
+    want = mrf.pack_operand(mrf.operand_of(x.transpose(1, 2), "tf32"))
+    assert torch.equal(op.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # The training slice on the card against the CPU (no kernel of the port:
 # eager PyTorch, TF32 off for matmuls and cuDNN convs).
 # ---------------------------------------------------------------------------

@@ -81,7 +81,8 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = K, warmup: int
         "device": card_line(device),
         "iters": iters,
         "warmup": warmup,
-        "launches": read_counters(device, ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8"]),
+        "launches": read_counters(device, ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8",
+                                            "mrf_conv_wgmma_tf32", "mrf_conv_wgmma_int8_dynamic"]),
     }
 
 

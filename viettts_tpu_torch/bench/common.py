@@ -39,7 +39,9 @@ JAX_RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 # kernel -> (wrapper, its launch counter); every twin counts plain_calls
 KERNELS = {"ar_decode": (ar_decode, "launches"), "fused_mrf": (fused_mrf, "launches"),
            "fused_mrf_int8": (fused_mrf, "int8_launches"), "mrf_conv_wgmma": (fused_mrf, "conv_launches"),
-           "mrf_conv_wgmma_int8": (fused_mrf, "int8_conv_launches")}
+           "mrf_conv_wgmma_int8": (fused_mrf, "int8_conv_launches"),
+           "mrf_conv_wgmma_tf32": (fused_mrf, "tf32_conv_launches"),
+           "mrf_conv_wgmma_int8_dynamic": (fused_mrf, "int8_dynamic_conv_launches")}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -114,16 +116,19 @@ def zero_counters() -> None:
     ar_decode.launches = ar_decode.plain_calls = 0
     fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
     fused_mrf.conv_launches = fused_mrf.int8_conv_launches = 0
+    fused_mrf.tf32_conv_launches = fused_mrf.int8_dynamic_conv_launches = 0
 
 
 def wgmma_counters(route: str, int8_static: bool = True) -> List[str]:
     """The per-conv wgmma pipeline's counter that a run of the programs'
-    shapes on ``route`` (a ``hifigan.inference_dtype``) must show: its C =
-    256 and 128 stages take it on the bf16 route and, with calibrated
-    scales, on the int8 route (``ops/mrf.py::conv_takes``)."""
+    shapes on ``route`` (a ``hifigan.inference_dtype``) must show: its
+    stages on the bf16, float32 (3xTF32) and int8 routes, with calibrated
+    scales or without (``ops/mrf.py::conv_takes``)."""
     if route in ("bfloat16", "bf16"):
         return ["mrf_conv_wgmma"]
-    return ["mrf_conv_wgmma_int8"] if route == "int8" and int8_static else []
+    if route == "float32":
+        return ["mrf_conv_wgmma_tf32"]
+    return ["mrf_conv_wgmma_int8" if int8_static else "mrf_conv_wgmma_int8_dynamic"]
 
 
 def read_counters(device: torch.device, expect: Sequence[str]) -> Dict[str, Dict[str, int]]:

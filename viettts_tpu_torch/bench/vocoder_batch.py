@@ -91,7 +91,7 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = K, warmup: int
         "device": card_line(device),
         "iters": iters,
         "warmup": warmup,
-        "launches": read_counters(device, ["fused_mrf", "mrf_conv_wgmma"]),
+        "launches": read_counters(device, ["fused_mrf", "mrf_conv_wgmma", "mrf_conv_wgmma_tf32"]),
     }
 
 

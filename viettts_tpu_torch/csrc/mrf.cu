@@ -35,7 +35,8 @@
 // wgmma with TMA, as the TPU kernel kept its tiles in VMEM.  The C = 256
 // and 128 stages take the per-conv wgmma pipeline (mrf_conv_wgmma.cuh,
 // viettts_mrf_conv_wgmma below), whose epilogues write the next conv's
-// bf16 operand.  The float32 route keeps mma_conv_kernel.
+// bf16 operand.  The float32 route's MRF convs take the same pipeline in
+// 3xTF32 where its plan says so (mrf_tf32.cu), elsewhere mma_conv_kernel.
 //
 // The float routes' ConvTranspose prologue runs on the same kernel, as u
 // interleaved stride-1 convs (one output phase per grid z): on the CUDA
@@ -221,7 +222,7 @@ extern "C" int viettts_mrf_fused(int out_bf16, int B, int L, int C, int n_res, i
 // mrf_conv_plan.h.
 extern "C" int viettts_mrf_conv_wgmma(int out_bf16, int B, int L, int C, float div, int n, const void* table,
                                       void* stream) {
-  return viettts::conv_wgmma_stage<viettts::FRoute::kBf16>(out_bf16, B, L, C, div, n, table,
+  return viettts::conv_wgmma_stage<viettts::FRoute::kBf16>(out_bf16, B, L, C, div, n, table, 0,
                                                            static_cast<cudaStream_t>(stream));
 }
 
@@ -229,7 +230,7 @@ extern "C" int viettts_mrf_conv_wgmma(int out_bf16, int B, int L, int C, float d
 // chunk-major [B][C / 8][L][8] (rows: n x (out, unused) int64).
 extern "C" int viettts_mrf_conv_operands(int B, int L, int C, const void* h, int n, const void* rows,
                                          void* stream) {
-  return viettts::conv_operands<viettts::FRoute::kBf16>(B, L, C, h, n, rows, static_cast<cudaStream_t>(stream));
+  return viettts::conv_operands<viettts::FRoute::kBf16>(B, L, C, h, n, rows, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int viettts_mrf_post(int w_bf16, const void* x, const void* w, const void* bias,

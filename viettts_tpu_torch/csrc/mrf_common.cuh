@@ -2,10 +2,10 @@
 // (mrf_int8.cu): storage-type conversions, leaky_relu, the opt-in to more
 // than 48 KB of dynamic shared memory, and the per-conv tensor-core
 // pipeline (mma_conv_kernel) that both files instantiate, each for its own
-// routes.  It runs the ConvTranspose prologues, and the MRF convs where the
-// fused pipeline (mrf_fused.cuh) does not take the stage: the float32
-// route, dynamic int8 scales and the widths ops/mrf.py::plan_fused leaves
-// out.  Routes:
+// routes.  It runs the ConvTranspose prologues, and the MRF convs of the
+// stages that neither the fused pipeline (mrf_fused.cuh) nor the per-conv
+// wgmma pipeline (mrf_conv_wgmma.cuh) takes: widths outside their plans,
+// and the shapes where the card measured them slower.  Routes:
 //
 // * Bf16Mma (K2, bf16 route): A = bf16(lrelu(x)), weights bf16, float32
 //   accumulation, mma.sync m16n8k16.

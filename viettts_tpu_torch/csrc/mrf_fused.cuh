@@ -67,7 +67,9 @@
 
 namespace viettts {
 
-enum class FRoute { kBf16, kInt8 };
+// The wgmma routes: bf16, int8 and (the per-conv pipeline only,
+// mrf_conv_wgmma.cuh) tf32, the float32 route's 3xTF32.
+enum class FRoute { kBf16, kInt8, kTf32 };
 
 // Launch constants (ops/mrf.py mirrors them as FUSED_*).
 constexpr int FUSED_WARPS = 8;                         // compute: two warpgroups

@@ -45,10 +45,12 @@
 // stays bitwise the twin's; at C = 128 and 256 they take the per-conv
 // wgmma pipeline (mrf_conv_wgmma.cuh, viettts_mrf_conv_wgmma_int8 below),
 // whose epilogues write the next conv's int8 codes, bitwise the codes
-// mma_conv_kernel computes from the float32 values.  Dynamic scales keep
-// mma_conv_kernel, one launch a conv: a
-// conv's amax spans its whole input row, which no tile can know before the
-// previous conv ends.
+// mma_conv_kernel computes from the float32 values.  Dynamic scales take
+// the same pipeline where its plan says so (viettts_mrf_conv_wgmma_int8_dynamic
+// below): a conv's amax spans its whole input row, which no tile can know
+// before the previous conv ends, so each producing epilogue writes float32
+// and folds its amax, and a quantize pass writes the codes; elsewhere
+// mma_conv_kernel, with an absmax pass before each conv.
 //
 // What bounds it on the H100: the MRF convs' 2 * B * L * C^2 * 126
 // operations at the dense int8 rate (1,979 TOP/s), the prologue's
@@ -180,13 +182,36 @@ extern "C" int viettts_mrf_fused_int8(int out_bf16, int B, int L, int C, int n_r
 // w the int8 weight slots, scale and act (act_next) the conv's scales.
 extern "C" int viettts_mrf_conv_wgmma_int8(int out_bf16, int B, int L, int C, float div, int n, const void* table,
                                            void* stream) {
-  return viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table,
+  return viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table, 0,
                                                            static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic-scale int8 MRF convs of a stage on the per-conv wgmma
+// pipeline: amax [n_amax, B] float32 is zeroed (a memset node under
+// capture), its row 0 filled with the amax of lrelu(h) over each batch row
+// (absmax_kernel: the stage input, read by every resblock's first conv),
+// h_op gets h's codes at it (chunk-major [B][C / 16][L][16]), then the n
+// convs of the table as viettts_mrf_conv_wgmma_int8's, with act and
+// act_next their amax rows; a conv with an operand to write writes y,
+// folds its amax into act_next and is followed by its quantize pass.
+extern "C" int viettts_mrf_conv_wgmma_int8_dynamic(int out_bf16, int B, int L, int C, float div, int n,
+                                                   const void* table, const void* h, void* h_op, void* amax,
+                                                   int n_amax, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_amax < 1 || B < 1 || !h || !h_op || !amax) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)n_amax * B, s);
+  if (err == 0) err = viettts_mrf_absmax(h, amax, B, (long long)L * C, stream);
+  if (err == 0) {
+    const long long row[2] = {(long long)reinterpret_cast<uintptr_t>(h_op), (long long)reinterpret_cast<uintptr_t>(amax)};
+    err = viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, 1, row, 1, s);
+  }
+  if (err == 0) err = viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table, 1, s);
+  return err;
 }
 
 // The int8 codes of lrelu(h), one tensor per calibrated amax: rows n x
 // (out, act) int64, out chunk-major [B][C / 16][L][16].
 extern "C" int viettts_mrf_conv_operands_int8(int B, int L, int C, const void* h, int n, const void* rows,
                                               void* stream) {
-  return viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, n, rows, static_cast<cudaStream_t>(stream));
+  return viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, n, rows, 0, static_cast<cudaStream_t>(stream));
 }

@@ -116,7 +116,8 @@ LEAD_FRAMES_PER_TOKEN = 8
 # graph records what its capture counted and each replay adds it
 _COUNTERS = ((ar_decode, "launches"), (ar_decode, "plain_calls"), (fused_mrf, "launches"),
              (fused_mrf, "int8_launches"), (fused_mrf, "plain_calls"), (fused_mrf, "conv_launches"),
-             (fused_mrf, "int8_conv_launches"))
+             (fused_mrf, "int8_conv_launches"), (fused_mrf, "tf32_conv_launches"),
+             (fused_mrf, "int8_dynamic_conv_launches"))
 
 
 def _bucket_tokens(n: int, buckets: Sequence[int]) -> int:

@@ -81,16 +81,20 @@ SIGNATURES = {
     # out_bf16, B, L, C, div, n, table (n rows of CONV_FIELDS int64), stream
     "viettts_mrf_conv_wgmma": [I] * 4 + [F, I, P, P],
     "viettts_mrf_conv_wgmma_int8": [I] * 4 + [F, I, P, P],
+    "viettts_mrf_conv_wgmma_tf32": [I] * 4 + [F, I, P, P],
+    # out_bf16, B, L, C, div, n, table, h (float32 [B, L, C]), h_op (its codes), amax [n_amax, B], n_amax, stream
+    "viettts_mrf_conv_wgmma_int8_dynamic": [I] * 4 + [F, I] + [P] * 4 + [I, P],
     # B, L, C, h, n, rows (n x (out, act) int64), stream
     "viettts_mrf_conv_operands": [I] * 3 + [P, I, P, P],
     "viettts_mrf_conv_operands_int8": [I] * 3 + [P, I, P, P],
+    "viettts_mrf_conv_operands_tf32": [I] * 3 + [P, I, P, P],
 }
 # the plan library (csrc/mrf_conv_plan.cpp)
 PLAN_SIGNATURES = {
     # route, B, L, C
     "viettts_conv_wgmma_takes": [I] * 4,
-    # B, L, C, k, dil, sms, out (CONV_PLAN_FIELDS ints)
-    "viettts_conv_wgmma_plan": [I] * 6 + [P],
+    # route, B, L, C, k, dil, sms, out (CONV_PLAN_FIELDS ints)
+    "viettts_conv_wgmma_plan": [I] * 7 + [P],
 }
 PLAN_SOURCE = CSRC_DIR / "mrf_conv_plan.cpp"
 RESTYPES = {"viettts_error_string": ctypes.c_char_p}

@@ -39,31 +39,36 @@ amax spans one time tile plus its halo (``_pick_tile_rows``), so it equals
 this one only where the sequence fits one tile (at most 8192 packed rows
 of 128 lanes); longer inputs differ from JAX by design.
 
-``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``) on CUDA
-tensors and ``fused_mrf_plain`` on CPU tensors; any other device raises.
-On CUDA the MRF convs take one of three pipelines, by the plan alone:
+``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``,
+``csrc/mrf_tf32.cu``) on CUDA tensors and ``fused_mrf_plain`` on CPU
+tensors; any other device raises.  On CUDA the MRF convs take one of three
+pipelines, by the plan alone:
 
 * the fused pipeline (``csrc/mrf_fused.cuh``) on the bf16 and static
   int8 routes at the widths of ``FUSED_CHANNELS``: a launch runs whole
   resblocks for time tiles on chip (``plan_fused``; ``fused_mrf_tiled`` is
   its schedule in plain PyTorch, for the tests);
-* the per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``) on the bf16
-  and static int8 routes for the stages its plan takes
-  (``csrc/mrf_conv_plan.h``, asked through ``conv_takes``: C = 256 and
-  128): one launch a conv, each epilogue writing the next conv's bf16 or
-  int8 operand (chunk-major, ``pack_operand``), float32 only for the
-  residual trunk and the resblocks' sum; the weights come in their slot
-  layout (``Bf16Conv.slots``, ``Int8Conv.slots``, ``conv_slots``);
-  ``mrf_conv_stage_plain`` is that storage in plain PyTorch, for the tests;
+* the per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``) for the stages
+  its plan takes on each of its routes (``csrc/mrf_conv_plan.h``, asked
+  through ``conv_takes``; ``conv_route``: bf16, static int8, tf32 for the
+  float32 route's 3xTF32, dynamic int8): one launch a conv, each epilogue
+  writing the next conv's operand (chunk-major, ``pack_operand``: bf16,
+  int8 codes, or the TF32 parts hi and lo) or, with dynamic scales,
+  float32 and its amax (a quantize pass writes the codes); float32 only for
+  the residual trunk and the resblocks' sum; the weights come in their
+  slot layout (``Bf16Conv.slots``, ``Int8Conv.slots``, ``Tf32Conv.slots``:
+  ``conv_slots``, ``tf32_slots``); ``mrf_conv_stage_plain`` is that
+  storage in plain PyTorch, for the tests;
 * the per-conv ``mma_conv_kernel`` pipeline (one launch plan of 18 convs a
-  stage) on the float32 route, for dynamic int8 scales and at widths
-  neither of the others takes.
+  stage) at the widths and shapes neither of the others takes.
 ``fused_mrf.launches`` counts stages that launched K2 kernels (on the int8
 route: the epilogue or a bf16 input's cast), ``fused_mrf.int8_launches``
 stages that launched K3 (the int8 MRF convs and the float64 prologue),
-``fused_mrf.conv_launches`` and ``fused_mrf.int8_conv_launches`` the
-stages among them whose MRF convs ran on the per-conv wgmma pipeline, and
-``fused_mrf.plain_calls`` calls of the twin.
+``fused_mrf.conv_launches``, ``tf32_conv_launches``,
+``int8_conv_launches`` and ``int8_dynamic_conv_launches`` the stages
+among them whose MRF convs ran on the per-conv wgmma pipeline on its bf16,
+tf32, static and dynamic int8 routes, and ``fused_mrf.plain_calls`` calls
+of the twin.
 """
 
 from __future__ import annotations
@@ -103,23 +108,30 @@ FUSED_RING = (3, 2)  # ring depths the plan tries
 SMEM_LIMIT = 232_448  # shared memory a block may opt in to on the H100
 
 # The per-conv wgmma pipeline (csrc/mrf_conv_wgmma.cuh) reads its operands
-# and weights in K chunks of this many bytes a row (64 bf16 or 128 int8
-# input channels), in 16-byte planes: the layout of ``conv_slots`` and
+# and weights in K chunks of at most this many bytes a row (64 bf16, 128
+# int8 or 16 TF32 input channels, or C's own 32 or 64 bytes of int8), in
+# 16-byte planes: the layout of ``conv_slots``, ``tf32_slots`` and
 # ``pack_operand``.  Which stages it takes, and each conv's tiles, are the
 # C plan's (csrc/mrf_conv_plan.h: ``conv_takes``, ``conv_plan``).
 CONV_CHUNK_BYTES = 128
-CONV_ROUTES = {"bf16": 0, "int8": 1}  # the plan's route codes
-CONV_WGMMA = True  # False sends those stages to mma_conv_kernel (for timing the two in turns)
+CONV_ROUTES = {"bf16": 0, "int8": 1, "tf32": 2, "int8_dynamic": 3}  # the plan's route codes
+# True: the router (``conv_takes``); False sends every stage to
+# mma_conv_kernel and "any" every stage the C plan tiles to the wgmma
+# pipeline (for timing the two in turns, whatever the router says).
+CONV_WGMMA = True
 
 
 class Tf32Conv(NamedTuple):
-    """A resblock's stacked float32 convs for the kernel's 3xTF32 dots:
-    ``w`` float32 [D, k, C_in, C_out] (what the twin reads) and ``split``
-    float32 [D, 2, k, C_out, C_in], its TF32 parts hi and lo in the
-    kernel's layout (``tf32_split``)."""
+    """A resblock's stacked float32 convs for the kernels' 3xTF32 dots:
+    ``w`` float32 [D, k, C_in, C_out] (what the twin reads), ``split``
+    float32 [D, 2, k, C_out, C_in], its TF32 parts hi and lo in
+    ``mma_conv_kernel``'s layout (``tf32_split``), and ``slots``, the same
+    parts in the per-conv wgmma pipeline's (``tf32_slots``; None where 16
+    does not divide C_in)."""
 
     w: torch.Tensor
     split: torch.Tensor
+    slots: Optional[torch.Tensor] = None
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -134,8 +146,14 @@ def tf32_split(w: torch.Tensor) -> torch.Tensor:
     layout [D, 2, k, C_out, C_in]: ``hi = tf32(w)`` and ``lo = tf32(w - hi)``
     (``hi + lo`` keeps 22 of w's 24 significant bits), each tap transposed
     to (O, I) so that a row of the weight tile is contiguous in C_in."""
-    hi = tf32_round(w)
-    return torch.stack([hi, tf32_round(w - hi)], dim=1).transpose(-1, -2).contiguous()
+    return torch.stack(tf32_parts(w), dim=1).transpose(-1, -2).contiguous()
+
+
+def tf32_parts(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 y as its TF32 parts ``hi = tf32(y)``, ``lo = tf32(y - hi)``,
+    as the kernels split operands (``cvt.rna.tf32.f32``)."""
+    hi = tf32_round(y)
+    return hi, tf32_round(y - hi)
 
 
 class Bf16Conv(NamedTuple):
@@ -180,17 +198,43 @@ class Int8Conv(NamedTuple):
     slots: Optional[torch.Tensor] = None
 
 
+def conv_chunk(c_in: int, channel_bytes: int) -> Optional[int]:
+    """Input channels of the per-conv wgmma pipeline's K chunk for C_in
+    channels of ``channel_bytes`` each: ``CONV_CHUNK_BYTES`` of them, or
+    C_in's own 32 or 64 bytes where it is narrower (csrc/mrf_conv_plan.h::
+    conv_chunk_planes); None where no chunk divides C_in."""
+    row = c_in * channel_bytes
+    chunk = min(row, CONV_CHUNK_BYTES)
+    if chunk not in (32, 64, 128) or row % chunk:
+        return None
+    return chunk // channel_bytes
+
+
 def conv_slots(w: torch.Tensor) -> Optional[torch.Tensor]:
     """Stacked bf16 weights or int8 codes [D, k, C_in, C_out] in the per-conv
     wgmma pipeline's layout, [D, C_in / KC, k, KC / e, C_out, e]: for each
-    (input chunk of KC = ``CONV_CHUNK_BYTES`` bytes, tap) one weight slot
-    of KC / e planes, each C_out rows of e inputs (16 bytes), the K-major
-    B operand a bulk copy lands as; None where KC does not divide C_in."""
+    (input chunk of KC channels, ``conv_chunk``, tap) one weight slot of KC
+    / e planes, each C_out rows of e inputs (16 bytes), the K-major B
+    operand a bulk copy lands as; None where no chunk divides C_in."""
     D, k, c_in, c_out = w.shape
-    e, kc = 16 // w.element_size(), CONV_CHUNK_BYTES // w.element_size()
-    if c_in % kc:
+    e, kc = 16 // w.element_size(), conv_chunk(c_in, w.element_size())
+    if kc is None:
         return None
     return w.reshape(D, k, c_in // kc, kc // e, e, c_out).permute(0, 2, 1, 3, 5, 4).contiguous()
+
+
+def tf32_slots(w: torch.Tensor) -> Optional[torch.Tensor]:
+    """Stacked float32 weights [D, k, C_in, C_out] as the per-conv wgmma
+    pipeline's 3xTF32 slots, [D, C_in / 16, k, 8, C_out, 4]: for each
+    (chunk of 16 inputs, tap) 4 planes of ``hi = tf32(w)`` then 4 of ``lo =
+    tf32(w - hi)`` (``tf32_split``'s parts), each C_out rows of 4 inputs;
+    None where 16 does not divide C_in."""
+    D, k, c_in, c_out = w.shape
+    if c_in % 16:
+        return None
+    parts = torch.stack(tf32_parts(w.float()), dim=2)  # [D, k, 2, C_in, C_out]
+    slots = parts.reshape(D, k, 2, c_in // 16, 4, 4, c_out).permute(0, 3, 1, 2, 4, 6, 5)
+    return slots.reshape(D, c_in // 16, k, 8, c_out, 4).contiguous()
 
 
 def quantize_weight_int8(w: torch.Tensor) -> Int8Conv:
@@ -443,7 +487,7 @@ def fused_route_name(route: str, int8_static: bool = False) -> Optional[str]:
     to the per-conv pipeline at every width on the H100) and for int8 with
     dynamic scales (their amax spans a conv's whole input row, so a conv
     cannot start before its predecessor has finished every tile: one
-    launch a conv, ROADMAP K-c)."""
+    launch a conv, ``conv_route_name``)."""
     if route == "int8":
         return "int8" if int8_static else None
     return {"bfloat16": "bf16", "bf16": "bf16", "float32": None}[route]
@@ -454,6 +498,22 @@ def fused_route(store, quantize_int8: bool, act_scales) -> Optional[str]:
     if quantize_int8:
         return fused_route_name("int8", act_scales is not None)
     return fused_route_name("bfloat16" if store == torch.bfloat16 else "float32")
+
+
+def conv_route_name(route: str, int8_static: bool = False) -> str:
+    """The per-conv wgmma pipeline's route (``CONV_ROUTES``) for a serving
+    route (``bfloat16``, ``float32``, ``int8``): ``tf32`` is the float32
+    route's 3xTF32, ``int8_dynamic`` int8 without calibrated scales."""
+    if route == "int8":
+        return "int8" if int8_static else "int8_dynamic"
+    return {"bfloat16": "bf16", "bf16": "bf16", "float32": "tf32"}[route]
+
+
+def conv_route(store, quantize_int8: bool, act_scales) -> str:
+    """``conv_route_name`` of a ``fused_mrf`` call."""
+    if quantize_int8:
+        return conv_route_name("int8", act_scales is not None)
+    return conv_route_name("bfloat16" if store == torch.bfloat16 else "float32")
 
 
 def fused_mrf_tiled(
@@ -577,8 +637,9 @@ def prepare_mrf_weights(
     turns W1/W2 into ``Int8Conv``, quantized from the float32 values (the
     TPU kernel packs and quantizes in float32, never from bf16), and the
     upsample weight into ``F64Conv``; on the float32 route they become
-    ``Tf32Conv`` (split once here, not per call), on the bf16 route
-    ``Bf16Conv`` with the per-conv wgmma pipeline's slots."""
+    ``Tf32Conv`` (split once here, not per call, with the per-conv wgmma
+    pipeline's TF32 slots), on the bf16 route ``Bf16Conv`` with its
+    slots."""
     store = storage_dtype(compute_dtype)
 
     def w(t):
@@ -589,7 +650,7 @@ def prepare_mrf_weights(
             return quantize_weight_int8(t.float())
         if store == torch.float32:
             t = t.float().contiguous()
-            return Tf32Conv(t, tf32_split(t))
+            return Tf32Conv(t, tf32_split(t), tf32_slots(t))
         t = t.to(store).contiguous()
         return Bf16Conv(t, conv_slots(t))
 
@@ -819,17 +880,16 @@ def _fused_mrf_cuda(
     if launch is not None:
         _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, launch, out, out_bf)
         return out if post is None else _post(lib, stream, bf, out, post)
-    if route is not None and CONV_WGMMA and conv_takes(route, B, L, C):
-        _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf)
-        if quantize_int8:
-            fused_mrf.int8_conv_launches += 1
-        else:
-            fused_mrf.conv_launches += 1
+    croute = conv_route(store, quantize_int8, act_scales)
+    if (conv_takes(croute, B, L, C) if CONV_WGMMA is True else
+            CONV_WGMMA == "any" and conv_plan(B, L, C, kernel_sizes[0], 1, _sm_count(x.device), croute) is not None):
+        _launch_conv_wgmma(lib, stream, croute, h, weights, kernel_sizes, dilations, act_scales, out, out_bf)
+        counter = CONV_COUNTERS[croute]
+        setattr(fused_mrf, counter, getattr(fused_mrf, counter) + 1)
         return out if post is None else _post(lib, stream, bf, out, post)
 
-    # mma_conv_kernel: the stages neither wgmma pipeline takes, the
-    # float32 route and dynamic int8 scales (one amax per (conv, batch
-    # row), by atomicMax)
+    # mma_conv_kernel: the stages neither wgmma pipeline takes (dynamic
+    # int8: one amax per (conv, batch row), by atomicMax)
     bufs = (torch.empty(B, L, C, **f32), torch.empty(B, L, C, **f32))
     acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
     amax = torch.zeros(n_convs(weights), B, **f32) if quantize_int8 and act_scales is None else None
@@ -960,22 +1020,37 @@ def _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_s
     _build.check(code, f"fused_mrf {route} resblocks")
 
 
+# The per-conv wgmma pipeline's operand on each route: (element dtype, e
+# channels a 16-byte plane, planes an element takes: tf32 stores hi and lo)
+CONV_OPERANDS = {"bf16": (torch.bfloat16, 8, 1), "int8": (torch.int8, 16, 1),
+                 "int8_dynamic": (torch.int8, 16, 1), "tf32": (torch.float32, 4, 2)}
+# the counter of each route's stages on it (``fused_mrf.<name>``)
+CONV_COUNTERS = {"bf16": "conv_launches", "int8": "int8_conv_launches", "tf32": "tf32_conv_launches",
+                 "int8_dynamic": "int8_dynamic_conv_launches"}
+
+
 def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf):
-    """The stage's MRF convs on the per-conv wgmma pipeline: h the float32
-    trunk [B, L, C]; one pass writes its operands (one bf16 tensor, or the
-    int8 codes at each resblock's first scale), then one C call launches
-    the convs from a table of ``CONV_FIELDS`` int64 a conv.  Each conv reads
-    one chunk-major operand and writes the next conv's into another (a
-    conv's halo is other tiles' rows, so never its own input): ResBlock1's
-    dilated conv writes ``pa``, its dilation-1 conv ``pb``; ResBlock2's
-    convs alternate between the two."""
+    """The stage's MRF convs on the per-conv wgmma pipeline on ``route``
+    (``CONV_ROUTES``): h the float32 trunk [B, L, C]; the stage input's
+    operands (one bf16 or TF32 tensor, the int8 codes at each resblock's
+    first static scale, or with dynamic scales one code tensor at the row
+    amax of lrelu(h)), then the convs from a table of ``CONV_FIELDS`` int64
+    a conv, in one C call.  Each conv reads one chunk-major operand and
+    writes the next conv's into another (a conv's halo is other tiles'
+    rows, so never its own input): ResBlock1's dilated conv writes ``pa``,
+    its dilation-1 conv ``pb``; ResBlock2's convs alternate between the
+    two.  With dynamic scales a conv that writes an operand also writes
+    float32 (the trunk, or ``mid`` for ResBlock1's dilated conv), which its
+    quantize pass reads, and each conv's amax is a row of ``amax`` [n_convs,
+    B] (the stage input's: row 0)."""
     B, L, C = h.shape
     f32 = dict(dtype=torch.float32, device=h.device)
-    e = 8 if route == "bf16" else 16
-    op_dtype = torch.bfloat16 if route == "bf16" else torch.int8
+    op_dtype, e, parts = CONV_OPERANDS[route]
+    int8 = route.startswith("int8")
+    dynamic = route == "int8_dynamic"
 
     def operand():
-        return torch.empty(B, C // e, L, e, dtype=op_dtype, device=h.device)
+        return torch.empty(B, C // e * parts, L, e, dtype=op_dtype, device=h.device)
 
     def ptr(t, j=0):
         return 0 if t is None else t.data_ptr() + j * t.stride(0) * t.element_size()
@@ -983,41 +1058,51 @@ def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, 
     n_blocks = len(kernel_sizes)
     convs = [len(d) * (1 if w2 is None else 2) for (_, _, w2, _), d in zip(weights, dilations)]
     firsts = [sum(convs[:i]) for i in range(n_blocks)]
+    sms = _sm_count(h.device)
     for blk, (w1, _, w2, _) in enumerate(weights):
+        plan = conv_plan(B, L, C, kernel_sizes[blk], 1, sms, route)
+        if plan is None:
+            raise ValueError(f"fused_mrf kernel: the wgmma pipeline's plan does not tile C={C} on route {route}")
+        kc = plan.planes // parts * e
         for name, w in (("W1", w1), ("W2", w2)):
             if w is None:
                 continue
             slots = getattr(w, "slots", None)
-            want = (convs[blk] // (1 if w2 is None else 2), C // (CONV_CHUNK_BYTES // (1 if route == "int8" else 2)),
-                    kernel_sizes[blk], CONV_CHUNK_BYTES // 16, C, e)
+            want = (convs[blk] // (1 if w2 is None else 2), C // kc, kernel_sizes[blk], plan.planes, C, e)
             if slots is None or tuple(slots.shape) != want or slots.dtype != op_dtype or not slots.is_contiguous():
                 raise ValueError(f"fused_mrf kernel: block {blk} {name} needs its wgmma weight slots {want} {op_dtype} "
                                  f"(prepare_mrf_weights), got "
                                  f"{None if slots is None else (tuple(slots.shape), slots.dtype)}")
             if slots.device != h.device:
                 raise ValueError(f"fused_mrf: block {blk} {name} slots are on {slots.device}, x on {h.device}")
+    amax = torch.empty(n_convs(weights), B, **f32) if dynamic else None
     # the stage input's operands (the row array must outlive the call)
-    if route == "bf16":
+    if route in ("bf16", "tf32"):
         h_ops = [operand()] * n_blocks
         rows = (ctypes.c_longlong * 2)(h_ops[0].data_ptr(), 0)
-        code = lib.viettts_mrf_conv_operands(B, L, C, h.data_ptr(), 1, ctypes.addressof(rows), stream)
+        fn = lib.viettts_mrf_conv_operands if route == "bf16" else lib.viettts_mrf_conv_operands_tf32
+        _build.check(fn(B, L, C, h.data_ptr(), 1, ctypes.addressof(rows), stream), f"fused_mrf {route} stage operands")
+    elif dynamic:  # written by the stage's C call, at amax row 0
+        h_ops = [operand()] * n_blocks
     else:
         h_ops = [operand() for _ in range(n_blocks)]
         pairs = [v for i, op in enumerate(h_ops) for v in (op.data_ptr(), ptr(act_scales, firsts[i]))]
         rows = (ctypes.c_longlong * len(pairs))(*pairs)
         code = lib.viettts_mrf_conv_operands_int8(B, L, C, h.data_ptr(), n_blocks, ctypes.addressof(rows), stream)
-    _build.check(code, f"fused_mrf {route} stage operands")
+        _build.check(code, f"fused_mrf {route} stage operands")
 
     trunk = torch.empty(B, L, C, **f32) if any(len(d) > 1 for d in dilations) else None
     acc = torch.empty(B, L, C, **f32) if n_blocks > 1 else None
+    mid = torch.empty(B, L, C, **f32) if dynamic and any(w2 is not None for _, _, w2, _ in weights) else None
     pa, pb = operand(), operand()
+    scales = amax if dynamic else act_scales
     table = []
 
     def conv(x_op, w, j, b, ci, k, dil, res=None, y=None, mode=0, out_ptr=0, pout=None):
         wslots = ptr(w.slots, j)
-        scale = ptr(w.scales, j) if route == "int8" else 0
-        act = ptr(act_scales, ci) if route == "int8" else 0
-        act_next = ptr(act_scales, ci + 1) if route == "int8" and pout is not None else 0
+        scale = ptr(w.scales, j) if int8 else 0
+        act = ptr(scales, 0 if dynamic and x_op is h_ops[0] else ci) if int8 else 0
+        act_next = ptr(scales, ci + 1) if int8 and pout is not None else 0
         table.extend((x_op.data_ptr(), wslots, ptr(b, j), scale, act, act_next, ptr(res), ptr(y), out_ptr, ptr(pout),
                       k, dil, mode))
 
@@ -1027,7 +1112,7 @@ def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, 
         cur, res, ci = h_ops[blk], h, firsts[blk]
         for j, d in enumerate(dils):
             if w2 is not None:  # ResBlock1: the dilated conv writes only its successor's operand
-                conv(cur, w1, j, b1, ci, k, d, pout=pa)
+                conv(cur, w1, j, b1, ci, k, d, y=mid, pout=pa)
                 ci += 1
                 src, w, b, dil, nxt = pa, w2, b2, 1, pb
             else:
@@ -1043,8 +1128,15 @@ def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, 
 
     rows = (ctypes.c_longlong * len(table))(*table)
     n = len(table) // CONV_FIELDS
-    fn = lib.viettts_mrf_conv_wgmma if route == "bf16" else lib.viettts_mrf_conv_wgmma_int8
-    _build.check(fn(out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows), stream), f"fused_mrf {route} wgmma convs")
+    args = (out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows))
+    if dynamic:
+        code = lib.viettts_mrf_conv_wgmma_int8_dynamic(*args, h.data_ptr(), h_ops[0].data_ptr(), amax.data_ptr(),
+                                                       amax.shape[0], stream)
+    else:
+        fn = {"bf16": lib.viettts_mrf_conv_wgmma, "int8": lib.viettts_mrf_conv_wgmma_int8,
+              "tf32": lib.viettts_mrf_conv_wgmma_tf32}[route]
+        code = fn(*args, stream)
+    _build.check(code, f"fused_mrf {route} wgmma convs")
 
 
 CONV_FIELDS = 13  # int64 fields of a conv in the wgmma pipeline's launch table (csrc/mrf_conv_wgmma.cuh)
@@ -1053,12 +1145,14 @@ CONV_FIELDS = 13  # int64 fields of a conv in the wgmma pipeline's launch table 
 class ConvPlan(NamedTuple):
     """One conv's launch on the per-conv wgmma pipeline, as the C plan
     (``csrc/mrf_conv_plan.h``) gives it: tiles of ``bm`` rows x ``bn``
-    channels, a weight ring of ``stages`` slots, windows of ``win`` rows
-    (TMA boxes of ``xbox``), ``tiles`` tiles over ``ctas`` persistent
-    blocks, ``smem`` bytes of shared memory."""
+    channels, K chunks of ``planes`` 16-byte planes, a weight ring of
+    ``stages`` slots, windows of ``win`` rows (TMA boxes of ``xbox``),
+    ``tiles`` tiles over ``ctas`` persistent blocks, ``smem`` bytes of
+    shared memory."""
 
     bm: int
     bn: int
+    planes: int
     stages: int
     win: int
     xbox: int
@@ -1069,60 +1163,85 @@ class ConvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def conv_takes(route: str, B: int, L: int, C: int) -> bool:
-    """Whether the per-conv wgmma pipeline takes a stage's MRF convs on the
-    fused route ``route`` (``fused_route_name``): the C plan's answer."""
+    """Whether the per-conv wgmma pipeline takes a stage's MRF convs on
+    ``route`` (``CONV_ROUTES``; a fused route name is the same for bf16 and
+    static int8): the C plan's answer."""
     if route not in CONV_ROUTES:
         return False
     return bool(_build.load_plan_library().viettts_conv_wgmma_takes(CONV_ROUTES[route], B, L, C))
 
 
 @functools.lru_cache(maxsize=1024)
-def conv_plan(B: int, L: int, C: int, k: int, dil: int, sms: int) -> Optional[ConvPlan]:
+def conv_plan(B: int, L: int, C: int, k: int, dil: int, sms: int, route: str = "bf16") -> Optional[ConvPlan]:
     """The C plan's launch of one conv (kernel size k, dilation dil) of a
-    stage of width C, B rows of L steps, on a card of ``sms`` SMs; None
-    where no tile fits."""
+    stage of width C, B rows of L steps, on ``route`` on a card of ``sms``
+    SMs; None where no tile fits."""
     out = (ctypes.c_int * len(ConvPlan._fields))()
-    if not _build.load_plan_library().viettts_conv_wgmma_plan(B, L, C, k, dil, sms, ctypes.addressof(out)):
+    if not _build.load_plan_library().viettts_conv_wgmma_plan(CONV_ROUTES[route], B, L, C, k, dil, sms,
+                                                              ctypes.addressof(out)):
         return None
     return ConvPlan(*out)
 
 
-def conv_issued_macs(B: int, L: int, C: int, kernel_sizes, dilations, resblock2: bool, sms: int) -> int:
-    """MACs the per-conv wgmma pipeline issues for a stage's MRF convs: each
-    conv's tiles (``bm`` rows x ``bn`` channels, the ragged last row tile
-    whole) over k taps and C input channels."""
+def conv_issued_macs(B: int, L: int, C: int, kernel_sizes, dilations, resblock2: bool, sms: int,
+                     route: str = "bf16") -> int:
+    """MACs the per-conv wgmma pipeline issues for a stage's MRF convs on
+    ``route``: each conv's tiles (``bm`` rows x ``bn`` channels, the ragged
+    last row tile whole) over k taps and C input channels (3xTF32 issues
+    three tensor-core products for each)."""
     total = 0
     for k, dils in zip(kernel_sizes, dilations):
         for d in dils:
             for dil in (d,) if resblock2 else (d, 1):
-                p = conv_plan(B, L, C, k, dil, sms)
+                p = conv_plan(B, L, C, k, dil, sms, route)
                 total += p.tiles * p.bm * p.bn * k * C
     return total
 
 
+def row_amax(y: torch.Tensor) -> torch.Tensor:
+    """The dynamic int8 scale of a conv input y [B, C, L]: its amax over
+    each batch row, as ``_conv_int8`` takes it."""
+    return y.abs().amax(dim=(1, 2))
+
+
 def operand_of(v: torch.Tensor, route: str, act: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The stored operand of a conv whose input is lrelu(v): bf16(lrelu(v)),
-    or on the int8 route the codes at the calibrated amax ``act`` (as
-    ``_conv_int8`` quantizes its input)."""
+    """The stored operand of a conv whose input is lrelu(v) [B, C, L]:
+    bf16(lrelu(v)); on the int8 route the codes at the calibrated amax
+    ``act`` (as ``_conv_int8`` quantizes its input), on ``int8_dynamic`` at
+    the row amax [B] ``act`` (no clip; ``row_amax`` where None); on
+    ``tf32`` its TF32 parts hi and lo stacked on a new axis 1."""
     y = F.leaky_relu(v.float(), LRELU_SLOPE)
     if route == "bf16":
         return y.to(torch.bfloat16)
+    if route == "tf32":
+        return torch.stack(tf32_parts(y), dim=1)
     c127 = _f32(127.0, y)
+    if route == "int8_dynamic":
+        a = row_amax(y) if act is None else act
+        return torch.round(y * (c127 / torch.clamp_min(a, 1e-30))[:, None, None]).to(torch.int8)
     return torch.round(torch.clamp(y * (c127 / torch.clamp_min(act, 1e-12)), -127.0, 127.0)).to(torch.int8)
 
 
 def pack_operand(op: torch.Tensor) -> torch.Tensor:
     """An operand [B, C, L] (bf16 or int8 codes) in the kernel's chunk-major
     layout [B, C / e, L, e] (e = 16 bytes of channels): channel c of row l
-    at flat element ((b * C / e + c / e) * L + l) * e + c % e."""
+    at flat element ((b * C / e + c / e) * L + l) * e + c % e.  A TF32
+    operand [B, 2, C, L] (hi, lo) goes to [B, C / 2, L, 4]: for each chunk
+    of 16 channels its 4 planes of hi, then its 4 of lo."""
+    if op.dim() == 4:
+        B, _, C, L = op.shape
+        return op.reshape(B, 2, C // 16, 4, 4, L).permute(0, 2, 1, 3, 5, 4).reshape(B, C // 2, L, 4).contiguous()
     B, C, L = op.shape
     e = 16 // op.element_size()
     return op.reshape(B, C // e, e, L).transpose(2, 3).contiguous()
 
 
 def unpack_operand(p: torch.Tensor) -> torch.Tensor:
-    """``pack_operand``'s inverse: [B, C / e, L, e] -> [B, C, L]."""
+    """``pack_operand``'s inverse: [B, C / e, L, e] -> [B, C, L]; float32
+    (TF32) [B, C / 2, L, 4] -> [B, 2, C, L]."""
     B, n, L, e = p.shape
+    if p.dtype == torch.float32:
+        return p.reshape(B, n // 8, 2, 4, L, 4).permute(0, 2, 1, 3, 5, 4).reshape(B, 2, n * 2, L)
     return p.transpose(2, 3).reshape(B, n * e, L)
 
 
@@ -1134,42 +1253,67 @@ def mrf_conv_stage_plain(
     route: str,
     act_scales: Optional[torch.Tensor] = None,
     operands: Optional[List[torch.Tensor]] = None,
+    amaxes: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The MRF stack on the float32 stage trunk x [B, L, C] with the per-conv
     wgmma pipeline's storage, in plain PyTorch: every conv reads a stored,
     chunk-major operand (``pack_operand`` of ``operand_of``) that the
     previous conv's epilogue (or, for the stage input, one pass) wrote;
     float32 is kept only for the residual trunk and the resblocks' sum.
-    ``route`` ``bf16`` (bf16 operands, float32 convs of their values) or
-    ``int8`` (codes at ``act_scales``, ``_conv_int8``'s dot and dequant).
+    ``route``: ``bf16`` (bf16 operands, float32 convs of their values),
+    ``int8`` (codes at ``act_scales``, ``_conv_int8``'s dot and dequant),
+    ``int8_dynamic`` (codes at each conv input's row amax, which
+    ``amaxes``, where given, collects in flat conv order; the stage input's
+    codes serve every resblock's first conv) or ``tf32`` (the TF32 parts
+    of each operand and weight, a_lo * w_hi + a_hi * w_lo + a_hi * w_hi
+    summed in float64, then rounded to float32 and the bias added).
     Returns the float32 [B, L, C] stage output, which equals
     ``fused_mrf_plain``'s (``bf16_dots=True`` on the bf16 route; int8 with
-    the same ``act_scales``) bit for bit; ``operands``, where given,
-    collects every stored operand in launch order."""
+    the same ``act_scales``, or none on ``int8_dynamic``) bit for bit, and
+    on ``tf32`` its float32 route to 3xTF32's precision; ``operands``,
+    where given, collects every stored operand in launch order."""
     h = x.float().transpose(1, 2)  # [B, C, L]
     stored = operands if operands is not None else []
+    rows = amaxes if amaxes is not None else []
+    dynamic = route == "int8_dynamic"
 
     def store(v, index):
-        act = None if route == "bf16" else act_scales[index]
+        act = None
+        if route == "int8":
+            act = act_scales[index]
+        elif dynamic:
+            act = row_amax(F.leaky_relu(v.float(), LRELU_SLOPE))
         stored.append(pack_operand(operand_of(v, route, act)))
-        return stored[-1]
+        return stored[-1], act
 
     def conv(p, w, b, j, d, index):
-        op = unpack_operand(p)
-        if route == "int8":
-            k = w.codes.shape[1]
-            act = torch.clamp_min(act_scales[index], 1e-12)
-            mult = (w.scales[j] * (act / _f32(127.0, act)))[None, :, None]
-            dot = F.conv1d(op.double(), w.codes[j].double().permute(2, 1, 0), padding=d * (k - 1) // 2, dilation=d)
+        op, act = p
+        if dynamic:
+            rows.append(act)
+        op = unpack_operand(op)
+        k = _dense(w).shape[1] if route in ("bf16", "tf32") else w.codes.shape[1]
+        pad = d * (k - 1) // 2
+        if route == "tf32":
+            w_hi, w_lo = (t.double().permute(2, 1, 0) for t in tf32_parts(_dense(w)[j].float()))
+            a_hi, a_lo = op[:, 0].double(), op[:, 1].double()
+            dot = sum(F.conv1d(a, wt, padding=pad, dilation=d) for a, wt in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)))
+            return dot.float() + b[j][None, :, None]
+        if route.startswith("int8"):
+            if dynamic:
+                mult = ((act * (1.0 / 127.0))[:, None] * w.scales[j][None, :])[..., None]
+            else:
+                a = torch.clamp_min(act_scales[index], 1e-12)
+                mult = (w.scales[j] * (a / _f32(127.0, a)))[None, :, None]
+            dot = F.conv1d(op.double(), w.codes[j].double().permute(2, 1, 0), padding=pad, dilation=d)
             return dot.float() * mult + b[j][None, :, None]
         return _conv_same(op.float(), _dense(w)[j], b[j], d)
 
     index, acc = 0, None
-    h_op = store(h, 0) if route == "bf16" else None
+    h_op = store(h, 0) if route in ("bf16", "tf32", "int8_dynamic") else None
     for blk in range(len(kernel_sizes)):
         w1, b1, w2, b2 = weights[blk]
         r = h
-        cur = h_op if route == "bf16" else store(h, index)
+        cur = h_op if h_op is not None else store(h, index)
         for j, d in enumerate(dilations[blk]):
             y = conv(cur, w1, b1, j, d, index)
             index += 1
@@ -1212,4 +1356,6 @@ fused_mrf.launches = 0
 fused_mrf.int8_launches = 0
 fused_mrf.conv_launches = 0
 fused_mrf.int8_conv_launches = 0
+fused_mrf.tf32_conv_launches = 0
+fused_mrf.int8_dynamic_conv_launches = 0
 fused_mrf.plain_calls = 0

@@ -15,8 +15,9 @@ model FLOPs utilization (MFU) against the card's dense peaks.
   that the fused pipeline (``csrc/mrf_fused.cuh``) does not take, their
   padding included; the fused pipeline's 64-row blocks over every tile's
   window, its halo recompute included (``fused_issued_macs``); the per-conv
-  wgmma pipeline's tiles (``csrc/mrf_conv_wgmma.cuh``, the C = 256 and 128
-  stages: ``ops/mrf.py::conv_issued_macs`` over the C plan's tiles); and
+  wgmma pipeline's tiles (``csrc/mrf_conv_wgmma.cuh``, the stages its
+  router takes on each route: ``ops/mrf.py::conv_issued_macs`` over the C
+  plan's tiles); and
   the conv_post epilogue's rows and channel chunks.  The tile table, the
   chunk widths and the tile picker's constants are read from the CUDA
   sources, so the count follows the kernels; the fused plan is
@@ -340,8 +341,9 @@ def mrf_issued_flops(h, B, L, C, route, sm_count=H100_SXM.sm_count, int8_static=
     """2 x the MACs the port issues for one stage's MRF convs (B rows of L
     steps, C channels) on ``route``: the fused pipeline's blocks where
     ``plan_fused`` takes the stage, the per-conv wgmma pipeline's tiles
-    where its C plan does, else ``mma_conv_kernel``'s tiles."""
-    from viettts_tpu_torch.ops.mrf import conv_issued_macs, conv_takes, fused_route_name, plan_fused
+    where its C plan does on the route (bf16, tf32, static or dynamic
+    int8), else ``mma_conv_kernel``'s tiles."""
+    from viettts_tpu_torch.ops.mrf import conv_issued_macs, conv_route_name, conv_takes, fused_route_name, plan_fused
 
     resblock2 = h.resblock != "1"
     ks, ds = h.resblock_kernel_sizes, h.resblock_dilation_sizes
@@ -350,8 +352,9 @@ def mrf_issued_flops(h, B, L, C, route, sm_count=H100_SXM.sm_count, int8_static=
     launch = None if fused is None else plan_fused(fused, C, ks, ds, resblock2, B, L, sm_count)
     if launch is not None:
         return 2 * fused_issued_macs(launch, C, ks, ds, resblock2, B, plan.fused_block)
-    if fused is not None and conv_takes(fused, B, L, C):
-        return 2 * conv_issued_macs(B, L, C, ks, ds, resblock2, sm_count)
+    conv_route = conv_route_name(route, int8_static)
+    if conv_takes(conv_route, B, L, C):
+        return 2 * conv_issued_macs(B, L, C, ks, ds, resblock2, sm_count, conv_route)
     convs = 1 if resblock2 else 2
     return 2 * sum(len(rd) * convs * _issued_macs(plan, ROUTE_PEAK[route], B, L, C, C, rk, 1, sm_count)
                    for rk, rd in zip(ks, ds))
