@@ -20,7 +20,11 @@
    the same inputs), K1 also under the plan of a 114-SM card (the H100
    PCIe: 103 CTAs of 5 units, forced with ``ar_decode(num_sms=114)``; B=1
    and B=4, 512 frames, against the twin and bitwise run to run, its time
-   beside this card's own plan), with both times and each kernel's roofline bound
+   beside this card's own plan), and K1 at the decoder widths whose
+   float32 gate columns do not fit the card's shared memory, where its
+   plan streams some every frame (768 and Tacotron 2's 1024 at B = 1, 4,
+   16 and 64, 512 frames; 2048 at B = 1 and 4, 32 frames; 1024 also under
+   the 114-SM plan), with both times and each kernel's roofline bound
    (``bound_ms``: the larger of its bytes over the HBM rate and its
    operations over the dense peak of their type, ``utils.flops``: the
    card's data sheet).  Then ``check_bulk``: every stage's MRF convs at
@@ -64,6 +68,12 @@
    float32 route with durations pinned at 0.08 s a token the lead against
    the bucketed path on the kept audio (1e-4), and at 0.5 s a token the
    overflow's fallback to the bucketed path.
+   d. ``wide_decoder_phase``: ``Config()`` with ``acoustic.decoder_dim``
+   1024 (Tacotron 2's) and 768 on seeded weights, bf16 route: ``warmup()``,
+   the lead replay against the eager program and bitwise twice, then
+   counted ``synthesize`` (one lead replay: exactly one K1 launch),
+   ``synthesize_batch`` on 4 texts and the whole ``stream``, every result
+   checked (K1 and K2 launched, no twin).
 4. The training slice: a synthetic aligned corpus of 96 utterances, then
    ``viettts_tpu_torch.train.duration.train`` (20 steps, B=64, 256 tokens,
    validation and a checkpoint every 10) and ``.acoustic.train`` (6 steps,
@@ -142,8 +152,9 @@
    at B = 1, 8 and 64 (1 warm-up, 2 timed runs), ``b1_vocoder`` at 1,024
    frames (1 warm-up, 4 timed runs), ``stream`` (``bench_stream.py``'s
    530-token text, 1 warm-up and the best of 2 runs of each).
-9. A JSON line of per-kernel results (K1, K2, K3, and the per-conv wgmma
-   pipeline on each of its four routes as its own entry), then the last line
+9. A JSON line of per-kernel results (K1, K1 at the widths 1024 and 768
+   as their own entries, K2, K3, and the per-conv wgmma pipeline on each
+   of its four routes as its own entry), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -176,6 +187,12 @@ BATCH_TEXTS = [
 K1_ATOL = 1e-4
 K1_CASES = ((1, 512), (4, 512), (16, 512), (1, 300), (4, 300), (16, 300))
 SMALL_CARD_SMS = 114  # the H100 PCIe: K1's plan for it runs on this card too
+# decoder widths whose float32 gate columns exceed the card's shared memory: K1
+# streams part of them every frame (1024: Tacotron 2's decoder_rnn_dim)
+K1_WIDE = {768: ((1, 512), (4, 512), (16, 512), (64, 512)),
+           1024: ((1, 512), (4, 512), (16, 512), (64, 512)),
+           2048: ((1, 32), (4, 32))}
+WIDE_DECODERS = (1024, 768)  # phase 3d's Synthesizers
 K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
@@ -247,20 +264,37 @@ def check_ar_decode(dev, H=512, P=256, D=80, cases=K1_CASES):
         want = ar_decode_plain(*args)
         err = (got - want).abs().max().item()
         worst = max(worst, err)
-        log(f"K1 ar_decode B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); "
+        log(f"K1 ar_decode H={H} B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); "
             f"two launches bitwise equal: {torch.equal(got, again)}")
         if not err <= K1_ATOL:
-            raise AssertionError(f"ar_decode B={B} L={L} differs from its twin by {err}")
+            raise AssertionError(f"ar_decode H={H} B={B} L={L} differs from its twin by {err}")
         if not torch.equal(got, again):
-            raise AssertionError(f"ar_decode B={B} L={L}: two launches on the same inputs differ")
+            raise AssertionError(f"ar_decode H={H} B={B} L={L}: two launches on the same inputs differ")
         ms = time_ms(lambda: ar_decode(*args))
         plain_ms = time_ms(lambda: ar_decode_plain(*args), reps=2)
         bound_ms, bound_by = ar_decode_bound(B, L, H, P, D, device_peaks())
         times[(B, L)] = {"ms": ms, "plain_ms": plain_ms, "us_per_frame": 1e3 * ms / L,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
-        log(f"K1 ar_decode B={B} L={L}: kernel {ms:.3f} ms ({1e3 * ms / L:.2f} us/frame), twin {plain_ms:.3f} ms; "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                         "plan": k1_plan(dev, H, P, D, B)}
+        log(f"K1 ar_decode H={H} B={B} L={L}: kernel {ms:.3f} ms ({1e3 * ms / L:.2f} us/frame), twin "
+            f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound; "
+            f"plan {times[(B, L)]['plan']}")
     return worst, times
+
+
+def k1_plan(dev, H, P, D, B, sms=None):
+    """K1's plan for B rows on ``sms`` SMs (the card's): grid, column
+    groups, staged rows, the gate blocks streamed and their bytes a frame."""
+    import torch
+
+    from viettts_tpu_torch.ops.ar_decoder import GATE_BLOCKS, MAX_ROWS, plan_decode
+
+    sms = sms or torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_decode(H, P, D, sms, min(B, MAX_ROWS))
+    return {"sms": sms, "ctas": plan.ctas, "units": plan.units, "groups": plan.groups, "stage": plan.stage,
+            "smem_bytes": plan.smem_bytes,
+            "streamed": [n for i, n in enumerate(GATE_BLOCKS) if plan.streamed >> i & 1],
+            "streamed_bytes_per_frame": plan.streamed_bytes_per_frame(P, H)}
 
 
 def check_ar_decode_plan(dev, sms=SMALL_CARD_SMS, H=512, P=256, D=80, cases=((1, 512), (4, 512))):
@@ -296,9 +330,9 @@ def check_ar_decode_plan(dev, sms=SMALL_CARD_SMS, H=512, P=256, D=80, cases=((1,
         err = (got - want).abs().max().item()
         worst = max(worst, err)
         bitwise = torch.equal(got, again)
-        log(f"K1 ar_decode under the {sms}-SM plan ({plan.ctas} CTAs x {plan.units} units, {plan.stage} staged "
-            f"rows, {plan.smem_bytes} B) B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); "
-            f"two launches bitwise equal: {bitwise}")
+        log(f"K1 ar_decode under the {sms}-SM plan ({plan.ctas} CTAs x {plan.units} units in {plan.groups} "
+            f"groups, {plan.stage} staged rows, streamed blocks {plan.streamed:#07b}, {plan.smem_bytes} B) H={H} "
+            f"B={B} L={L}: max|kernel - twin| = {err:.3e} (atol {K1_ATOL}); two launches bitwise equal: {bitwise}")
         if not err <= K1_ATOL:
             raise AssertionError(f"ar_decode ({sms}-SM plan) B={B} L={L} differs from its twin by {err}")
         if not bitwise:
@@ -311,11 +345,8 @@ def check_ar_decode_plan(dev, sms=SMALL_CARD_SMS, H=512, P=256, D=80, cases=((1,
         bound_ms, bound_by = ar_decode_bound(B, L, H, P, D, device_peaks())
         times[(B, L)] = {"ms": ms, "own_plan_ms": own_ms, "ms_runs": forced, "own_plan_ms_runs": native,
                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-                         "plan": {"sms": sms, "ctas": plan.ctas, "units": plan.units, "stage": plan.stage,
-                                  "smem_bytes": plan.smem_bytes},
-                         "own_plan": {"sms": own_sms, "ctas": own.ctas, "units": own.units, "stage": own.stage,
-                                      "smem_bytes": own.smem_bytes}}
-        log(f"K1 ar_decode B={B} L={L}: {sms}-SM plan {ms:.3f} ms ({forced[0]:.3f}; {forced[1]:.3f}), this card's "
+                         "plan": k1_plan(dev, H, P, D, B, sms), "own_plan": k1_plan(dev, H, P, D, B, own_sms)}
+        log(f"K1 ar_decode H={H} B={B} L={L}: {sms}-SM plan {ms:.3f} ms ({forced[0]:.3f}; {forced[1]:.3f}), this card's "
             f"{own_sms}-SM plan ({own.ctas} CTAs x {own.units} units) {own_ms:.3f} ms ({native[0]:.3f}; "
             f"{native[1]:.3f}); bound {bound_ms:.4f} ms ({bound_by})")
     return worst, times
@@ -1164,6 +1195,65 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
             f"{[round(1e3 * v, 1) for v in t['bucketed']['first_audio_runs_s']]} (medians of 3, in turns)")
         out[route] = stats
     out["lead_vs_bucketed"] = lead_vs_bucketed(cfg, ckpt_dir, device)
+    return out
+
+
+def wide_decoder_phase(cfg, tmp: Path, zero, read, width, device="cuda"):
+    """Phase 3d: ``Config()`` with ``acoustic.decoder_dim = width``
+    (Tacotron 2's 1024, or 768: widths whose float32 gate columns K1
+    cannot hold in the card's shared memory, so its plan streams some
+    every frame) on seeded
+    weights written as native checkpoints, on the default bf16 route:
+    ``warmup()`` (the lead graphs' captures), the lead replay against the
+    eager program and two replays bitwise (``lead_replay_vs_eager``), then
+    with the counters zeroed ``synthesize(SENTENCE)`` (one lead replay,
+    exactly one K1 launch), ``synthesize_batch(BATCH_TEXTS)`` (the
+    bucketed path) and the whole ``stream(STREAM_TEXT)``, every result
+    checked; K1 and K2 must launch and no twin run."""
+    import numpy as np
+
+    from viettts_tpu_torch.config import apply_overrides
+    from viettts_tpu_torch.infer.pipeline import Synthesizer
+    from viettts_tpu_torch.ops.ar_decoder import ar_decode
+
+    t_phase = time.perf_counter()
+    wcfg = apply_overrides(cfg, [f"acoustic.decoder_dim={width}"])
+    ckpt = tmp / f"decoder_{width}"
+    ckpt.mkdir()
+    write_checkpoints(wcfg, ckpt)
+    synth = Synthesizer(wcfg.replace(ckpt_dir=ckpt), device=device)
+    t0 = time.perf_counter()
+    synth.warmup()
+    out = {"decoder_dim": width, "warmup_s": time.perf_counter() - t0, "lead_buckets": sorted(synth.lead_graphs),
+           "replay_vs_eager": lead_replay_vs_eager(synth)}
+    zero()
+    t0 = time.perf_counter()
+    res = synth.synthesize(SENTENCE)
+    out["b1_latency_s"] = time.perf_counter() - t0
+    check_result(res, f"synthesize (decoder_dim={width}, lead)")
+    if (ar_decode.launches, ar_decode.plain_calls) != (1, 0):
+        raise AssertionError(f"decoder_dim={width}: the lead replay counted {ar_decode.launches} K1 launches and "
+                             f"{ar_decode.plain_calls} twin calls, want (1, 0)")
+    t0 = time.perf_counter()
+    results = synth.synthesize_batch(BATCH_TEXTS)
+    out["b4_s"] = time.perf_counter() - t0
+    for i, r in enumerate(results):
+        check_result(r, f"synthesize_batch[{i}] (decoder_dim={width})")
+    t0 = time.perf_counter()
+    chunks = list(synth.stream(STREAM_TEXT))
+    out["stream_s"], out["stream_chunks"] = time.perf_counter() - t0, len(chunks)
+    for i, c in enumerate(chunks):
+        check_result(c, f"stream chunk {i} (decoder_dim={width})")
+    out["audio_s"] = {"synthesize": len(res.wave) / cfg.dsp.sample_rate,
+                      "synthesize_batch": sum(len(r.wave) for r in results) / cfg.dsp.sample_rate,
+                      "stream": float(np.sum([len(c.wave) for c in chunks])) / cfg.dsp.sample_rate}
+    out["launches"] = read(f"decoder_dim={width} (bf16: lead, synthesize_batch, stream)",
+                           ["ar_decode", "fused_mrf", "mrf_conv_wgmma"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3d, decoder_dim={width}: warmup {out['warmup_s']:.2f} s (lead buckets {out['lead_buckets']}); "
+        f"B=1 lead {1e3 * out['b1_latency_s']:.1f} ms for {out['audio_s']['synthesize']:.2f} s of audio; "
+        f"synthesize_batch {1e3 * out['b4_s']:.1f} ms; stream {len(chunks)} chunks in {out['stream_s']:.2f} s; "
+        f"phase {out['seconds']:.1f} s")
     return out
 
 
@@ -2313,6 +2403,10 @@ def main() -> int:
 
     k1_err, k1_times = check_ar_decode(dev)
     k1_plan_err, k1_plan_times = check_ar_decode_plan(dev)
+    t0 = time.perf_counter()
+    k1_wide = {H: check_ar_decode(dev, H=H, cases=cases) for H, cases in K1_WIDE.items()}
+    k1_wide_plan = check_ar_decode_plan(dev, H=WIDE_DECODERS[0])
+    log(f"K1 at the wide decoder widths: {time.perf_counter() - t0:.1f} s")
     k2_err, k2_times = check_fused_mrf(dev, cfg.hifigan)
     k3, k3_times = check_fused_mrf_int8(dev, cfg.hifigan)
     t0 = time.perf_counter()
@@ -2358,6 +2452,7 @@ def main() -> int:
         stats["lead"]["seconds"] = time.perf_counter() - t0
         log(f"lead phase: {stats['lead']['seconds']:.1f} s")
         launches_lead = {route: stats["lead"][route]["launches"] for route in ("bfloat16", "float32", "int8")}
+        stats["wide_decoder"] = {H: wide_decoder_phase(cfg, tmp, zero_counts, read_counts, H) for H in WIDE_DECODERS}
         train, trained = train_phase(cfg, tmp)
         train["gan"], vocoder = gan_phase(cfg, tmp / "corpus", trained, tmp)
         zero_counts()
@@ -2403,7 +2498,7 @@ def main() -> int:
     def mrf_flop_sum(B, T):  # the MRF convs of the four ResBlock1 stages
         return sum(mrf_flop(cfg.hifigan, B, L_in * u, C, False) for _, C, _, u, L_in, _ in stage_shapes(cfg.hifigan, T))
     kernels = [
-        {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cu",
+        {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cuh",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
          "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],
          "launches_replicated": launches_replicated["ar_decode"],
@@ -2416,6 +2511,22 @@ def main() -> int:
          "cases": {f"B={B} L={L}": v for (B, L), v in k1_times.items()},
          f"cases_{SMALL_CARD_SMS}_sm_plan": {f"B={B} L={L}": v for (B, L), v in k1_plan_times.items()},
          "shape": "B=1 L=512 H=512 P=256 D=80 f32"},
+        *[{"name": f"ar_decode_H{H}", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cuh",
+           "replaces": "viettts_tpu/ops/ar_decoder.py:140",
+           "launches": stats["wide_decoder"][H]["launches"]["ar_decode"],
+           "launches_note": f"phase 3d: a decoder_dim={H} Synthesizer's lead replay, synthesize_batch and stream",
+           "max_abs_err": max([err] + ([k1_wide_plan[0]] if H == WIDE_DECODERS[0] else [])),
+           "ms": times[(1, 512)]["ms"], "plain_ms": times[(1, 512)]["plain_ms"],
+           "bound_ms": times[(1, 512)]["bound_ms"], "bound_by": times[(1, 512)]["bound_by"], "library_ms": None,
+           "library": "none: no single PyTorch call runs the fed-back decode",
+           "plan": times[(1, 512)]["plan"], "cases": {f"B={B} L={L}": v for (B, L), v in times.items()},
+           **({f"cases_{SMALL_CARD_SMS}_sm_plan": {f"B={B} L={L}": v for (B, L), v in k1_wide_plan[1].items()},
+               "max_abs_err_H2048": k1_wide[2048][0],
+               "cases_H2048": {f"B={B} L={L}": v for (B, L), v in k1_wide[2048][1].items()}}
+              if H == WIDE_DECODERS[0] else {}),
+           "phase_3d": {k: v for k, v in stats["wide_decoder"][H].items() if k != "launches"},
+           "shape": f"B=1 L=512 H={H} P=256 D=80 f32"}
+          for H in WIDE_DECODERS for err, times in [k1_wide[H]]],
         {"name": "fused_mrf", "route": "cuda", "source": "viettts_tpu_torch/csrc/mrf.cu",
          "replaces": "viettts_tpu/ops/mrf.py:440", "launches": launches["fused_mrf"],
          "launches_int8_path": launches_int8["fused_mrf"], "launches_round_trip": launches_trained["fused_mrf"],

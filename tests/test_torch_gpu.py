@@ -101,19 +101,89 @@ def test_ar_decode_kernel_under_a_smaller_cards_plan(cuda, B):
 
 
 def test_ar_decode_kernel_refuses_unsupported_width(cuda):
-    """H=1024: the resident gate columns of a CTA's units exceed the shared
-    memory of a block; the wrapper raises without running the twin."""
-    H, P, D, B, L = 1024, 256, 80, 1, 3
-    args = [
-        torch.zeros(B, L, 4 * H), torch.zeros(B, L, 4 * H),
-        torch.ones(L, B, P, dtype=torch.bool), torch.ones(L, B, P, dtype=torch.bool),
-        torch.zeros(D, P), torch.zeros(P, P), torch.zeros(P + H, 4 * H),
-        torch.zeros(P + 2 * H, 4 * H), torch.zeros(2 * H, D), torch.zeros(D),
-    ]
+    """H=8192 at 64 rows: a CTA's state rows and staged vector alone exceed
+    the shared memory of a block, with every gate block streamed; the
+    wrapper raises without launching or running the twin."""
+    H, P, D, B, L = 8192, 256, 80, 64, 1
+    shapes = [(B, L, 4 * H), (B, L, 4 * H), (D, P), (P, P), (P + H, 4 * H), (P + 2 * H, 4 * H), (2 * H, D), (D,)]
+    zeros = [torch.zeros(s, device=cuda) for s in shapes]
+    keep = torch.ones(L, B, P, dtype=torch.bool, device=cuda)
     launches, plain = ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls
     with pytest.raises(ValueError, match="bytes of shared memory per CTA"):
-        ar_decoder.ar_decode(*[a.to(cuda) for a in args], 1.0)
+        ar_decoder.ar_decode(*zeros[:2], keep, keep, *zeros[2:], 1.0, num_sms=86)
     assert (ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls) == (launches, plain)
+
+
+def _wide_case(cuda, seed, B, L, H, num_sms=None):
+    """K1 at a width whose gate columns do not all fit shared memory: one
+    launch per 64 rows and no twin call, within 1e-4 of the twin and two
+    launches bitwise equal.  Returns the plan."""
+    P, D = 256, 80
+    sms = num_sms or torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ar_decoder.plan_decode(H, P, D, sms, min(B, ar_decoder.MAX_ROWS))
+    assert plan.streamed, plan
+    args = _ar_args(np.random.RandomState(seed), B, L, H, P, D, cuda)
+    launches, plain = ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls
+    got = ar_decoder.ar_decode(*args, 2.0, num_sms=num_sms)
+    again = ar_decoder.ar_decode(*args, 2.0, num_sms=num_sms)
+    torch.cuda.synchronize()
+    n = -(-B // ar_decoder.MAX_ROWS)
+    assert (ar_decoder.ar_decode.launches, ar_decoder.ar_decode.plain_calls) == (launches + 2 * n, plain)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ar_decoder.ar_decode_plain(*args, 2.0), rtol=0, atol=1e-4)
+    return plan
+
+
+def test_ar_decode_kernel_runs_tacotron2_width(cuda):
+    """H=1024, Tacotron 2's decoder width: 2 column groups of 4 units a
+    CTA on 132 SMs, the gate blocks that do not fit shared memory streamed
+    every frame; within 1e-4 of the twin and bitwise run to run."""
+    plan = _wide_case(cuda, 5, 1, 48, 1024)
+    assert plan.groups >= 2
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 64])
+@pytest.mark.parametrize("H", [768, 1024])
+def test_ar_decode_wide_kernel_matches_twin(cuda, H, B):
+    """H=768 and 1024 at every batch of the main path: the streamed plans
+    (fewer staged rows, more of the gate blocks streamed as B grows)."""
+    _wide_case(cuda, 6, B, 40, H)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_ar_decode_wide_kernel_under_a_smaller_cards_plan(cuda, B):
+    """H=1024 under the 114-SM plan (103 CTAs of 2 groups of 5 units)
+    forced on this card."""
+    plan = _wide_case(cuda, 7, B, 40, 1024, num_sms=114)
+    assert (plan.ctas, plan.units, plan.groups) == (103, 10, 2)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_ar_decode_kernel_at_2048_streams_the_chain(cuda, B):
+    """H=2048: the chain's W2h1 block streams too (218 MB of gate columns,
+    more than L2); a short decode."""
+    plan = _wide_case(cuda, 8, B, 12, 2048)
+    assert plan.streamed & 0b00100
+
+
+def test_ar_decode_wide_kernel_replays_in_a_cuda_graph(cuda):
+    """A streamed plan captured in a CUDA graph after one eager launch (its
+    opt-in and occupancy check): the replay rewrites its streamed buffer
+    and exchange and gives the eager launch's bits, twice."""
+    H, P, D, B, L = 1024, 256, 80, 2, 24
+    args = _ar_args(np.random.RandomState(9), B, L, H, P, D, cuda)
+    eager = ar_decoder.ar_decode(*args, 2.0)
+    torch.cuda.synchronize()
+    launches = ar_decoder.ar_decode.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ar_decoder.ar_decode(*args, 2.0)
+    assert ar_decoder.ar_decode.launches == launches + 1
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def _rel_rms(got, want):

@@ -64,7 +64,10 @@ per padded global (B, T), as JAX keys them under a mesh; ``stream``'s
 chunks key by (device count, T), as JAX replicates a chunk over the mesh.
 
 Not ported: the scan-decode batch gate (the port has no scan decode: K1
-runs every batch, in launches of up to 64 rows).  The decode always takes
+runs every batch, in launches of up to 64 rows, and plans every decoder
+width: where its float32 gate columns outgrow the card's shared memory,
+as Tacotron 2's 1024 do, part of them streams every frame; JAX's
+``pick_chunk`` gate sends such widths to its scan).  The decode always takes
 ``ops.ar_decoder.ar_decode`` and the vocoder always
 ``models.hifigan.generator_apply_fused`` (the kernels on CUDA, their
 plain twins on CPU); ``acoustic.fused_decode`` and

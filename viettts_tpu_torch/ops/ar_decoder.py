@@ -10,19 +10,25 @@ Counterpart of ``viettts_tpu/ops/ar_decoder.py::ar_decode``.  Per frame t:
 ``W1m = [W1p; Wh1]`` and ``W2m = [W2p; W2h1; Wh2]`` are merged once when the
 acoustic model is loaded (``AcousticModel.merge_decoder_weights``).
 
-``ar_decode`` runs ``csrc/ar_decoder.cu`` on CUDA tensors and
+``ar_decode`` runs ``csrc/ar_decoder.cuh`` on CUDA tensors and
 ``ar_decode_plain`` (a Python frame loop over ``torch.matmul``) on CPU
 tensors; any other device raises.  ``ar_decode.launches`` counts kernel
 launches and ``ar_decode.plain_calls`` counts calls of the twin.
 
 The kernel is one persistent launch over a grid of co-resident CTAs, each
 holding the float32 gate columns of its hidden units in shared memory for
-the whole decode; ``plan_decode`` sizes that grid (the wrapper and the CPU
-tests both call it) for the card's SM count and the launch's rows, and
-refuses shapes whose slice does not fit.  The launch is cooperative and
-capturable: inside a CUDA graph it becomes a cooperative kernel node,
-after one launch of the same plan outside the capture has opted the kernel
-in to its shared memory and checked its occupancy on the device.
+the whole decode where they fit; ``plan_decode`` sizes that grid (the
+wrapper and the CPU tests both call it) for the card's SM count and the
+launch's rows.  Past what the card's shared memory holds (a decoder wider
+than ~700 units on an H100: Tacotron 2's 1024), the plan streams the gate
+blocks that cost least to read back: each launch writes them once into a
+device buffer, column by column, and every frame reads them back through
+L2.  It plans every ``decoder_dim`` from 64 to
+2048 (P = 256, D = 80) on 86 to 132 SMs, and raises for a shape it cannot
+plan.  The launch is cooperative and capturable: inside a CUDA graph it
+becomes a cooperative kernel node, after one launch of the same plan
+outside the capture has opted the kernel in to its shared memory and
+checked its occupancy on the device.
 """
 
 from __future__ import annotations
@@ -62,13 +68,19 @@ def ar_decode_plain(
     return torch.stack(out, dim=1)
 
 
-THREADS = 256  # per CTA; csrc/ar_decoder.cu kThreads
+THREADS = 256  # per CTA; csrc/ar_decoder.cuh kThreads
 STAGE_ROWS = 16  # batch rows staged at once, at most; kStage
 BATCH_CHUNK = 8  # batch rows summed per matrix-vector pass; kChunk
 MAX_ROWS = 64  # batch rows per launch; kRows (larger batches take several launches)
-MAX_UNITS = 6  # hidden units per CTA the kernel is instantiated for; kMaxUnits
+MAX_UNITS = 6  # hidden units per column group the kernel is instantiated for; kMaxUnits
 MAX_COLS = 2 * THREADS // 32  # prenet / projection columns of a CTA (2 per warp)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on sm_90 (227 KB)
+# the gate blocks of a CTA's columns, in csrc/ar_decoder.cuh's order (bit b of
+# DecodePlan.streamed is block b); W1p (phase D) and W2h1 (phase E) are on the
+# critical chain of a frame, the others run after their CTA has published
+GATE_BLOCKS = ("W1p", "W2p", "W2h1", "Wh1", "Wh2")
+CHAIN_BLOCKS = 0b00101
+ALL_BLOCKS = (1 << len(GATE_BLOCKS)) - 1
 
 
 @dataclass(frozen=True)
@@ -80,6 +92,22 @@ class DecodePlan:
     stage: int  # batch rows staged at once
     rows: int  # batch rows of the launch: its gate sums and cell states
     smem_bytes: int  # dynamic shared memory per CTA
+    groups: int = 1  # column groups per CTA, units / groups hidden units each
+    streamed: int = 0  # gate blocks (a bit each, GATE_BLOCKS order) read from device memory every frame
+
+    @property
+    def group_units(self) -> int:
+        return self.units // self.groups
+
+    def streamed_floats(self, P: int, H: int) -> int:
+        """Floats of the device buffer the streamed gate blocks take, all CTAs."""
+        return self.ctas * 4 * self.units * block_rows(P, H, self.streamed)
+
+    def streamed_bytes_per_frame(self, P: int, H: int) -> int:
+        """Bytes of streamed gate columns all CTAs read in one frame of a
+        launch of ``rows`` rows: each matrix-vector pass of up to
+        BATCH_CHUNK staged rows reads them once."""
+        return 4 * self.streamed_floats(P, H) * _passes(self.rows, self.stage)
 
 
 def _pow2(n: int) -> int:
@@ -90,52 +118,99 @@ def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def smem_floats(H: int, P: int, D: int, U: int, PK: int, DK: int, S: int, R: int) -> int:
-    """``smem_floats`` of ``csrc/ar_decoder.cu``: the floats of dynamic
-    shared memory a CTA of the plan (U, PK, DK, S, R) uses."""
-    nc, ncm = 4 * U, max(4 * U, PK, DK)
+def _passes(rows: int, stage: int) -> int:
+    """Matrix-vector passes over a gate block in one frame: ``rows`` rows
+    staged ``stage`` at a time, summed BATCH_CHUNK at a time."""
+    return sum(-(-min(stage, rows - b0) // BATCH_CHUNK) for b0 in range(0, rows, stage))
+
+
+def block_rows(P: int, H: int, mask: int) -> int:
+    """``block_rows`` of ``csrc/ar_decoder.cuh``: the rows of the gate blocks
+    in ``mask`` (W1p and W2p have P, W2h1, Wh1 and Wh2 H)."""
+    return sum(k for b, k in enumerate((P, P, H, H, H)) if mask >> b & 1)
+
+
+def smem_floats(H: int, P: int, D: int, UG: int, NG: int, PK: int, DK: int, S: int, R: int, streamed: int) -> int:
+    """``smem_floats`` of ``csrc/ar_decoder.cuh``: the floats of dynamic
+    shared memory a CTA of the plan (NG groups of UG units, PK, DK, S, R,
+    the gate blocks outside ``streamed`` resident) uses."""
+    nc, ncm = 4 * UG * NG, max(4 * UG, PK, DK)
     return (
         _pad4(S * max(2 * H, P, D)) + THREADS // 32 * BATCH_CHUNK + _pad4(S * ncm)
-        + R * 2 * nc + _pad4(R * 2 * U)
-        + (2 * P + 3 * H) * nc + (D + P) * PK + (2 * H + 1) * DK
+        + R * 2 * nc + _pad4(R * 2 * UG * NG)
+        + block_rows(P, H, ALL_BLOCKS - streamed) * nc + (D + P) * PK + (2 * H + 1) * DK
     )
+
+
+# what plan_decode weighs when some gate blocks must stream, estimates that
+# order the plans an H100 timed against each other (scripts/time_ar_decode.py
+# --alt): the streamed bytes at an L2 rate, and an L2 round trip for each
+# streamed product.  Fewer staged rows with fewer bytes won (H=1024, B=16:
+# 43.9 against 47.8 ms); fewer streamed blocks won over fewer bytes (H=768 on
+# 114 SMs, B=1: 8.19 against 8.57 ms); where a block streams, on the chain or
+# off it, did not matter (H=1024, B=1: 9.16 against 9.11-9.14 ms).
+STREAM_BYTES_PER_US = 4e6
+STREAM_BLOCK_US = 1.0
+
+
+def _stream_cost(passes: int, bytes_: int, blocks: int) -> float:
+    """Estimated us a frame that streaming adds: ``bytes_`` streamed a
+    frame, ``blocks`` gate blocks read back in each of ``passes``."""
+    return bytes_ / STREAM_BYTES_PER_US + passes * blocks * STREAM_BLOCK_US
 
 
 @functools.lru_cache(maxsize=None)
 def plan_decode(H: int, P: int, D: int, num_sms: int, rows: int = MAX_ROWS) -> DecodePlan:
-    """Grid of the decode kernel for ``rows`` batch rows on ``num_sms`` SMs:
-    the fewest hidden units per CTA that keeps the grid within ``num_sms``
-    CTAs (the last CTA takes what is left), the prenet and projection
-    columns spread the same way (powers of two), and the most staged rows
-    (16, 8, 4, 2 or 1, one output per thread) whose shared memory, as
-    ``smem_floats`` counts it, fits ``SMEM_LIMIT``.  Raises ValueError,
-    naming the SM count, when no such plan exists."""
+    """Grid of the decode kernel for ``rows`` batch rows on ``num_sms`` SMs.
+
+    The fewest hidden units per CTA that keeps the grid within ``num_sms``
+    CTAs (the last CTA takes what is left), in the fewest column groups of
+    at most MAX_UNITS units, all groups equal (rounding the units up: on
+    an H100 2 groups of 5 units on 103 CTAs beat 3 of 3 on 114 at
+    H=1024); the prenet and projection columns spread the same way
+    (powers of two).  Then the staged rows (16, 8, 4, 2 or 1, one output
+    per thread) and the gate blocks to stream, among those whose shared
+    memory (``smem_floats``) fits ``SMEM_LIMIT``: the most staged rows
+    with every gate block resident, where some fit so; else the lowest
+    ``_stream_cost``, and of plans that tie, the one that streams fewest
+    rows of the chain's blocks.  Raises ValueError, naming the SM count,
+    when no plan fits."""
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"ar_decode kernel: {rows} rows per launch, want 1..{MAX_ROWS}")
-    units = -(-H // num_sms)
+    need = -(-H // num_sms)
+    groups = -(-need // MAX_UNITS)
+    group_units = -(-need // groups)
+    units = groups * group_units
     ctas = -(-H // units)
     prenet_cols, proj_cols = _pow2(-(-P // ctas)), _pow2(-(-D // ctas))
-    ncm = max(4 * units, prenet_cols, proj_cols)
-    smem = None
+    if max(prenet_cols, proj_cols) > MAX_COLS:
+        raise ValueError(
+            f"ar_decode kernel: H={H}, P={P}, D={D} on {num_sms} SMs needs {prenet_cols} prenet and "
+            f"{proj_cols} projection columns per CTA; at most {MAX_COLS} fit its layout"
+        )
+    best = None
     for stage in sorted({min(s, rows) for s in (STAGE_ROWS, 8, 4, 2, 1)}, reverse=True):
-        if stage * ncm > THREADS:
+        if stage * max(4 * group_units, prenet_cols, proj_cols) > THREADS:
             continue
-        smem = 4 * smem_floats(H, P, D, units, prenet_cols, proj_cols, stage, rows)
-        if smem <= SMEM_LIMIT:
-            break
-    if smem is None or smem > SMEM_LIMIT:
+        passes = _passes(rows, stage)
+        bytes_a_row = 4 * ctas * 4 * units * passes  # per streamed gate row, a frame
+        for streamed in range(ALL_BLOCKS + 1):
+            smem = 4 * smem_floats(H, P, D, group_units, groups, prenet_cols, proj_cols, stage, rows, streamed)
+            if smem > SMEM_LIMIT:
+                continue
+            cost = _stream_cost(passes, bytes_a_row * block_rows(P, H, streamed), bin(streamed).count("1"))
+            key = (streamed != 0, cost if streamed else -stage, block_rows(P, H, streamed & CHAIN_BLOCKS))
+            if best is None or key < best[0]:
+                best = key, stage, streamed, smem
+    if best is None:
+        smem = 4 * smem_floats(H, P, D, group_units, groups, prenet_cols, proj_cols, 1, rows, ALL_BLOCKS)
         raise ValueError(
             f"ar_decode kernel: H={H}, P={P}, D={D} on {num_sms} SMs needs {smem} bytes of shared memory "
-            f"per CTA ({ctas} CTAs of {units} hidden units, whose float32 gate columns of both LSTM layers "
-            f"stay resident, {rows} rows), above the {SMEM_LIMIT} bytes a block can use"
+            f"per CTA ({ctas} CTAs of {units} hidden units, {rows} rows) with every gate block streamed, "
+            f"above the {SMEM_LIMIT} bytes a block can use"
         )
-    if units > MAX_UNITS or max(prenet_cols, proj_cols) > MAX_COLS:
-        raise ValueError(
-            f"ar_decode kernel: H={H}, P={P}, D={D} on {num_sms} SMs needs {units} hidden units, "
-            f"{prenet_cols} prenet and {proj_cols} projection columns per CTA; at most "
-            f"{MAX_UNITS}, {MAX_COLS} and {MAX_COLS} fit its resident-weight layout"
-        )
-    return DecodePlan(ctas, units, prenet_cols, proj_cols, stage, rows, smem)
+    _, stage, streamed, smem = best
+    return DecodePlan(ctas, units, prenet_cols, proj_cols, stage, rows, smem, groups, streamed)
 
 
 def _check(g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bias):
@@ -184,8 +259,8 @@ def _prepare(lib, device: torch.device, H: int, P: int, D: int, plan: DecodePlan
             "launch it once eagerly before capturing"
         )
     _build.check(
-        lib.viettts_ar_decode_prepare(H, P, D, plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols,
-                                      plan.stage, plan.rows, plan.smem_bytes),
+        lib.viettts_ar_decode_prepare(H, P, D, plan.ctas, plan.group_units, plan.groups, plan.prenet_cols,
+                                      plan.proj_cols, plan.stage, plan.rows, plan.streamed, plan.smem_bytes),
         "ar_decode prepare",
     )
     _prepared.add(key)
@@ -211,7 +286,8 @@ def ar_decode(
     ``num_sms`` when given (at most the card's: a smaller card's plan,
     still one co-resident cooperative launch).  Each launch zeroes its
     exchange buffer on the stream, so a CUDA graph that captures it starts
-    every replay from frame tag 0."""
+    every replay from frame tag 0, and rewrites the streamed gate blocks
+    (``DecodePlan.streamed``) into a buffer of its own."""
     args = (g1c, g2c, keep1, keep2, k_fc1, k_fc2, w1m, w2m, proj_kernel, proj_bias)
     B, L, H, P, D = _check(*args)
     if g1c.device.type == "cpu":
@@ -234,12 +310,16 @@ def ar_decode(
             # exchange words (float | frame tag), two frame parities of
             # [h1 | h2, mel, p1, p]; zeroed: tag 0 is no frame
             exchange = torch.zeros(2 * 2 * n * (2 * H + D + 2 * P), dtype=torch.float32, device=g1c.device)
+            streamed = (torch.empty(plan.streamed_floats(P, H), dtype=torch.float32, device=g1c.device)
+                        if plan.streamed else None)
             ar_decode.launches += 1
             _build.check(
                 lib.viettts_ar_decode(
                     *(t.data_ptr() for t in sliced + list(args[4:])), part.data_ptr(), exchange.data_ptr(),
-                    n, L, H, P, D, plan.ctas, plan.units, plan.prenet_cols, plan.proj_cols,
-                    plan.stage, plan.rows, plan.smem_bytes, float(dropout_scale), _build.stream_ptr(g1c.device),
+                    None if streamed is None else streamed.data_ptr(),
+                    n, L, H, P, D, plan.ctas, plan.group_units, plan.groups, plan.prenet_cols, plan.proj_cols,
+                    plan.stage, plan.rows, plan.streamed, plan.smem_bytes, float(dropout_scale),
+                    _build.stream_ptr(g1c.device),
                 ),
                 "ar_decode",
             )
