@@ -14,7 +14,9 @@
    ConvTranspose prologue on, conv_post epilogue on the last stage,
    ResBlock1 and ResBlock2, float32 and bfloat16 storage) and K3
    ``fused_mrf(quantize_int8=True)`` (the same stages in bfloat16 storage
-   at B=2 and at the main path's B=1, static and dynamic activation scales,
+   at B=2, at the main path's B=1 and at B=1 x 512 frames, static and
+   dynamic activation scales (dynamic: one a tile window of the TPU
+   kernel's geometry, each stage's count of windows a row printed),
    with the int8 codes that the two sides' float64 prologue sums flip, and
    per stage the prologue alone, the int8 MRF convs alone and bf16 K2 on
    the same inputs), K1 also under the plan of a 114-SM card (the H100
@@ -32,7 +34,8 @@
    the stages the per-conv wgmma pipeline (``csrc/mrf_conv_wgmma.cuh``)
    takes (bf16 and static int8 at C = 256 and 128, the float32 route's
    3xTF32 and dynamic int8 at every width) beside the same stages on
-   ``mma_conv_kernel``, every stage of every route held to its twin.
+   ``mma_conv_kernel``, every stage of every route held to its twin
+   (dynamic int8 on its tile windows, 6 a row at C <= 128).
 3. The main paths at the full default width (``Config()``) on seeded
    random weights written as native checkpoints, each with the launch
    counters zeroed just before it and read just after (every kernel of the
@@ -557,8 +560,10 @@ def check_bulk(dev, cfg, reps=3):
                 ok = err == 0.0
             if wgmma:
                 r["wgmma"][C].update(max_abs_err=err, rel_rms=rel)
+            run = mrf.dynamic_windows(h, w, ks, ds, store=dtype) if route == "int8_dynamic" else None
+            tiles = "" if route != "int8_dynamic" else f" on {1 if run is None else run.n} tile windows a batch row"
             log(f"bulk B={B} {T} frames stage {i} (C={C}, L={L}) {route}: max|kernel - twin| {err:.3e}, "
-                f"rel-RMS {rel:.2e}")
+                f"rel-RMS {rel:.2e}{tiles}")
             if not ok:
                 raise AssertionError(f"bulk stage {i} {route} differs from its twin: max {err}, rel-RMS {rel}")
             del got, want
@@ -581,15 +586,20 @@ def rel_rms(got, want):
     return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
 
 
-def first_code_flips(x, ups, act):
+def first_code_flips(x, ups, act, run=None):
     """int8 codes of the stage's first conv input that differ between K3's
     float64 prologue (FP64 tensor cores) and the twin's float64
     ConvTranspose: where kernel and twin can first part (the integer dots
-    and the later float32 steps are the same on both sides)."""
+    and the later float32 steps are the same on both sides).  Dynamic
+    scales (``act`` None) quantize each of the stage's tile windows
+    (``mrf.dynamic_windows``' ``run``; None: each batch row whole) at its
+    amax."""
     import torch
     from torch.nn import functional as F
 
-    from viettts_tpu_torch.ops.mrf import conv_transpose_same, convt_f64, convt_weight_to_torch
+    from viettts_tpu_torch.ops.mrf import (
+        conv_transpose_same, convt_f64, convt_weight_to_torch, gather_windows, tile_windows,
+    )
 
     w_t, b_t, u = ups
     C = w_t.w.shape[2]
@@ -608,10 +618,13 @@ def first_code_flips(x, ups, act):
         a = y.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
         return torch.round(y * (c127 / a))
 
+    if act is None and run is not None:
+        return sum(int((codes(gather_windows(h, items, n)) != codes(gather_windows(twin.contiguous(), items, n)))
+                       .sum().item()) for n, items in tile_windows(run.seq, run.tile, run.halo))
     return int((codes(h) != codes(twin)).sum().item())
 
 
-def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES)),
+def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAMES), (1, 512)),
                          timed_cases=((2, 128), (1, MAIN_PATH_FRAMES))):
     """K3 against its twin at every stage of each (B, frames) case, ResBlock1
     and ResBlock2, static and dynamic scales, counting the first conv's int8
@@ -625,7 +638,7 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
     import torch
 
     from viettts_tpu_torch.ops.mrf import (
-        convt_f64, fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights,
+        convt_f64, dynamic_windows, fused_mrf, fused_mrf_plain, mrf_walk, prepare_mrf_weights,
     )
     from viettts_tpu_torch.utils.flops import device_peaks, mrf_flop, stage_shapes
 
@@ -653,7 +666,9 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
                         raise AssertionError(f"K3 stage {i}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
                     got, want = got.float(), want.float()
                     err, rel = (got - want).abs().max().item(), rel_rms(got, want)
-                    flips = first_code_flips(x, ups, None if act is None else act[0])
+                    run = None if act is not None else dynamic_windows(x, w, ks, ds, ups, pst, bf16)
+                    tiles = 1 if run is None else run.n
+                    flips = first_code_flips(x, ups, None if act is None else act[0], run)
                     worst["max_abs_err"] = max(worst["max_abs_err"], err)
                     worst["rel_rms"] = max(worst["rel_rms"], rel)
                     worst["code_flips"] += flips
@@ -662,7 +677,8 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
                     tag = (f"K3 fused_mrf int8 {mode} resblock{'2' if resblock2 else '1'} stage {i} "
                            f"x=[{B},{L_in},{C_in}] -> [{B},{L_in * u},{1 if post else C}]")
                     log(f"{tag}: max|kernel - twin| = {err:.3e} (atol {bar:.3g}), rel-RMS {rel:.2e} "
-                        f"(bar {K3_REL_RMS}), first-conv codes flipped {flips} of {B * L_in * u * C}")
+                        f"(bar {K3_REL_RMS}), first-conv codes flipped {flips} of {B * L_in * u * C}"
+                        + (f"; {tiles} tile windows a batch row (the TPU kernel's)" if act is None else ""))
                     if not (torch.isfinite(got).all() and err <= bar and rel <= K3_REL_RMS):
                         raise AssertionError(f"{tag} differs from its twin: max {err}, rel-RMS {rel}")
                     if timed:

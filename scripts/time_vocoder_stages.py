@@ -2,15 +2,21 @@
 """Time of the four default generator stages (``fused_mrf``, kernels K2 and
 K3) on one CUDA GPU, for comparing two checkouts of the port.
 
-    python3 scripts/time_vocoder_stages.py [--reps 20] [--batch 2] [--frames 128] [--pipelines]
+    python3 scripts/time_vocoder_stages.py [--reps 20] [--batch 2] [--frames 128] [--routes ...] [--pipelines]
 
 B=2 at 128 mel frames (``--batch``, ``--frames``), ResBlock1,
 ``chip_smoke.py``'s seeded stage weights: per route (bfloat16, float32,
-int8 with static and with dynamic scales) the CUDA-event time of the four
-stages called back to back, the mean over ``--reps`` calls after one
-warm-up (host enqueue included, as the pipeline pays it), the host time to
-enqueue them, and each stage's time alone.  Prints the card's name and
-power limit, then one JSON line.
+int8 with static and with dynamic scales; ``--routes`` picks some) the
+CUDA-event time of the four stages called back to back, the mean over
+``--reps`` calls after one warm-up (host enqueue included, as the pipeline
+pays it), the host time to enqueue them, and each stage's time alone; for
+dynamic int8, where the package runs it on the TPU kernel's tile windows,
+each stage's windows a row and the time that copies of them would take
+alone (the twin's way, ``mrf.by_windows``; the wgmma pipeline runs every
+window at once without them).
+``--digests FILE`` writes each stage output's SHA-256, or, where FILE
+exists, says which outputs are bit for bit the saved ones (another
+checkout's).  Prints the card's name and power limit, then one JSON line.
 
 ``--pipelines`` times instead, for each route, the MRF convs alone of each
 stage on the pipeline that takes it (or would: ``--routes``) and on the
@@ -32,6 +38,7 @@ session to compare them on one card.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -52,8 +59,10 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--frames", type=int, default=128)
     parser.add_argument("--pipelines", action="store_true", help="fused or wgmma against per-conv MRF convs")
+    parser.add_argument("--digests", help="a JSON file of each stage output's SHA-256: written where absent, "
+                                          "else compared (two checkouts' outputs, bit for bit)")
     parser.add_argument("--routes", default="bfloat16,int8,float32,int8_dynamic",
-                        help="--pipelines: the routes to time, comma-separated")
+                        help="the routes to time, comma-separated")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_vocoder_stages: no CUDA device", file=sys.stderr)
@@ -62,6 +71,7 @@ def main(argv=None) -> int:
     import chip_smoke
     import viettts_tpu_torch
     from viettts_tpu_torch.config import Config
+    from viettts_tpu_torch.ops import mrf
     from viettts_tpu_torch.ops.mrf import fused_mrf, mrf_walk, prepare_mrf_weights
     from viettts_tpu_torch.utils.flops import stage_shapes
 
@@ -91,7 +101,10 @@ def main(argv=None) -> int:
 
     result = {"package": str(Path(viettts_tpu_torch.__file__).parent), "card": smi, "batch": args.batch,
               "frames": args.frames}
+    wanted = args.routes.split(",")
     for route, stages in calls.items():
+        if route not in wanted:
+            continue
         def run():
             for inp, w, kw in stages:
                 fused_mrf(inp, w, ks, ds, **kw)
@@ -107,8 +120,64 @@ def main(argv=None) -> int:
         result[route] = {"ms": ms, "enqueue_ms": enqueue_ms, "stages_ms": stages_ms}
         print(f"{route}: 4 stages {ms:.3f} ms (host enqueue {enqueue_ms:.3f} ms), alone "
               f"{', '.join(f'{t:.3f}' for t in stages_ms)} ms", flush=True)
+        if route == "int8_dynamic" and hasattr(mrf, "dynamic_windows"):
+            result[route].update(window_copies(args, stages, ks, ds, stages_ms))
+        if args.digests:
+            result[route]["sha256"] = [hashlib.sha256(fused_mrf(inp, w, ks, ds, **kw).cpu().view(torch.uint8)
+                                                      .numpy().tobytes()).hexdigest() for inp, w, kw in stages]
+    if args.digests:
+        path = Path(args.digests)
+        if path.exists():
+            saved = json.loads(path.read_text())
+            same = {route: [a == b for a, b in zip(saved[route], result[route]["sha256"])]
+                    for route in wanted if route in saved and route in result}
+            result["same_bits_as_saved"] = same
+            print(f"stage outputs bit for bit those of {saved['package']}: {same}", flush=True)
+        else:
+            path.write_text(json.dumps({"package": result["package"],
+                                        **{r: result[r]["sha256"] for r in wanted if r in result}}))
     print(json.dumps(result), flush=True)
     return 0
+
+
+def window_copies(args, stages, ks, ds, stages_ms) -> dict:
+    """The layout copies that running a dynamic int8 stage's tile windows on
+    copies would take (``mrf.by_windows``: ``gather_windows`` of the
+    float32 trunk and ``scatter_centres`` of the output, for each length of
+    window; the card's wgmma pipeline runs every window at once and makes
+    none), timed alone per stage beside the stage's time."""
+    import torch
+
+    import chip_smoke
+    from viettts_tpu_torch.ops import mrf
+
+    out = {"tiles": [], "copies_ms": []}
+    for (inp, w, kw), stage_ms in zip(stages, stages_ms):
+        run = mrf.dynamic_windows(inp, w, ks, ds, kw["upsample"], kw["post"], torch.bfloat16)
+        if run is None:
+            out["tiles"].append(1)
+            out["copies_ms"].append(0.0)
+            continue
+        B, L = inp.shape[0], inp.shape[1] * kw["upsample"][2]
+        C = mrf._dense(kw["upsample"][0]).shape[2]
+        c_out, dtype = (1, torch.float32) if kw["post"] is not None else (C, torch.bfloat16)
+        h = torch.zeros(B, L, C, device=inp.device)
+        dst = torch.empty(B, L, c_out, dtype=dtype, device=inp.device)
+        groups = mrf.tile_windows(run.seq, run.tile, run.halo)
+        ys = [torch.zeros(B * len(items), n, c_out, dtype=dtype, device=inp.device) for n, items in groups]
+
+        def copies():
+            for (n, items), y in zip(groups, ys):
+                mrf.gather_windows(h, items, n)
+                mrf.scatter_centres(y, items, run.tile, dst)
+
+        ms = chip_smoke.time_ms(copies, reps=args.reps)
+        out["tiles"].append(run.n)
+        out["copies_ms"].append(ms)
+        print(f"  C={C}: {out['tiles'][-1]} tile windows a row; copies of them would take {ms:.3f} ms beside the "
+              f"stage's {stage_ms:.3f} ({100 * ms / stage_ms:.1f}%)", flush=True)
+        del h, dst, ys
+    return out
 
 
 def pipelines(args, smi, cfg, dev, rng) -> int:

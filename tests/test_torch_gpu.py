@@ -697,7 +697,8 @@ def _new_route_case(rng, cuda, C, resblock2, route, B, L):
     weights = [tuple(None if t is None else t.to(cuda) for t in blk) for blk in weights]
     x = _w(rng, B, L, C).to(cuda)
     tw, _, _ = mrf.prepare_mrf_weights(weights, quantize_int8=route == "int8_dynamic")
-    want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, quantize_int8=route == "int8_dynamic")
+    want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, quantize_int8=route == "int8_dynamic",
+                               tiles=False)
     return tw, x, want
 
 
@@ -718,7 +719,7 @@ def test_conv_wgmma_new_route_matches_the_twin(cuda, route, C, resblock2, B, fra
     """The float32 route and dynamic int8 on the per-conv wgmma pipeline, at
     each width and the lead's B=1 (512 frames) and B=2 (128 frames)
     shapes, whatever the router would choose, against the float32 twin
-    and the dynamic int8 twin."""
+    and the dynamic int8 twin of one run (one amax a batch row)."""
     L = frames * STAGE_ROWS[C]
     rng = np.random.RandomState(C + L + B + resblock2)
     tw, x, want = _new_route_case(rng, cuda, C, resblock2, route, B, L)
@@ -740,18 +741,27 @@ def test_conv_wgmma_new_route_at_ragged_lengths(cuda, route, C, L):
 def test_new_route_stage_is_routed_counted_and_capturable(cuda, route, C):
     """Through ``fused_mrf`` at B=1 x 512 frames: a width the router gives
     the pipeline counts one stage on its counter and none on
-    ``mma_conv_kernel``'s routes; a CUDA graph of the call replays it
-    (the dynamic route's amax memset and passes included) with the same
-    output, bitwise, and the same count a replay."""
+    ``mma_conv_kernel``'s routes (dynamic int8: one run of the TPU kernel's
+    tile windows, 4 at C <= 128, against the tile-aware twin); a CUDA graph of the call replays it (the dynamic
+    route's amax memset and passes included)
+    with the same output, bitwise, and the same count a replay."""
     B, L = 1, 512 * STAGE_ROWS[C]
     rng = np.random.RandomState(C)
     tw, x, want = _new_route_case(rng, cuda, C, False, route, B, L)
     kw = dict(quantize_int8=True) if route == "int8_dynamic" else {}
+    runs = [(B, L)]
+    if route == "int8_dynamic":
+        want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+        run = mrf.dynamic_windows(x, tw, (3, 7, 11), ((1, 3, 5),) * 3)
+        assert (run is None) == (C == 256)
+        if run is not None:  # one run of every window, or a run for each length on copies
+            runs = [(B * run.n, run.length)] if mrf.conv_takes(route, B * run.n, run.length, C) else \
+                [(B * len(items), n) for n, items in mrf.tile_windows(run.seq, run.tile, run.halo)]
     counter = mrf.CONV_COUNTERS[route]
     before = getattr(mrf.fused_mrf, counter)
     got = mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
-    routed = mrf.conv_takes(route, B, L, C)
-    assert getattr(mrf.fused_mrf, counter) - before == int(routed)
+    routed = sum(mrf.conv_takes(route, b, n, C) for b, n in runs)
+    assert getattr(mrf.fused_mrf, counter) - before == routed
     _hold_new_route(route, got, want)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -789,7 +799,8 @@ def test_conv_wgmma_dynamic_conv_is_bitwise_and_flips_no_code(cuda):
              amax.data_ptr() + 4 * B, 0, y.data_ptr(), 0, nxt.data_ptr(), k, dil, 0]
     t = (ctypes.c_longlong * len(table))(*table)
     _build.check(lib.viettts_mrf_conv_wgmma_int8_dynamic(0, B, L, C, 1.0, 1, ctypes.addressof(t), x.data_ptr(),
-                                                         codes.data_ptr(), amax.data_ptr(), 2, stream), "conv")
+                                                         codes.data_ptr(), amax.data_ptr(), 2, 0, 0, 0, 0, 0, 0,
+                                                         stream), "conv")
     torch.cuda.synchronize()
     xin = F.leaky_relu(x.transpose(1, 2), 0.1)
     assert torch.equal(amax[0], mrf.row_amax(xin))
@@ -798,6 +809,90 @@ def test_conv_wgmma_dynamic_conv_is_bitwise_and_flips_no_code(cuda):
     torch.testing.assert_close(y, want.transpose(1, 2), rtol=0, atol=0)
     assert torch.equal(amax[1], mrf.row_amax(F.leaky_relu(want, 0.1)))
     assert torch.equal(nxt, mrf.pack_operand(mrf.operand_of(want, "int8_dynamic")))
+
+
+# Dynamic int8 on the TPU kernel's tile windows: one amax a window of a
+# tile and its halo (JAX's default geometry: 8,192 packed rows a tile at
+# C <= 128; ``mrf.dynamic_windows``).
+@pytest.mark.parametrize("wgmma", [True, False], ids=["one_run", "copies"])
+@pytest.mark.parametrize("B,frames,C,tiles", [(1, 256, 32, 2), (2, 512, 128, 4)])
+def test_dynamic_stage_on_tile_windows_is_the_twin(cuda, B, frames, C, tiles, wgmma, monkeypatch):
+    """The dynamic K3 stage (bf16 storage, no prologue: the same float32
+    input on both sides) through ``fused_mrf`` against the tile-aware twin,
+    bitwise: on the wgmma pipeline one run of every window on the full
+    trunk (zero outside the sequence, every window's tile written in
+    place), on ``mma_conv_kernel`` (``mrf.CONV_WGMMA`` off) a run for each
+    length of window on copies, each the per-row pipeline's function."""
+    monkeypatch.setattr(mrf, "CONV_WGMMA", wgmma)
+    L = frames * {32: 256, 128: 64}[C]
+    rng = np.random.RandomState(C + B)
+    weights, _, _ = _stage(rng, 0, C, 0, 1, False, False, (3, 7, 11), ((1, 3, 5),) * 3)
+    weights = [tuple(t.to(cuda) for t in blk) for blk in weights]
+    tw, _, _ = mrf.prepare_mrf_weights(weights, compute_dtype=torch.bfloat16, quantize_int8=True)
+    x = _w(rng, B, L, C).to(cuda, torch.bfloat16)
+    kw = dict(compute_dtype=torch.bfloat16, quantize_int8=True)
+    run = mrf.dynamic_windows(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, store=torch.bfloat16)
+    assert run is not None and run.n == tiles
+    got = mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    rows = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, tiles=False, **kw)
+    assert not torch.equal(got, rows)  # one amax a batch row is another function
+
+
+def test_dynamic_stage_with_prologue_and_post_on_tile_windows(cuda):
+    """The last default stage whole (the FP64 prologue and conv_post) at
+    B=1, 256 frames (2 tiles) against the tile-aware twin, at K3's bars:
+    the prologue's float64 sums and the epilogue's float32 sums run in
+    another order, so only a code at a rounding boundary can flip."""
+    rng = np.random.RandomState(17)
+    weights, ups, pst = _stage(rng, 64, 32, 4, 2, True, False, (3, 7, 11), ((1, 3, 5),) * 3)
+    weights = [tuple(t.to(cuda) for t in blk) for blk in weights]
+    ups = (ups[0].to(cuda), ups[1].to(cuda), 2)
+    pst = (pst[0].to(cuda), pst[1].to(cuda))
+    tw, tu, tp = mrf.prepare_mrf_weights(weights, ups, pst, torch.bfloat16, quantize_int8=True)
+    x = _w(rng, 1, 256 * 128, 64).to(cuda, torch.bfloat16)
+    kw = dict(upsample=tu, post=tp, compute_dtype=torch.bfloat16, quantize_int8=True)
+    assert mrf.dynamic_windows(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, tu, tp, torch.bfloat16).n == 2
+    got = mrf.fused_mrf(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    want = mrf.fused_mrf_plain(x, tw, (3, 7, 11), ((1, 3, 5),) * 3, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, 256 * 256, 1)
+    assert (got - want).abs().max().item() <= 0.02 * max(want.abs().max().item(), 1.0)
+    assert _rel_rms(got, want) <= 1e-3
+
+
+def test_odd_frames_leave_stage_0_unquantized(cuda):
+    """At 127 mel frames the TPU kernel refuses stage 0's tile (1,016 rows,
+    not 16-row aligned) and JAX's generator runs it unquantized: the port
+    runs it on K2's bf16 route, with a K2 launch and no K3 launch, and
+    stages 1-3 on K3."""
+    from viettts_tpu_torch.config import Config
+    from viettts_tpu_torch.models import hifigan
+
+    torch.manual_seed(0)
+    gen = hifigan.Generator(Config().hifigan).to(cuda).eval()
+    mel = torch.randn(1, 127, 80, device=cuda)
+    stages = []
+    real = hifigan.fused_mrf
+
+    def spy(*args, **kwargs):
+        before = (mrf.fused_mrf.launches, mrf.fused_mrf.int8_launches)
+        out = real(*args, **kwargs)
+        stages.append((kwargs["quantize_int8"], mrf.fused_mrf.launches - before[0],
+                       mrf.fused_mrf.int8_launches - before[1]))
+        return out
+
+    hifigan.fused_mrf = spy
+    try:
+        with torch.no_grad():
+            wave = hifigan.generator_apply_fused(gen, mel, torch.bfloat16, quantize_int8=True)
+    finally:
+        hifigan.fused_mrf = real
+    torch.cuda.synchronize()
+    assert stages == [(False, 1, 0)] + [(True, 1, 1)] * 3
+    assert wave.shape == (1, 127 * 256, 1) and bool(torch.isfinite(wave).all())
 
 
 def test_conv_wgmma_tf32_operands_are_the_split(cuda):

@@ -2,8 +2,10 @@
 the clip probe, the generator) against the JAX package, on the CPU.
 
 The JAX side runs ``fused_mrf(quantize_int8=True)`` in interpret mode.  Its
-dynamic activation scale is one amax per time tile; every size here fits
-one tile, where it equals the port's per-row amax.
+dynamic activation scale is one amax per tile window; every size here fits
+one tile, where that is one amax a batch row.  Inputs that span several
+tiles, and the stages whose tile geometry JAX refuses, are in
+``tests/test_torch_int8_tiles.py``.
 
 Bars: the twin and the int8 generator against JAX, rel-RMS 5e-3 and max
 abs 0.02 of max(|ref|, 1) (both sides quantize alike; an int8 code can

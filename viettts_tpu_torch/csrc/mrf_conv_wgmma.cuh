@@ -107,6 +107,35 @@ struct ConvTraits<FRoute::kTf32> {
   static constexpr int E = 4, PARTS = 2, ROUTE = CONV_ROUTE_TF32;
 };
 
+// The TPU kernel's tile windows of a dynamic int8 stage (ops/mrf.py::
+// dynamic_windows): row b' of a run is window b' / B of batch row b' % B,
+// the rows [w * tile - halo, w * tile - halo + L) of the stage's sequence
+// of seq rows, zero outside [0, seq) (SAME padding: the TPU kernel
+// re-zeroes them after every conv).  A run of every window reads the stage
+// input (h, a residual) at the window's rows and writes each window's
+// tile, rows [halo, halo + tile), into the stage output.  n = 0: none, the
+// run's rows are the batch rows.
+struct TileWin {
+  int n, B, tile, halo, seq;
+};
+
+// Run row bp's window: the sequence row of its row 0, and that row's index
+// in a full-sequence [B, seq, *] tensor.
+struct WinRow {
+  int start;
+  long long base;
+};
+__device__ __forceinline__ WinRow win_row(const TileWin& w, int bp) {
+  const int start = bp / w.B * w.tile - w.halo;
+  return {start, (long long)(bp % w.B) * w.seq + start};
+}
+
+// The offset of channel c of the window's row l in a full-sequence [B, seq,
+// C] tensor, or -1 where the row lies outside the sequence.
+__device__ __forceinline__ long long win_offset(const TileWin& w, WinRow r, int l, int C, int c) {
+  return (unsigned)(r.start + l) >= (unsigned)w.seq ? -1 : (r.base + l) * C + c;
+}
+
 struct ConvWArgs {
   CUtensorMap x_map;  // the operand [B * planes][L][16 bytes], box {16, xbox, 1}
   const unsigned char* w;
@@ -117,6 +146,8 @@ struct ConvWArgs {
   void *out, *pout;
   int out_bf16, mode, dynamic, L, C, k, dil, bm, win, xbox, stages, mtiles, ntiles, n_tiles;
   float div;
+  TileWin tw;           // tile windows (the kernel's WIN variant): rows outside the sequence are zero
+  int res_win, out_win;  // res is the stage input / out the stage output, both full-sequence
 };
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
@@ -272,11 +303,25 @@ struct EpilogueLane {
 };
 
 // The loads of one row l of a lane's 8 channels at o = (b * L + l) * C +
-// c0: its residual r and (modes 1, 2) the resblocks' sum y.
-__device__ __forceinline__ void conv_epilogue_loads(const ConvWArgs& a, size_t o, float (&r)[8], float (&y)[8]) {
+// c0: its residual r and (modes 1, 2) the resblocks' sum y.  WIN (tile
+// windows, row b's window wr): a residual that is the stage input
+// (res_win) is read at the window's row of it, 0 outside the sequence.
+template <bool WIN>
+__device__ __forceinline__ void conv_epilogue_loads(const ConvWArgs& a, size_t o, WinRow wr, int l, int c0,
+                                                    float (&r)[8], float (&y)[8]) {
   if (a.res) {
-    *reinterpret_cast<float4*>(r) = *reinterpret_cast<const float4*>(a.res + o);
-    *reinterpret_cast<float4*>(r + 4) = *reinterpret_cast<const float4*>(a.res + o + 4);
+    long long ro = (long long)o;
+    bool outside = false;
+    if constexpr (WIN) {
+      if (a.res_win) ro = win_offset(a.tw, wr, l, a.C, c0), outside = ro < 0;
+    }
+    if (outside) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[i] = 0.f;
+    } else {
+      *reinterpret_cast<float4*>(r) = *reinterpret_cast<const float4*>(a.res + ro);
+      *reinterpret_cast<float4*>(r + 4) = *reinterpret_cast<const float4*>(a.res + ro + 4);
+    }
   }
   if (a.mode != 0 && a.y) {
     *reinterpret_cast<float4*>(y) = *reinterpret_cast<const float4*>(a.y + o);
@@ -288,11 +333,13 @@ __device__ __forceinline__ void conv_epilogue_loads(const ConvWArgs& a, size_t o
 // in mma_conv_kernel's float32 order) + bias (+ r), then by mode: 0 y[l]
 // = v and the next conv's operand op(lrelu(v)) (dynamic int8: max
 // |lrelu(v)| folded into m instead); 1 y[l] += v; 2 out[l] = (y[l] + v) /
-// div (v / div without y).  `src` holds the 8 staged sums.
-template <FRoute R, int BN>
+// div (v / div without y).  `src` holds the 8 staged sums.  WIN (tile
+// windows, row b's window wr): v = 0 outside the sequence, and with
+// out_win mode 2 writes only the window's tile, at its rows of out.
+template <FRoute R, int BN, bool WIN>
 __device__ __forceinline__ void conv_epilogue_row(const ConvWArgs& a, const void* src, int b, int l, int c0,
-                                                  const EpilogueLane& e, const float (&r)[8], float (&y)[8],
-                                                  float& m) {
+                                                  WinRow wr, const EpilogueLane& e, const float (&r)[8],
+                                                  float (&y)[8], float& m) {
   const size_t o = ((size_t)b * a.L + l) * a.C + c0;
   float v[8];
   if constexpr (R == FRoute::kInt8) {
@@ -310,6 +357,12 @@ __device__ __forceinline__ void conv_epilogue_row(const ConvWArgs& a, const void
   if (a.res) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], r[i]);
+  }
+  if constexpr (WIN) {
+    if ((unsigned)(wr.start + l) >= (unsigned)a.tw.seq) {  // outside the sequence: 0
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = 0.f;
+    }
   }
   if (a.mode == 0) {
     if (a.y) {
@@ -368,6 +421,13 @@ __device__ __forceinline__ void conv_epilogue_row(const ConvWArgs& a, const void
     *reinterpret_cast<float4*>(a.y + o) = *reinterpret_cast<const float4*>(y);
     *reinterpret_cast<float4*>(a.y + o + 4) = *reinterpret_cast<const float4*>(y + 4);
   } else {
+    size_t oo = o;
+    if constexpr (WIN) {  // out_win: the window's tile only, at its rows of the sequence
+      if (a.out_win) {
+        if (l < a.tw.halo || l >= a.tw.halo + a.tw.tile) return;
+        oo = (size_t)(wr.base + l) * a.C + c0;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __fdiv_rn(a.y ? __fadd_rn(y[i], v[i]) : v[i], a.div);
     if (a.out_bf16) {
@@ -375,9 +435,9 @@ __device__ __forceinline__ void conv_epilogue_row(const ConvWArgs& a, const void
       __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&w);
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) + o) = w;
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) + oo) = w;
     } else {
-      float* out = static_cast<float*>(a.out) + o;
+      float* out = static_cast<float*>(a.out) + oo;
       *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(v);
       *reinterpret_cast<float4*>(out + 4) = *reinterpret_cast<const float4*>(v + 4);
     }
@@ -390,7 +450,8 @@ __device__ __forceinline__ void conv_epilogue_row(const ConvWArgs& a, const void
 // warpgroup 2, which hands its registers to them (setmaxnreg, as in
 // mrf_fused_kernel), lane 0 of its first warp streams the weight slots and
 // lane 0 of its second warp the window chunks, PLANES 16-byte planes each.
-template <FRoute R, int BN, int MB, int PLANES>
+// WIN: the run's rows are tile windows (ConvWArgs::tw; int8 only).
+template <FRoute R, int BN, int MB, int PLANES, bool WIN = false>
 __global__ void __launch_bounds__(CONV_THREADS, 1) mrf_conv_wgmma_kernel(const __grid_constant__ ConvWArgs a) {
   using T = ConvTraits<R>;
   using Acc = std::conditional_t<R == FRoute::kInt8, int, float>;
@@ -552,6 +613,8 @@ __global__ void __launch_bounds__(CONV_THREADS, 1) mrf_conv_wgmma_kernel(const _
       // that runs once a tile.)
       Acc* strip = reinterpret_cast<Acc*>(stage_base + (size_t)warp * STRIP);
       const int pc = lane % PL, c0 = nt * BN + 8 * pc;  // the lane's channels
+      WinRow wr{0, 0};
+      if constexpr (WIN) wr = win_row(a.tw, b);
       if constexpr (R == FRoute::kInt8) {
         if (a.dynamic) dq = __fmul_rn(a.act[b], INV127);  // this batch row's amax, as mma_conv_kernel
       }
@@ -584,13 +647,14 @@ __global__ void __launch_bounds__(CONV_THREADS, 1) mrf_conv_wgmma_kernel(const _
           for (int i = 0; i < EG; ++i) {
             const int l = row0 + r0 + i * RPI;
             if (r0 + i * RPI < CONV_STRIP_ROWS && l < a.L)
-              conv_epilogue_loads(a, ((size_t)b * a.L + l) * a.C + c0, rr[i], yy[i]);
+              conv_epilogue_loads<WIN>(a, ((size_t)b * a.L + l) * a.C + c0, wr, l, c0, rr[i], yy[i]);
           }
 #pragma unroll
           for (int i = 0; i < EG; ++i) {
             const int r = r0 + i * RPI, l = row0 + r;
             if (r < CONV_STRIP_ROWS && l < a.L)
-              conv_epilogue_row<R, BN>(a, strip + r * (BN + CONV_STRIP_PAD) + 8 * pc, b, l, c0, ep, rr[i], yy[i], m);
+              conv_epilogue_row<R, BN, WIN>(a, strip + r * (BN + CONV_STRIP_PAD) + 8 * pc, b, l, c0, wr, ep, rr[i],
+                                            yy[i], m);
           }
         }
         __syncwarp();
@@ -615,9 +679,10 @@ struct OperandArgs {
   void* out[FUSED_MAX_RES];
   const float* act[FUSED_MAX_RES];
   int n, dynamic;
+  TileWin tw;  // tw.n > 0: h is the full sequence [tw.B, tw.seq, C], read at each window's rows
 };
 
-template <FRoute R>
+template <FRoute R, bool WIN = false>
 __global__ void __launch_bounds__(256) conv_operand_kernel(const float* __restrict__ h, const OperandArgs a, int B,
                                                            int L, int C) {
   constexpr int E = ConvTraits<R>::E;
@@ -632,11 +697,13 @@ __global__ void __launch_bounds__(256) conv_operand_kernel(const float* __restri
     const int l = (int)(e % L);
     const long long rest = e / L;
     const int p = (int)(rest % groups), b = (int)(rest / groups);
-    const float4* src = reinterpret_cast<const float4*>(h + ((size_t)b * L + l) * C + p * E);
+    long long so = ((long long)b * L + l) * C + p * E;
+    if constexpr (WIN) so = win_offset(a.tw, win_row(a.tw, b), l, C, p * E);
+    const float4* src = reinterpret_cast<const float4*>(h + so);
     float v[E];
 #pragma unroll
     for (int i = 0; i < E / 4; ++i) {
-      const float4 f = src[i];
+      const float4 f = WIN && so < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : src[i];
       v[4 * i] = f.x;
       v[4 * i + 1] = f.y;
       v[4 * i + 2] = f.z;
@@ -692,9 +759,9 @@ __global__ void __launch_bounds__(256) conv_operand_kernel(const float* __restri
 
 // --- host side -----------------------------------------------------------------
 
-template <FRoute R, int BN, int MB, int PLANES>
+template <FRoute R, int BN, int MB, int PLANES, bool WIN = false>
 int run_conv_wgmma(const ConvWArgs& args, const ConvPlan& p, cudaStream_t s) {
-  auto kernel = mrf_conv_wgmma_kernel<R, BN, MB, PLANES>;
+  auto kernel = mrf_conv_wgmma_kernel<R, BN, MB, PLANES, WIN>;
   static std::atomic<int> opted_on[MAX_DEVICES];
   const cudaError_t opted = opt_in_smem_once(kernel, opted_on);
   if (opted != cudaSuccess) return (int)opted;
@@ -705,13 +772,16 @@ int run_conv_wgmma(const ConvWArgs& args, const ConvPlan& p, cudaStream_t s) {
 // The kernel of a plan's tile and chunk, among those route R instantiates:
 // every route the three full-chunk tiles of C >= 128; tf32 also the narrow
 // tiles (16-channel chunks divide C = 64 and 32); int8 those with chunks
-// of C's own 64 or 32 bytes.
-template <FRoute R>
+// of C's own 64 or 32 bytes, each also as its tile-window variant (WIN).
+template <FRoute R, bool WIN = false>
 int run_planned(const ConvWArgs& a, const ConvPlan& p, cudaStream_t s) {
+  if constexpr (R == FRoute::kInt8 && !WIN) {
+    if (a.tw.n) return run_planned<R, true>(a, p, s);
+  }
   if (p.planes == 8) {
-    if (p.bm == 256 && p.bn == 128) return run_conv_wgmma<R, 128, 2, 8>(a, p, s);
-    if (p.bm == 128 && p.bn == 128) return run_conv_wgmma<R, 128, 1, 8>(a, p, s);
-    if (p.bm == 128 && p.bn == 64) return run_conv_wgmma<R, 64, 1, 8>(a, p, s);
+    if (p.bm == 256 && p.bn == 128) return run_conv_wgmma<R, 128, 2, 8, WIN>(a, p, s);
+    if (p.bm == 128 && p.bn == 128) return run_conv_wgmma<R, 128, 1, 8, WIN>(a, p, s);
+    if (p.bm == 128 && p.bn == 64) return run_conv_wgmma<R, 64, 1, 8, WIN>(a, p, s);
     if constexpr (R == FRoute::kTf32) {
       if (p.bm == 256 && p.bn == 64) return run_conv_wgmma<R, 64, 2, 8>(a, p, s);
       if (p.bm == 256 && p.bn == 32) return run_conv_wgmma<R, 32, 2, 8>(a, p, s);
@@ -720,16 +790,18 @@ int run_planned(const ConvWArgs& a, const ConvPlan& p, cudaStream_t s) {
   }
   if constexpr (R == FRoute::kInt8) {
     if (p.planes == 4 && p.bn == 64)
-      return p.bm == 256 ? run_conv_wgmma<R, 64, 2, 4>(a, p, s) : run_conv_wgmma<R, 64, 1, 4>(a, p, s);
+      return p.bm == 256 ? run_conv_wgmma<R, 64, 2, 4, WIN>(a, p, s) : run_conv_wgmma<R, 64, 1, 4, WIN>(a, p, s);
     if (p.planes == 2 && p.bn == 32)
-      return p.bm == 256 ? run_conv_wgmma<R, 32, 2, 2>(a, p, s) : run_conv_wgmma<R, 32, 1, 2>(a, p, s);
+      return p.bm == 256 ? run_conv_wgmma<R, 32, 2, 2, WIN>(a, p, s) : run_conv_wgmma<R, 32, 1, 2, WIN>(a, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The stage operand pass: n (out, act) rows of int64 addresses over h.
+// The stage operand pass: n (out, act) rows of int64 addresses over h (tw:
+// its tile windows, B and L the run's).
 template <FRoute R>
-int conv_operands(int B, int L, int C, const void* h, int n, const void* table, int dynamic, cudaStream_t s) {
+int conv_operands(int B, int L, int C, const void* h, int n, const void* table, int dynamic, cudaStream_t s,
+                  TileWin tw = {}) {
   constexpr int E = ConvTraits<R>::E;
   if (n < 1 || n > FUSED_MAX_RES || C % E != 0 || (R == FRoute::kTf32 && C % 16 != 0) || B < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
@@ -737,6 +809,7 @@ int conv_operands(int B, int L, int C, const void* h, int n, const void* table, 
   OperandArgs a{};
   a.n = n;
   a.dynamic = R == FRoute::kInt8 && dynamic;
+  a.tw = tw;
   for (int i = 0; i < n; ++i) {
     a.out[i] = reinterpret_cast<void*>(static_cast<uintptr_t>(rows[2 * i]));
     a.act[i] = reinterpret_cast<const float*>(static_cast<uintptr_t>(rows[2 * i + 1]));
@@ -745,6 +818,13 @@ int conv_operands(int B, int L, int C, const void* h, int n, const void* table, 
   const long long total = (long long)B * (C / E) * L;
   long long blocks = (total + 255) / 256;
   if (blocks > 8 * sm_count()) blocks = 8 * sm_count();
+  if constexpr (R == FRoute::kInt8) {
+    if (tw.n) {
+      conv_operand_kernel<R, true><<<(unsigned)blocks, 256, 0, s>>>(static_cast<const float*>(h), a, B, L, C);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (tw.n) return (int)cudaErrorInvalidValue;
   conv_operand_kernel<R><<<(unsigned)blocks, 256, 0, s>>>(static_cast<const float*>(h), a, B, L, C);
   return (int)cudaGetLastError();
 }
@@ -758,9 +838,12 @@ int conv_operands(int B, int L, int C, const void* h, int n, const void* table, 
 // dynamic (int8): each conv dequantizes with its amax row act[b]; a conv
 // with pout writes float32 y, folds max |lrelu(y)| into act_next (zeroed by
 // the caller) and is followed by the quantize pass y -> pout at act_next.
+// tw (tile windows, B and L the run's): a conv whose res is h reads the
+// stage input at the windows' rows, and with out_win the mode-2 conv
+// writes each window's tile into the full-sequence out.
 template <FRoute R>
 int conv_wgmma_stage(int out_bf16, int B, int L, int C, float div, int n, const void* table, int dynamic,
-                     cudaStream_t s) {
+                     cudaStream_t s, const void* h = nullptr, TileWin tw = {}, int out_win = 0) {
   constexpr int E = ConvTraits<R>::E;
   const auto bad = (int)cudaErrorInvalidValue;
   if (n < 1 || (dynamic && R != FRoute::kInt8)) return bad;  // each conv's plan checks the shape
@@ -787,6 +870,9 @@ int conv_wgmma_stage(int out_bf16, int B, int L, int C, float div, int n, const 
     a.L = L;
     a.C = C;
     a.div = div;
+    a.tw = tw;
+    a.res_win = tw.n && h && a.res == h;
+    a.out_win = tw.n && out_win && a.mode == 2;
     ConvPlan p{};
     if (!r[0] || !a.w || !a.bias || !conv_plan(route, B, L, C, a.k, a.dil, sm_count(), &p)) return bad;
     if (a.mode < 0 || a.mode > 2 || (a.mode == 1 && !a.y) || (a.mode == 2 && !a.out) || (a.mode != 0 && a.pout))

@@ -80,9 +80,19 @@ constexpr int RT = 256;  // amax reduce: threads per block
 
 // amax[b] = max(amax[b], max_i |lrelu(x[b, i])|) over the n values of row b.
 // amax must start at 0: non-negative floats order like their bit patterns.
+// tw.n > 0: row b is tile window b of the full-sequence x [tw.B, tw.seq, C]
+// (viettts::TileWin), n = L * C its L rows: the values of its rows inside
+// the sequence (the others are 0).
 __global__ void __launch_bounds__(RT) absmax_kernel(const float* __restrict__ x,
-                                                    float* __restrict__ amax, long long n) {
+                                                    float* __restrict__ amax, long long n,
+                                                    const viettts::TileWin tw, int C) {
   const float* xb = x + (long long)blockIdx.y * n;
+  if (tw.n) {
+    const int start = viettts::win_row(tw, blockIdx.y).start;
+    const int lo = start < 0 ? 0 : start, hi = min(start + (int)(n / C), tw.seq);
+    xb = x + ((long long)(blockIdx.y % tw.B) * tw.seq + lo) * C;
+    n = hi > lo ? (long long)(hi - lo) * C : 0;
+  }
   float m = 0.f;
   for (long long i = blockIdx.x * (long long)RT + threadIdx.x; i < n;
        i += (long long)gridDim.x * RT)
@@ -139,13 +149,19 @@ extern "C" int viettts_mrf_convt_f64(const void* x, const void* w, const void* b
   return launch_tile<F64Mma>(tile, a, static_cast<cudaStream_t>(stream));
 }
 
-// amax [B] float32, zeroed by the caller; x [B, n] float32.
-extern "C" int viettts_mrf_absmax(const void* x, void* amax, int B, long long n, void* stream) {
+namespace {
+int absmax_launch(const void* x, void* amax, int B, long long n, viettts::TileWin tw, int C, cudaStream_t s) {
   long long blocks = (n + RT - 1) / RT;
   if (blocks > 1024) blocks = 1024;
-  absmax_kernel<<<dim3((unsigned)blocks, B), RT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(amax), n);
+  absmax_kernel<<<dim3((unsigned)blocks, B), RT, 0, s>>>(static_cast<const float*>(x), static_cast<float*>(amax),
+                                                          n, tw, C);
   return (int)cudaGetLastError();
+}
+}  // namespace
+
+// amax [B] float32, zeroed by the caller; x [B, n] float32.
+extern "C" int viettts_mrf_absmax(const void* x, void* amax, int B, long long n, void* stream) {
+  return absmax_launch(x, amax, B, n, viettts::TileWin{}, 1, static_cast<cudaStream_t>(stream));
 }
 
 // A stage's int8 MRF convs (plan rows of viettts::PLAN_FIELDS, see there),
@@ -194,18 +210,29 @@ extern "C" int viettts_mrf_conv_wgmma_int8(int out_bf16, int B, int L, int C, fl
 // convs of the table as viettts_mrf_conv_wgmma_int8's, with act and
 // act_next their amax rows; a conv with an operand to write writes y,
 // folds its amax into act_next and is followed by its quantize pass.
+// win_n > 0: the run's B = win_n * win_B rows are the TPU kernel's tile
+// windows (viettts::TileWin) of a stage of win_B rows of seq steps, L =
+// tile + 2 * halo: h is the full-sequence stage input [win_B, seq, C],
+// every row outside the sequence is 0, and with out_win the last conv
+// writes each window's tile into out [win_B, seq, C].
 extern "C" int viettts_mrf_conv_wgmma_int8_dynamic(int out_bf16, int B, int L, int C, float div, int n,
                                                    const void* table, const void* h, void* h_op, void* amax,
-                                                   int n_amax, void* stream) {
+                                                   int n_amax, int win_n, int win_B, int tile, int halo, int seq,
+                                                   int out_win, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_amax < 1 || B < 1 || !h || !h_op || !amax) return (int)cudaErrorInvalidValue;
+  const viettts::TileWin tw{win_n, win_B, tile, halo, seq};
+  if (win_n && (win_n < 1 || win_B < 1 || B != win_n * win_B || L != tile + 2 * halo || tile < 1 || halo < 0 ||
+                seq != win_n * tile))
+    return (int)cudaErrorInvalidValue;
   int err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)n_amax * B, s);
-  if (err == 0) err = viettts_mrf_absmax(h, amax, B, (long long)L * C, stream);
+  if (err == 0) err = absmax_launch(h, amax, B, (long long)L * C, tw, C, s);
   if (err == 0) {
     const long long row[2] = {(long long)reinterpret_cast<uintptr_t>(h_op), (long long)reinterpret_cast<uintptr_t>(amax)};
-    err = viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, 1, row, 1, s);
+    err = viettts::conv_operands<viettts::FRoute::kInt8>(B, L, C, h, 1, row, 1, s, tw);
   }
-  if (err == 0) err = viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table, 1, s);
+  if (err == 0)
+    err = viettts::conv_wgmma_stage<viettts::FRoute::kInt8>(out_bf16, B, L, C, div, n, table, 1, s, h, tw, out_win);
   return err;
 }
 

@@ -31,8 +31,11 @@ from viettts_tpu_torch.config import HifiGanConfig
 from viettts_tpu_torch.ops.mrf import (
     LRELU_SLOPE,
     POST_LRELU_SLOPE,
+    _dense,
     conv_transpose_same,
+    convt_weight_to_torch,
     fused_mrf,
+    jax_tile_geometry,
     mrf_walk,
     prepare_mrf_weights,
     storage_dtype,
@@ -186,6 +189,48 @@ class Generator(nn.Module):
         return stages
 
 
+# The rungs of JAX's fallback on the int8 route, a stage each
+# (viettts_tpu/models/hifigan.py::_generator_apply_fused_one): its fused
+# call with the ConvTranspose prologue; the prologue as an XLA
+# ConvTranspose, then the fused call without it; plain XLA convs in the
+# compute dtype, unquantized, where both calls refuse their tile geometry.
+FUSED, XLA_PROLOGUE, UNQUANTIZED = "fused", "xla_prologue", "unquantized"
+
+
+def int8_rungs(stages, frames: int, store, kernel_sizes, dilations) -> List[str]:
+    """JAX's rung of each stage (``fused_weights``' stages) on the int8 route
+    for mels of ``frames`` frames in storage ``store``, from the TPU
+    kernel's refusals (``ops.mrf.jax_tile_geometry``)."""
+    rungs, L_in = [], frames
+    for weights, upsample, post in stages:
+        k_u, C_in, C = _dense(upsample[0]).shape
+        u = upsample[2]
+        args = (kernel_sizes, dilations, weights[0][2] is None)
+        kw = dict(post_k=None if post is None else post[0].shape[0], store=store, quantize_int8=True)
+        if jax_tile_geometry(L_in, C_in, C, *args, upsample=(k_u, u), **kw).error is None:
+            rungs.append(FUSED)
+        elif jax_tile_geometry(L_in * u, C, C, *args, **kw).error is None:
+            rungs.append(XLA_PROLOGUE)
+        else:
+            rungs.append(UNQUANTIZED)
+        L_in *= u
+    return rungs
+
+
+def _xla_upsample(x: torch.Tensor, upsample, store) -> torch.Tensor:
+    """JAX's XLA prologue of the ``XLA_PROLOGUE`` rung: leaky_relu in the
+    storage dtype (its slope rounded to it, as a weakly typed scalar is),
+    the ConvTranspose rounded to it, then the bias added in it; [B, L_in,
+    C_in] -> [B, L_in * u, C] in ``store``.  The sums run in float64 and
+    round once to float32, as the int8 route's conv_pre does."""
+    w_t, b_t, u = upsample
+    a = torch.where(x > 0, x, x * torch.tensor(LRELU_SLOPE, dtype=x.dtype, device=x.device))
+    zero = torch.zeros(b_t.shape[0], dtype=torch.float64, device=x.device)
+    h = conv_transpose_same(a.transpose(1, 2).double(), convt_weight_to_torch(_dense(w_t).double()), zero, u)
+    h = h.float().to(store).float() + b_t.to(store).float()[None, :, None]
+    return h.transpose(1, 2).contiguous().to(store)
+
+
 def generator_apply_fused(
     gen: Generator,
     mel: torch.Tensor,
@@ -198,13 +243,21 @@ def generator_apply_fused(
     ``compute_dtype=torch.bfloat16`` stores the weights and the
     inter-stage activations in bfloat16; arithmetic stays float32.
     conv_pre is a plain torch conv (it is outside the TPU kernel too).
-    ``quantize_int8`` runs every stage's MRF convs in int8 (K3), as the JAX
-    int8 route fuses all four stages; ``act_scales`` ``{stage: [n_convs]}``
-    (``generator_calibrate_int8``) selects static activation scales, else
-    they are dynamic.
+    ``quantize_int8`` runs the stages' MRF convs in int8 (K3) wherever the
+    JAX int8 route quantizes them: a stage whose tile geometry the TPU
+    kernel refuses takes JAX's fallback (``int8_rungs``), and where every
+    stage does, the route is the unquantized one; ``act_scales``
+    ``{stage: [n_convs]}`` (``generator_calibrate_int8``) selects static
+    activation scales, else they are dynamic (one a tile window).
     """
     cfg = gen.cfg
     store = storage_dtype(compute_dtype)
+    stages = gen.fused_weights(compute_dtype, quantize_int8)
+    rungs = [FUSED] * len(stages)
+    if quantize_int8:
+        rungs = int8_rungs(stages, mel.shape[1], store, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+        if all(r == UNQUANTIZED for r in rungs):  # JAX's int8 program is then its unquantized one
+            return generator_apply_fused(gen, mel, compute_dtype)
     # as JAX's conv_pre: the conv rounds to the storage dtype, then the
     # bias is added in it (one bf16 rounding less moves the int8 route's
     # codes, and its waveform by ~1% rel-RMS).  On the int8 route the sums
@@ -216,12 +269,16 @@ def generator_apply_fused(
     x = F.conv1d(mel.to(store).to(acc).transpose(1, 2), w_pre, padding=3).float()
     x = x.to(store).float() + gen.conv_pre.bias.to(store).float()[None, :, None]
     x = x.transpose(1, 2).contiguous().to(store)
-    for i, (weights, upsample, post) in enumerate(gen.fused_weights(compute_dtype, quantize_int8)):
+    for i, (weights, upsample, post) in enumerate(stages):
+        quantize = quantize_int8 and rungs[i] != UNQUANTIZED
+        if rungs[i] == UNQUANTIZED:  # K2 on the storage dtype's route
+            weights, upsample, post = gen.fused_weights(compute_dtype)[i]
+        elif rungs[i] == XLA_PROLOGUE:
+            x, upsample = _xla_upsample(x, upsample, store), None
         x = fused_mrf(
             x, weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
             upsample=upsample, post=post, compute_dtype=compute_dtype,
-            quantize_int8=quantize_int8,
-            act_scales=(act_scales or {}).get(i) if quantize_int8 else None,
+            quantize_int8=quantize, act_scales=(act_scales or {}).get(i) if quantize else None,
         )
     return x
 

@@ -82,8 +82,9 @@ SIGNATURES = {
     "viettts_mrf_conv_wgmma": [I] * 4 + [F, I, P, P],
     "viettts_mrf_conv_wgmma_int8": [I] * 4 + [F, I, P, P],
     "viettts_mrf_conv_wgmma_tf32": [I] * 4 + [F, I, P, P],
-    # out_bf16, B, L, C, div, n, table, h (float32 [B, L, C]), h_op (its codes), amax [n_amax, B], n_amax, stream
-    "viettts_mrf_conv_wgmma_int8_dynamic": [I] * 4 + [F, I] + [P] * 4 + [I, P],
+    # out_bf16, B, L, C, div, n, table, h (float32 [B, L, C]), h_op (its codes), amax [n_amax, B], n_amax,
+    # tile windows (n, B, tile, halo, seq: 0 for none), out_win, stream
+    "viettts_mrf_conv_wgmma_int8_dynamic": [I] * 4 + [F, I] + [P] * 4 + [I] * 7 + [P],
     # B, L, C, h, n, rows (n x (out, act) int64), stream
     "viettts_mrf_conv_operands": [I] * 3 + [P, I, P, P],
     "viettts_mrf_conv_operands_int8": [I] * 3 + [P, I, P, P],

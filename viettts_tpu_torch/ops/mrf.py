@@ -33,11 +33,13 @@ the FP64 tensor cores, from the ``F64Conv`` weights), so that the kernel
 and the twin give its output the same int8 codes.  Each conv's
 input ``lrelu(x)`` is quantized with one scale: ``act_scales`` [n_convs]
 (calibrated amaxes in flat conv order, ``mrf_walk``) clips at a fixed
-scale; without it the scale is the amax of the conv input over each batch
-row (dynamic).  The TPU kernel's dynamic
-amax spans one time tile plus its halo (``_pick_tile_rows``), so it equals
-this one only where the sequence fits one tile (at most 8192 packed rows
-of 128 lanes); longer inputs differ from JAX by design.
+scale; without it the scale is dynamic, the amax of the conv input over
+one of the TPU kernel's tile windows: a tile of its geometry
+(``jax_tile_geometry``: at most 8192 packed rows of 128 lanes, fewer where
+they do not divide the sequence) and a halo on each side, trimmed to the
+sequence.  The stage's MRF and conv_post run on each window of the
+stage trunk as a batch row of its own (``dynamic_windows``, ``by_windows``),
+and each window's tile is kept: one tile is one amax a batch row.
 
 ``fused_mrf`` runs ``csrc/mrf.cu`` (and ``csrc/mrf_int8.cu``,
 ``csrc/mrf_tf32.cu``) on CUDA tensors and ``fused_mrf_plain`` on CPU
@@ -75,6 +77,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -379,6 +382,227 @@ def mrf_walk(
 
 
 # ---------------------------------------------------------------------------
+# The TPU kernel's tile geometry (viettts_tpu/ops/mrf.py), copied: the
+# dynamic int8 scale spans one of its tile windows, and where it cannot tile
+# a stage, JAX's generator falls back to other programs.
+# ---------------------------------------------------------------------------
+
+LANES = 128  # the TPU kernel packs g = 128 / C steps of C < 128 channels into a row
+RESIDENT_BUDGET = 10 * 1024 * 1024  # fused_mrf's resident_budget default
+STREAMED_TILE_BYTES = 6 * 1024 * 1024  # the tile budget of a kernel that streams its weights
+TILE_MB_DEFAULT = "48"  # VIETTTS_MRF_TILE_MB, the tile budget of a weight-resident kernel
+
+
+def pack_offsets(k: int, d: int, g: int) -> List[int]:
+    """The packed-row offsets q of a conv (kernel k, dilation d) on rows of
+    g steps: output block j of row m reads row m + q (``_pack_offsets``)."""
+    c = (k - 1) // 2
+    return sorted({(j + (t - c) * d) // g for j in range(g) for t in range(k)})
+
+
+def conv_radius_rows(k: int, d: int, g: int) -> int:
+    """A conv's reach in packed rows (``_conv_radius_rows``)."""
+    offsets = pack_offsets(k, d, g)
+    return max(-offsets[0], offsets[-1])
+
+
+def stack_radius_rows(kernel_sizes, dilations, g: int, two_convs: bool = True) -> int:
+    """The worst reach in packed rows of one resblock's conv chain
+    (``_stack_radius_rows``; ``two_convs=False``: ResBlock2)."""
+    r = 0
+    for k, dils in zip(kernel_sizes, dilations):
+        blk = 0
+        for d in dils:
+            blk += conv_radius_rows(k, d, g) + (conv_radius_rows(k, 1, g) if two_convs else 0)
+        r = max(r, blk)
+    return r
+
+
+def pick_tile_rows(rows: int, width: int, budget_bytes: int = STREAMED_TILE_BYTES) -> int:
+    """Tile rows so that ~8 float32 [tile, width] buffers fit the budget: a
+    power of two from 256 to 8192 that divides ``rows``, or ``rows``
+    itself (``_pick_tile_rows``)."""
+    budget = budget_bytes // (8 * width * 4)
+    t = 1 << (max(budget, 256).bit_length() - 1)
+    t = min(t, 8192, rows)
+    while t > 1 and rows % t != 0:
+        t //= 2
+    return t
+
+
+class TileGeometry(NamedTuple):
+    """One ``fused_mrf`` call of the TPU kernel: ``tile`` and ``halo`` in
+    steps (its Tp and Hp packed rows times g; None where it cannot pack the
+    stage), and ``error``, the ValueError text that the call raises, or
+    None where it runs."""
+
+    tile: Optional[int]
+    halo: Optional[int]
+    error: Optional[str]
+
+
+@functools.lru_cache(maxsize=1024)
+def _tile_geometry(L_in, C_in, C, kernel_sizes, dilations, resblock2, upsample, post_k, io_bytes, weight_bytes,
+                   tile_mb):
+    L = L_in * (upsample[1] if upsample else 1)
+    g = max(1, LANES // C)
+    if C < LANES and LANES % C != 0:
+        return TileGeometry(None, None, f"channels {C} must divide {LANES}")
+    if C >= LANES and C % LANES != 0:
+        return TileGeometry(None, None, f"channels {C} must be a multiple of {LANES}")
+    W = g * C
+    if L % g != 0:
+        return TileGeometry(None, None, f"length {L} not divisible by packing {g}")
+    rows = L // g
+    align = 8 * (4 // io_bytes)
+    radius = stack_radius_rows(kernel_sizes, dilations, g, not resblock2)
+    if post_k is not None:
+        radius += conv_radius_rows(post_k, 1, g)
+    Hp = -(-radius // align) * align
+    n_offsets = sum(len(pack_offsets(k, dc, g))
+                    for k, dils in zip(kernel_sizes, dilations) for d in dils
+                    for dc in ((d,) if resblock2 else (d, 1)))
+    resident = n_offsets * W * W * weight_bytes <= RESIDENT_BUDGET
+    Tp = pick_tile_rows(rows, W, tile_mb * 1024 * 1024 if resident else STREAMED_TILE_BYTES)
+
+    def geometry(error=None):
+        return TileGeometry(Tp * g, Hp * g, error)
+
+    if Tp % align != 0:
+        return geometry(f"tile {Tp} not {align}-row aligned")
+    if upsample is not None:
+        u = upsample[1]
+        g_in = max(1, LANES // C_in)
+        if C_in < LANES and LANES % C_in != 0:
+            return geometry(f"in-channels {C_in} must divide {LANES}")
+        if C_in >= LANES and C_in % LANES != 0:
+            return geometry(f"in-channels {C_in} must be a multiple of {LANES}")
+        if L_in % g_in != 0:
+            return geometry(f"input length {L_in} not divisible by {g_in}")
+        if (g_in * u) % g != 0:  # an assertion in JAX (_pack_transpose_matrices), not a ValueError
+            return geometry(f"packing {g_in} x stride {u} not divisible by {g}")
+        F_rows = (g_in * u) // g
+        if Hp % F_rows != 0 or Tp % F_rows != 0:
+            return geometry(f"tile ({Tp}) / halo ({Hp}) not divisible by {F_rows}")
+    return geometry()
+
+
+def jax_tile_geometry(
+    L_in: int, C_in: int, C: int, kernel_sizes, dilations, resblock2: bool, *,
+    upsample: Optional[Tuple[int, int]] = None, post_k: Optional[int] = None,
+    store=torch.float32, quantize_int8: bool = False,
+) -> TileGeometry:
+    """The tile geometry of the TPU kernel's ``fused_mrf`` call
+    (``viettts_tpu/ops/mrf.py::fused_mrf``, its checks in their order) on
+    an input of L_in steps and C_in channels (the stage's C without a
+    prologue), with ``upsample`` (kernel size, stride) and a conv_post of
+    ``post_k`` taps, storage ``store`` (the halo and tile align to 16 rows
+    for bfloat16, 8 for float32) and int8 or float weights (their bytes
+    decide whether the kernel keeps them resident, which lets its tile grow
+    to ``VIETTTS_MRF_TILE_MB``, 48 MB by default, read as JAX reads it).
+    Plain Python: no card needed."""
+    io_bytes = 2 if store == torch.bfloat16 else 4
+    return _tile_geometry(
+        int(L_in), int(C_in), int(C), tuple(kernel_sizes), tuple(tuple(d) for d in dilations), bool(resblock2),
+        None if upsample is None else (int(upsample[0]), int(upsample[1])), post_k, io_bytes,
+        1 if quantize_int8 else io_bytes, int(os.environ.get("VIETTTS_MRF_TILE_MB", TILE_MB_DEFAULT)),
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_windows(L: int, tile: int, halo: int) -> Tuple[Tuple[int, Tuple[Tuple[int, int], ...]], ...]:
+    """The TPU kernel's tile windows on a sequence of L steps, trimmed to
+    [0, L): window t spans [max(0, t·tile − halo), min(L, (t+1)·tile +
+    halo)), which holds what its buffer holds there (its rows outside the
+    sequence are zero after every conv, as SAME padding is).  Grouped by
+    length: [(length, [(start, t), ...])]."""
+    groups: dict = {}
+    for t in range(L // tile):
+        start, end = max(0, t * tile - halo), min(L, (t + 1) * tile + halo)
+        groups.setdefault(end - start, []).append((start, t))
+    return tuple((n, tuple(items)) for n, items in sorted(groups.items()))
+
+
+class TileRun(NamedTuple):
+    """A dynamic stage's tile windows: ``n`` a batch row of ``B``, each
+    ``length = tile + 2 * halo`` steps from ``w * tile - halo`` of a
+    sequence of ``seq`` steps, the steps outside it zero, as in the TPU
+    kernel's buffer.  On the card they run as one batch (run row w * B +
+    b is window w of batch row b); the twin trims them to the sequence
+    (``tile_windows``, ``by_windows``)."""
+
+    n: int
+    B: int
+    tile: int
+    halo: int
+    seq: int
+    length: int
+
+
+def dynamic_windows(x, weights, kernel_sizes, dilations, upsample=None, post=None,
+                    store=torch.float32) -> Optional[TileRun]:
+    """The tile windows of a dynamic int8 ``fused_mrf`` call, or None where
+    the stage is one window: one tile, or a width the TPU kernel cannot
+    pack (its generator then leaves the stage unquantized:
+    ``models/hifigan.py``)."""
+    k_u, u = (_dense(upsample[0]).shape[0], upsample[2]) if upsample is not None else (None, 1)
+    C = x.shape[2] if upsample is None else _dense(upsample[0]).shape[2]
+    geo = jax_tile_geometry(x.shape[1], x.shape[2], C, kernel_sizes, dilations, weights[0][2] is None,
+                            upsample=None if upsample is None else (k_u, u),
+                            post_k=None if post is None else post[0].shape[0], store=store, quantize_int8=True)
+    L = x.shape[1] * u
+    if geo.tile is None or geo.tile >= L:
+        return None
+    return TileRun(L // geo.tile, x.shape[0], geo.tile, geo.halo, L, geo.tile + 2 * geo.halo)
+
+
+def gather_windows(h: torch.Tensor, items: Sequence[Tuple[int, int]], length: int) -> torch.Tensor:
+    """Windows of ``length`` steps of h [B, L, C] starting at each item's
+    start, as batch rows window-major: [len(items) * B, length, C], one copy
+    where the starts are evenly spaced."""
+    B, L, C = h.shape
+    starts = [s for s, _ in items]
+    step = starts[1] - starts[0] if len(starts) > 1 else L
+    if all(b - a == step for a, b in zip(starts, starts[1:])):
+        view = h.as_strided((len(starts), B, length, C), (step * C, L * C, C, 1),
+                            h.storage_offset() + starts[0] * C)
+        return view.reshape(len(starts) * B, length, C).contiguous()  # B = 1: a view until here
+    return torch.cat([h[:, s:s + length] for s in starts])
+
+
+def scatter_centres(y: torch.Tensor, items: Sequence[Tuple[int, int]], tile: int, out: torch.Tensor) -> None:
+    """Each window's tile (its steps [t·tile, (t+1)·tile)) from y
+    [len(items) * B, length, C_out] into out [B, L, C_out], one copy where
+    the tiles are consecutive and sit at one offset in their windows."""
+    n, B = len(items), out.shape[0]
+    y = y.view(n, B, y.shape[1], y.shape[2])
+    offs = [t * tile - s for s, t in items]
+    ts = [t for _, t in items]
+    if all(o == offs[0] for o in offs) and ts == list(range(ts[0], ts[0] + n)):
+        tiles = out.view(B, out.shape[1] // tile, tile, out.shape[2])
+        tiles[:, ts[0]:ts[0] + n].copy_(y[:, :, offs[0]:offs[0] + tile].transpose(0, 1))
+        return
+    for i, (o, t) in enumerate(zip(offs, ts)):
+        out[:, t * tile:(t + 1) * tile].copy_(y[i, :, o:o + tile])
+
+
+def by_windows(h: torch.Tensor, run: TileRun, stage: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Run ``stage`` (the MRF and any conv_post on a float32 trunk [B', L',
+    C] -> [B', L', C_out]) on the tile windows ``run`` (``dynamic_windows``)
+    of the trunk h [B, L, C], trimmed to the sequence, the windows of each
+    length as the batch rows of one call, and put each window's tile in
+    place: what the TPU kernel computes with one dynamic scale a tile
+    window."""
+    out = None
+    for length, items in tile_windows(run.seq, run.tile, run.halo):
+        y = stage(gather_windows(h, items, length))
+        if out is None:
+            out = torch.empty(h.shape[0], h.shape[1], y.shape[2], dtype=y.dtype, device=y.device)
+        scatter_centres(y, items, run.tile, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The fused pipeline's plan, and its tile schedule in plain PyTorch.
 # ---------------------------------------------------------------------------
 
@@ -485,9 +709,10 @@ def fused_route_name(route: str, int8_static: bool = False) -> Optional[str]:
     """The fused kernel's route for a serving route (``bfloat16``,
     ``float32``, ``int8``): None for float32 (its 3xTF32 fused tiles lost
     to the per-conv pipeline at every width on the H100) and for int8 with
-    dynamic scales (their amax spans a conv's whole input row, so a conv
-    cannot start before its predecessor has finished every tile: one
-    launch a conv, ``conv_route_name``)."""
+    dynamic scales (their amax spans a conv's whole input row, a tile
+    window of the TPU kernel, so a conv cannot start before its
+    predecessor has finished every tile of the card's: one launch a conv,
+    ``conv_route_name``)."""
     if route == "int8":
         return "int8" if int8_static else None
     return {"bfloat16": "bf16", "bf16": "bf16", "float32": None}[route]
@@ -591,13 +816,17 @@ def fused_mrf_plain(
     quantize_int8: bool = False,
     act_scales: Optional[torch.Tensor] = None,
     bf16_dots: bool = False,
+    tiles: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the stage kernels: float32 arithmetic, rounding
     to the storage dtype only where the kernel stores.  ``bf16_dots``
     rounds the lrelu input of every MRF conv and of the ConvTranspose
     prologue to bfloat16 before its float32 conv: the TPU kernel's
     DEFAULT-precision dot (``viettts_tpu/ops/mrf.py:336-340``) and the
-    bf16 kernel's operands, used to hold that kernel to its function."""
+    bf16 kernel's operands, used to hold that kernel to its function.
+    Dynamic int8 runs the MRF and conv_post on the TPU kernel's tile
+    windows (``dynamic_windows``); ``tiles=False`` runs it on each batch
+    row whole, what one run of a card pipeline computes."""
     fused_mrf.plain_calls += 1
     h = x.float().transpose(1, 2)  # [B, C, L]
     if upsample is not None:
@@ -621,12 +850,22 @@ def fused_mrf_plain(
             if bf16_dots:
                 inp = inp.to(torch.bfloat16).float()
             return _conv_same(inp, _dense(w)[j], b[j], d)
-    acc = _mrf_stack(h, weights, kernel_sizes, dilations, conv)
-    if post is not None:
-        w_p, b_p = post
-        z = _conv_same(F.leaky_relu(acc, POST_LRELU_SLOPE), w_p, b_p, 1)
-        return torch.tanh(z).transpose(1, 2).contiguous()
-    return acc.transpose(1, 2).contiguous().to(storage_dtype(compute_dtype))
+
+    def stage(t):  # [B', C, L'] -> [B', C_out, L']
+        acc = _mrf_stack(t, weights, kernel_sizes, dilations, conv)
+        if post is not None:
+            w_p, b_p = post
+            acc = torch.tanh(_conv_same(F.leaky_relu(acc, POST_LRELU_SLOPE), w_p, b_p, 1))
+        return acc
+
+    run = None
+    if quantize_int8 and act_scales is None and tiles:
+        run = dynamic_windows(x, weights, kernel_sizes, dilations, upsample, post, storage_dtype(compute_dtype))
+    if run is None:
+        y = stage(h).transpose(1, 2)
+    else:
+        y = by_windows(h.transpose(1, 2).contiguous(), run, lambda t: stage(t.transpose(1, 2)).transpose(1, 2))
+    return y.contiguous() if post is not None else y.contiguous().to(storage_dtype(compute_dtype))
 
 
 def prepare_mrf_weights(
@@ -867,22 +1106,56 @@ def _fused_mrf_cuda(
             "fused_mrf input cast",
         )
 
-    n_blocks = len(kernel_sizes)
-    out_dtype = torch.float32 if post is not None else store
-    out = torch.empty(B, L, C, dtype=out_dtype, device=x.device)
-    out_bf = int(out_dtype == torch.bfloat16)
     if quantize_int8:
         fused_mrf.int8_launches += 1
+    args = (lib, stream, bf, weights, kernel_sizes, dilations, post, store, quantize_int8, act_scales)
+    run = None
+    if quantize_int8 and act_scales is None:
+        run = dynamic_windows(x, weights, kernel_sizes, dilations, upsample, post, store)
+    if run is None:
+        return _stage_cuda(h, *args)
+    if _takes_conv_wgmma("int8_dynamic", B * run.n, run.length, C, kernel_sizes, h.device):
+        # one run of every window, on the full trunk: no copies
+        out = torch.empty(B, L, C, dtype=store, device=x.device) if post is None else \
+            torch.empty(B * run.n, run.length, C, **f32)
+        _launch_conv_wgmma(lib, stream, "int8_dynamic", h, weights, kernel_sizes, dilations, None, out,
+                           int(post is None and store == torch.bfloat16), run)
+        fused_mrf.int8_dynamic_conv_launches += 1
+        if post is None:
+            return out
+        wave = _post(lib, stream, bf, out, post)
+        tiles = wave.view(run.n, B, run.length, -1)[:, :, run.halo:run.halo + run.tile]
+        return tiles.permute(1, 0, 2, 3).reshape(B, L, -1)
+    return by_windows(h, run, lambda hw: _stage_cuda(hw, *args))  # mma_conv_kernel: no window variant
+
+
+def _takes_conv_wgmma(croute, B, L, C, kernel_sizes, device) -> bool:
+    """Whether a stage's MRF convs go to the per-conv wgmma pipeline: the
+    router's answer (``CONV_WGMMA`` True), or any shape its plan tiles
+    ("any"), or none (False)."""
+    if CONV_WGMMA is True:
+        return conv_takes(croute, B, L, C)
+    return CONV_WGMMA == "any" and conv_plan(B, L, C, kernel_sizes[0], 1, _sm_count(device), croute) is not None
+
+
+def _stage_cuda(h, lib, stream, bf, weights, kernel_sizes, dilations, post, store, quantize_int8, act_scales):
+    """The stage after its prologue, on the float32 trunk h [B, L, C]: the
+    MRF convs on the pipeline that takes them, then any conv_post."""
+    B, L, C = h.shape
+    f32 = dict(dtype=torch.float32, device=h.device)
+    n_blocks = len(kernel_sizes)
+    out_dtype = torch.float32 if post is not None else store
+    out = torch.empty(B, L, C, dtype=out_dtype, device=h.device)
+    out_bf = int(out_dtype == torch.bfloat16)
     route = fused_route(store, quantize_int8, act_scales)
     launch = None
     if route is not None and C in FUSED_CHANNELS:
-        launch = plan_fused(route, C, kernel_sizes, dilations, weights[0][2] is None, B, L, _sm_count(x.device))
+        launch = plan_fused(route, C, kernel_sizes, dilations, weights[0][2] is None, B, L, _sm_count(h.device))
     if launch is not None:
         _launch_fused(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, launch, out, out_bf)
         return out if post is None else _post(lib, stream, bf, out, post)
     croute = conv_route(store, quantize_int8, act_scales)
-    if (conv_takes(croute, B, L, C) if CONV_WGMMA is True else
-            CONV_WGMMA == "any" and conv_plan(B, L, C, kernel_sizes[0], 1, _sm_count(x.device), croute) is not None):
+    if _takes_conv_wgmma(croute, B, L, C, kernel_sizes, h.device):
         _launch_conv_wgmma(lib, stream, croute, h, weights, kernel_sizes, dilations, act_scales, out, out_bf)
         counter = CONV_COUNTERS[croute]
         setattr(fused_mrf, counter, getattr(fused_mrf, counter) + 1)
@@ -1029,7 +1302,8 @@ CONV_COUNTERS = {"bf16": "conv_launches", "int8": "int8_conv_launches", "tf32": 
                  "int8_dynamic": "int8_dynamic_conv_launches"}
 
 
-def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf):
+def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, act_scales, out, out_bf,
+                       run=None):
     """The stage's MRF convs on the per-conv wgmma pipeline on ``route``
     (``CONV_ROUTES``): h the float32 trunk [B, L, C]; the stage input's
     operands (one bf16 or TF32 tensor, the int8 codes at each resblock's
@@ -1042,8 +1316,15 @@ def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, 
     two.  With dynamic scales a conv that writes an operand also writes
     float32 (the trunk, or ``mid`` for ResBlock1's dilated conv), which its
     quantize pass reads, and each conv's amax is a row of ``amax`` [n_convs,
-    B] (the stage input's: row 0)."""
+    B] (the stage input's: row 0).  ``run`` (dynamic int8: the stage's
+    ``TileRun``) makes the batch rows the stage's tile windows, of
+    ``run.length`` steps: h is then the full-sequence trunk, read at each
+    window's rows (zero outside the sequence, where every conv's output is
+    zeroed too), and ``out``, full-sequence unless a conv_post follows, gets
+    each window's tile."""
     B, L, C = h.shape
+    if run is not None:
+        B, L = B * run.n, run.length
     f32 = dict(dtype=torch.float32, device=h.device)
     op_dtype, e, parts = CONV_OPERANDS[route]
     int8 = route.startswith("int8")
@@ -1130,8 +1411,10 @@ def _launch_conv_wgmma(lib, stream, route, h, weights, kernel_sizes, dilations, 
     n = len(table) // CONV_FIELDS
     args = (out_bf, B, L, C, float(n_blocks), n, ctypes.addressof(rows))
     if dynamic:
+        w = run or TileRun(0, 0, 0, 0, 0, 0)
         code = lib.viettts_mrf_conv_wgmma_int8_dynamic(*args, h.data_ptr(), h_ops[0].data_ptr(), amax.data_ptr(),
-                                                       amax.shape[0], stream)
+                                                       amax.shape[0], w.n, w.B, w.tile, w.halo, w.seq,
+                                                       int(run is not None and out.shape[0] == w.B), stream)
     else:
         fn = {"bf16": lib.viettts_mrf_conv_wgmma, "int8": lib.viettts_mrf_conv_wgmma_int8,
               "tf32": lib.viettts_mrf_conv_wgmma_tf32}[route]

@@ -22,7 +22,9 @@ probe clip with calibration on the first corpus clip:
 It also runs the static int8 serving route (``generator_apply_fused``: K3
 on the card, its plain twin on the CPU) with the same scales against the
 plain float32 generator on the same clip, and reports the gap to the full
-simulation.  The route also stores bf16 between stages, so the gap is
+simulation of the stages the route quantizes at the clip's length (where
+the TPU kernel refuses a stage's tile geometry, JAX's route, and so the
+port's, leaves it unquantized: ``models/hifigan.py::int8_rungs``).  The route also stores bf16 between stages, so the gap is
 judged against the bf16 route's own error: a gap beyond
 ``0.25 * simulation + bf16 error + 1e-3`` is reported as a kernel fault.
 
@@ -94,15 +96,18 @@ def _conv(x: torch.Tensor, conv, dilation: int = 1, quant_w: bool = False) -> to
 
 @torch.no_grad()
 def generator_walk(gen, mel: torch.Tensor, *, quant_w: bool = False, act_mode: str = "none",
-                   calib: Optional[List[dict]] = None, record: Optional[List[dict]] = None) -> torch.Tensor:
+                   calib: Optional[List[dict]] = None, record: Optional[List[dict]] = None,
+                   stages: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The plain float32 generator on ``mel`` [B, T, n_mels] -> [B, T*256, 1],
     with its MRF convs fake-quantized (``quant_w``: weights; ``act_mode``
-    with ``calib[i]``: conv i's input) in the flat conv order of K3.  With
-    ``record`` it appends each MRF conv input's statistics (amax, rms,
-    99.9th percentile of |x|, per-channel amax) and quantizes nothing."""
+    with ``calib[i]``: conv i's input) in the flat conv order of K3, in
+    every stage or in ``stages``.  With ``record`` it appends each MRF conv
+    input's statistics (amax, rms, 99.9th percentile of |x|, per-channel
+    amax) and quantizes nothing."""
     cfg = gen.cfg
     n = len(cfg.resblock_kernel_sizes)
     counter = [0]
+    stage = [0]
 
     def mrf_conv(x, conv, dilation):
         if record is not None:
@@ -110,6 +115,8 @@ def generator_walk(gen, mel: torch.Tensor, *, quant_w: bool = False, act_mode: s
             record.append({"amax": float(a.max()), "rms": float(torch.sqrt(torch.mean(x * x))),
                            "p999": float(torch.quantile(a.flatten(), 0.999)),
                            "per_channel": a.amax(dim=(0, 2))})
+            y = _conv(x, conv, dilation)
+        elif stages is not None and stage[0] not in stages:
             y = _conv(x, conv, dilation)
         else:
             if calib is not None:
@@ -120,6 +127,7 @@ def generator_walk(gen, mel: torch.Tensor, *, quant_w: bool = False, act_mode: s
 
     x = _conv(mel.float().transpose(1, 2), gen.conv_pre)
     for i, (ups, u) in enumerate(zip(gen.ups, cfg.upsample_rates)):
+        stage[0] = i
         x = conv_transpose_same(F.leaky_relu(x, LRELU_SLOPE), ups.weight.float(), ups.bias.float(), u)
         acc = None
         for rb in gen.resblocks[i * n:(i + 1) * n]:
@@ -187,7 +195,7 @@ def run(
     """The decomposition on the held-out clip, calibrated on the first
     corpus clip; written to ``out``/``int8_diagnosis.json`` (none when
     None)."""
-    from viettts_tpu_torch.models.hifigan import generator_apply_fused
+    from viettts_tpu_torch.models.hifigan import UNQUANTIZED, generator_apply_fused, int8_rungs
 
     device = resolve_device(device)
     gen = load_trained_generator(ckpt, cfg, device)
@@ -215,12 +223,23 @@ def run(
         random_record: List[dict] = []
         generator_walk(random_generator(cfg, device), cal_mel, record=random_record)
         f32 = gen(eval_mel).cpu()
+        # the route quantizes the stages whose tile geometry the TPU kernel
+        # takes at this clip's length (JAX's fallback leaves the others
+        # unquantized): the simulation that the route is held to does too
+        rungs = int8_rungs(gen.fused_weights(torch.bfloat16, quantize_int8=True), eval_mel.shape[1],
+                           torch.bfloat16, cfg.hifigan.resblock_kernel_sizes, cfg.hifigan.resblock_dilation_sizes)
+        quantized = [i for i, r in enumerate(rungs) if r != UNQUANTIZED]
+        sim = results["full_static_per_conv"]
+        if len(quantized) < len(rungs):
+            sim = rel_rms(generator_walk(gen, eval_mel, calib=calib, stages=quantized,
+                                         **VARIANTS["full_static_per_conv"]).cpu(), ref)
+            print(f"the route quantizes stages {quantized} at {eval_mel.shape[1]} frames: its simulation "
+                  f"{sim:.4%}", flush=True)
     with torch.no_grad():
         scales = stage_scales(gen, calib)
         kernel = generator_apply_fused(gen, eval_mel, torch.bfloat16, quantize_int8=True, act_scales=scales).cpu()
         bf16 = generator_apply_fused(gen, eval_mel, torch.bfloat16).cpu()
     measured, bf16_err = rel_rms(kernel, f32), rel_rms(bf16, f32)
-    sim = results["full_static_per_conv"]
     gap = measured - sim
     fault = abs(gap) > 0.25 * sim + bf16_err + 1e-3
     print(f"{'K3' if device.type == 'cuda' else 'plain twin'} static route rel-RMS vs f32: {measured:.4%} "
@@ -233,6 +252,8 @@ def run(
         "rel_rms_vs_f32": results,
         "kernel_route": "K3 (csrc/mrf_int8.cu)" if device.type == "cuda" else "plain twin (CPU)",
         "kernel_measured_static": measured,
+        "quantized_stages": quantized,
+        "route_simulation": sim,
         "bf16_route_rel_rms_vs_f32": bf16_err,
         "kernel_minus_simulation": gap,
         "kernel_fault": bool(fault),

@@ -14,7 +14,7 @@ each serving route against the plain float32 generator
 * the static int8 route (kernel K3), calibrated as ``Synthesizer.
   calibrate_int8`` does: per-conv amaxes maxed over 4 calibration clips,
   disjoint from the evaluation clips, widened by ``--margin``;
-* the dynamic int8 route (K3, per-row activation scales).
+* the dynamic int8 route (K3, activation scales per tile window, as JAX's).
 
 For each evaluation clip (the never-trained seed-12345 probe, then the last
 ``n_eval - 1`` corpus clips) it reports the waveform rel-RMS and max abs
