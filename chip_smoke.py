@@ -19,7 +19,10 @@
    kernel's geometry, each stage's count of windows a row printed),
    with the int8 codes that the two sides' float64 prologue sums flip, and
    per stage the prologue alone, the int8 MRF convs alone and bf16 K2 on
-   the same inputs), K1 also under the plan of a 114-SM card (the H100
+   the same inputs; then stage 0 at 127 and 1,001 frames, where the TPU
+   kernel refuses it and JAX runs XLA convs in bf16: ``xla_stage``, plain
+   torch, no kernel launched, bit for bit the CPU's at 127, timed beside
+   bf16 K2's and K3's stage), K1 also under the plan of a 114-SM card (the H100
    PCIe: 103 CTAs of 5 units, forced with ``ar_decode(num_sms=114)``; B=1
    and B=4, 512 frames, against the twin and bitwise run to run, its time
    beside this card's own plan), and K1 at the decoder widths whose
@@ -200,6 +203,7 @@ K2_F32 = dict(rtol=1e-5, atol=1e-4)
 K2_BF16_REL = 0.02  # of max(|reference|, 1), the bar of tests/test_mrf.py
 K2_BF16_DOTS_REL_RMS = 1e-3  # bf16 kernel vs the twin with bf16-rounded dot operands
 MAIN_PATH_FRAMES = 158  # mel frames of SENTENCE at B=1 on the main path (2.53 s of audio)
+REFUSED_FRAMES = (127, 1001)  # odd counts: the TPU kernel refuses the int8 route's stage 0 (F9, F10)
 BULK = (64, 768)  # (B, mel frames): bench.vocoder_batch's largest batch at its frame count
 K3_REL_RMS = 1e-3
 K3_MAX_REL = 0.02  # of max(|reference|, 1)
@@ -708,6 +712,59 @@ def check_fused_mrf_int8(dev, cfg, cases=((2, 128), (2, 100), (1, MAIN_PATH_FRAM
             f"prologues {total['prologue_ms']:.3f} ms, MRF convs {total['mrf_ms']:.3f} ms; "
             f"bf16 K2 {total['bf16_ms']:.3f} ms")
     return worst, times
+
+
+def check_xla_stage(dev, cfg, frames=REFUSED_FRAMES):
+    """The int8 route's stage 0 at frame counts where the TPU kernel refuses
+    its tile geometry (odd counts): JAX's generator runs it as XLA convs in
+    bf16, the port as ``models.hifigan.xla_stage`` (plain torch, float64
+    sums, no kernel).  At B=1 and each count: the rung (from
+    ``int8_rungs``), no kernel launch while it runs, its output at the
+    first count bit for bit the CPU's, and its time beside bf16 K2's fused
+    stage and K3's dynamic stage on the same input and weights."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.models.hifigan import XLA_STAGE, int8_rungs, xla_stage
+    from viettts_tpu_torch.ops.mrf import _dense, fused_mrf, prepare_mrf_weights
+    from viettts_tpu_torch.utils.flops import stage_shapes
+
+    rng = np.random.default_rng(5)
+    ks, ds = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes
+    bf16 = torch.bfloat16
+    out = {}
+    for T in frames:
+        C_in, C, k_u, u, L_in, post = stage_shapes(cfg, T)[0]
+        w32, ups32, pst32 = stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, False, torch.float32)
+        wb, ub, pb = prepare_mrf_weights(w32, ups32, pst32, bf16)
+        w8, u8, p8 = prepare_mrf_weights(w32, ups32, pst32, bf16, quantize_int8=True)
+        rung = int8_rungs([(w8, u8, p8)], T, bf16, ks, ds)[0]
+        if rung != XLA_STAGE:
+            raise AssertionError(f"stage 0 at {T} frames takes the {rung} rung, not {XLA_STAGE}")
+        x = torch.from_numpy(seeded(rng, 1, L_in, C_in)).to(dev, bf16)
+        before = (fused_mrf.launches, fused_mrf.int8_launches, fused_mrf.conv_launches, fused_mrf.plain_calls)
+        y = xla_stage(x, wb, ub, pb, ks, ds, bf16)
+        torch.cuda.synchronize()
+        after = (fused_mrf.launches, fused_mrf.int8_launches, fused_mrf.conv_launches, fused_mrf.plain_calls)
+        if after != before or not bool(torch.isfinite(y).all()) or tuple(y.shape) != (1, L_in * u, C):
+            raise AssertionError(f"xla_stage at {T} frames: counters {before} -> {after}, shape {tuple(y.shape)}")
+        row = {"ms": time_ms(lambda: xla_stage(x, wb, ub, pb, ks, ds, bf16)),
+               "k2_bf16_ms": time_ms(lambda: fused_mrf(x, wb, ks, ds, upsample=ub, post=pb, compute_dtype=bf16)),
+               "k3_dynamic_ms": time_ms(lambda: fused_mrf(x, w8, ks, ds, upsample=u8, post=p8, compute_dtype=bf16,
+                                                           quantize_int8=True))}
+        if T == frames[0]:
+            cpu = [tuple(None if t is None else _dense(t).cpu() for t in blk) for blk in w32]
+            wc, uc, pc = prepare_mrf_weights(cpu, (_dense(ups32[0]).cpu(), ups32[1].cpu(), u), None, bf16)
+            row["bitwise_cpu"] = torch.equal(y.cpu(), xla_stage(x.cpu(), wc, uc, pc, ks, ds, bf16))
+            if not row["bitwise_cpu"]:
+                raise AssertionError(f"xla_stage at {T} frames: the card's output is not the CPU's")
+        out[T] = row
+        log(f"refused int8 stage 0 at B=1, {T} frames ([1,{L_in},{C_in}] -> [1,{L_in * u},{C}]): xla_stage "
+            f"{row['ms']:.3f} ms (float64 sums, no kernel launched"
+            + (", bit for bit the CPU's" if "bitwise_cpu" in row else "")
+            + f"); in its place bf16 K2's fused stage {row['k2_bf16_ms']:.3f} ms, "
+            f"K3's dynamic stage {row['k3_dynamic_ms']:.3f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2425,6 +2482,7 @@ def main() -> int:
     log(f"K1 at the wide decoder widths: {time.perf_counter() - t0:.1f} s")
     k2_err, k2_times = check_fused_mrf(dev, cfg.hifigan)
     k3, k3_times = check_fused_mrf_int8(dev, cfg.hifigan)
+    refused = check_xla_stage(dev, cfg.hifigan)
     t0 = time.perf_counter()
     bulk = check_bulk(dev, cfg.hifigan)
     log(f"bulk shape phase: {time.perf_counter() - t0:.1f} s")
@@ -2591,6 +2649,7 @@ def main() -> int:
                   "cudnn_bf16_ms": bulk["bfloat16"]["library_ms"]},
          "stages": {f"B={B} T={T}": {key: [r[key] for r in rows] for key in rows[0]}
                     for (B, T), rows in k3_times.items()},
+         "refused_stage_0": {f"B=1 T={T}": row for T, row in refused.items()},
          "shape": "4 default stages summed, B=2, 128 mel frames (_b1: B=1, "
                   f"{MAIN_PATH_FRAMES} frames), ResBlock1, bf16 storage; ms static scales"},
     ]

@@ -14,9 +14,12 @@ dynamic int8, where the package runs it on the TPU kernel's tile windows,
 each stage's windows a row and the time that copies of them would take
 alone (the twin's way, ``mrf.by_windows``; the wgmma pipeline runs every
 window at once without them).
-``--digests FILE`` writes each stage output's SHA-256, or, where FILE
-exists, says which outputs are bit for bit the saved ones (another
-checkout's).  Prints the card's name and power limit, then one JSON line.
+``--digests FILE`` writes each stage output's SHA-256, and that of the
+whole generator (``generator_apply_fused`` on ``chip_smoke.py``'s seeded
+weights, at the same batch and frames, each route: the stages' rungs on
+the int8 route printed), or, where FILE exists, says which outputs are bit
+for bit the saved ones (another checkout's).  Prints the card's name and
+power limit, then one JSON line.
 
 ``--pipelines`` times instead, for each route, the MRF convs alone of each
 stage on the pipeline that takes it (or would: ``--routes``) and on the
@@ -123,21 +126,63 @@ def main(argv=None) -> int:
         if route == "int8_dynamic" and hasattr(mrf, "dynamic_windows"):
             result[route].update(window_copies(args, stages, ks, ds, stages_ms))
         if args.digests:
-            result[route]["sha256"] = [hashlib.sha256(fused_mrf(inp, w, ks, ds, **kw).cpu().view(torch.uint8)
-                                                      .numpy().tobytes()).hexdigest() for inp, w, kw in stages]
+            result[route]["sha256"] = [digest(fused_mrf(inp, w, ks, ds, **kw)) for inp, w, kw in stages]
     if args.digests:
+        for route, d in generator_digests(args, wanted, dev, rng).items():
+            result[route]["sha256"].append(d)  # after the 4 stages' digests
         path = Path(args.digests)
         if path.exists():
             saved = json.loads(path.read_text())
             same = {route: [a == b for a, b in zip(saved[route], result[route]["sha256"])]
                     for route in wanted if route in saved and route in result}
             result["same_bits_as_saved"] = same
-            print(f"stage outputs bit for bit those of {saved['package']}: {same}", flush=True)
+            print(f"the 4 stage outputs, then the generator's, bit for bit those of {saved['package']}: {same}",
+                  flush=True)
         else:
             path.write_text(json.dumps({"package": result["package"],
                                         **{r: result[r]["sha256"] for r in wanted if r in result}}))
     print(json.dumps(result), flush=True)
     return 0
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    import torch
+
+    return hashlib.sha256(t.cpu().flatten().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def generator_digests(args, routes, dev, rng) -> dict:
+    """SHA-256 of ``generator_apply_fused``'s waveform on each route, at
+    ``--batch`` and ``--frames``, on ``chip_smoke.py``'s seeded generator
+    weights and a seeded mel; int8 static calibrated on that mel."""
+    import torch
+
+    import chip_smoke
+    from viettts_tpu_torch.checkpoint import load_generator
+    from viettts_tpu_torch.config import Config
+    from viettts_tpu_torch.models import hifigan
+
+    cfg = Config()
+    gen = hifigan.Generator(cfg.hifigan).eval()
+    load_generator(gen, chip_smoke.seeded_variables(cfg)["hifigan"])
+    gen = gen.to(dev)
+    mel = torch.from_numpy(chip_smoke.seeded(rng, args.batch, args.frames, cfg.hifigan.mel_dim)).to(dev)
+    h = cfg.hifigan
+    rungs = hifigan.int8_rungs(gen.fused_weights(torch.bfloat16, quantize_int8=True), args.frames, torch.bfloat16,
+                               h.resblock_kernel_sizes, h.resblock_dilation_sizes)
+    print(f"generator at B={args.batch} x {args.frames} frames: int8 rungs {rungs}", flush=True)
+    out = {}
+    with torch.no_grad():
+        calls = {"bfloat16": lambda: hifigan.generator_apply_fused(gen, mel, torch.bfloat16),
+                 "float32": lambda: hifigan.generator_apply_fused(gen, mel),
+                 "int8": lambda: hifigan.generator_apply_fused(
+                     gen, mel, torch.bfloat16, quantize_int8=True,
+                     act_scales=hifigan.generator_calibrate_int8(gen, mel)),
+                 "int8_dynamic": lambda: hifigan.generator_apply_fused(gen, mel, torch.bfloat16, quantize_int8=True)}
+        for route in routes:
+            out[route] = digest(calls[route]())
+    return out
 
 
 def window_copies(args, stages, ks, ds, stages_ms) -> dict:

@@ -143,7 +143,7 @@ def _port_files():
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_synthesis.py",
         REPO / "scripts" / "probe_conv_pipeline.py", REPO / "scripts" / "stream_first_audio.py",
         REPO / "scripts" / "profile_torch_training.py", REPO / "scripts" / "time_vocoder_stages.py",
-        REPO / "scripts" / "time_ar_decode.py",
+        REPO / "scripts" / "time_ar_decode.py", REPO / "scripts" / "time_xla_stage.py",
     ]
 
 

@@ -865,34 +865,52 @@ def test_dynamic_stage_with_prologue_and_post_on_tile_windows(cuda):
 
 def test_odd_frames_leave_stage_0_unquantized(cuda):
     """At 127 mel frames the TPU kernel refuses stage 0's tile (1,016 rows,
-    not 16-row aligned) and JAX's generator runs it unquantized: the port
-    runs it on K2's bf16 route, with a K2 launch and no K3 launch, and
-    stages 1-3 on K3."""
+    not 16-row aligned) and JAX's generator runs that stage as XLA convs in
+    bf16: the port runs it as ``xla_stage`` (plain torch, float64 sums),
+    with no K2 or K3 launch, bit for bit its output on the CPU; stages 1-3
+    run on K3."""
     from viettts_tpu_torch.config import Config
     from viettts_tpu_torch.models import hifigan
 
     torch.manual_seed(0)
-    gen = hifigan.Generator(Config().hifigan).to(cuda).eval()
+    cfg = Config().hifigan
+    gen = hifigan.Generator(cfg).to(cuda).eval()
     mel = torch.randn(1, 127, 80, device=cuda)
-    stages = []
-    real = hifigan.fused_mrf
+    stages, xla = [], []
+    real, real_xla = hifigan.fused_mrf, hifigan.xla_stage
+
+    def counts():
+        return mrf.fused_mrf.launches, mrf.fused_mrf.int8_launches
 
     def spy(*args, **kwargs):
-        before = (mrf.fused_mrf.launches, mrf.fused_mrf.int8_launches)
+        before = counts()
         out = real(*args, **kwargs)
-        stages.append((kwargs["quantize_int8"], mrf.fused_mrf.launches - before[0],
-                       mrf.fused_mrf.int8_launches - before[1]))
+        stages.append((kwargs["quantize_int8"], counts()[0] - before[0], counts()[1] - before[1]))
         return out
 
-    hifigan.fused_mrf = spy
+    def xla_spy(x, *args, **kwargs):
+        before = counts()
+        out = real_xla(x, *args, **kwargs)
+        xla.append((x, out, counts()[0] - before[0], counts()[1] - before[1]))
+        return out
+
+    hifigan.fused_mrf, hifigan.xla_stage = spy, xla_spy
     try:
         with torch.no_grad():
             wave = hifigan.generator_apply_fused(gen, mel, torch.bfloat16, quantize_int8=True)
     finally:
-        hifigan.fused_mrf = real
+        hifigan.fused_mrf, hifigan.xla_stage = real, real_xla
     torch.cuda.synchronize()
-    assert stages == [(False, 1, 0)] + [(True, 1, 1)] * 3
+    assert stages == [(True, 1, 1)] * 3
+    assert [launches[2:] for launches in xla] == [(0, 0)]
     assert wave.shape == (1, 127 * 256, 1) and bool(torch.isfinite(wave).all())
+    x, out = xla[0][:2]
+    cpu = hifigan.Generator(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()})
+    with torch.no_grad():
+        want = real_xla(x.cpu(), *cpu.fused_weights(torch.bfloat16)[0], cfg.resblock_kernel_sizes,
+                        cfg.resblock_dilation_sizes, torch.bfloat16)
+    assert out.shape == (1, 127 * 8, 256) and torch.equal(out.cpu(), want)
 
 
 def test_conv_wgmma_tf32_operands_are_the_split(cuda):

@@ -14,10 +14,12 @@ Where the kernel refuses a stage's tile geometry, JAX's generator catches
 the ``ValueError`` and runs that stage on XLA instead
 (``viettts_tpu/models/hifigan.py:763-822``): the ConvTranspose on XLA and
 the fused MRF, or, where that call refuses too, plain convs in the compute
-dtype, unquantized.  On the tiny config every stage refuses at 17 mel
-frames and stage 0 alone at 20.
+dtype, unquantized (the port's ``xla_stage``).  On the tiny config every
+stage refuses at 17 and 41 mel frames, stage 0 alone at 20 (ResBlock1)
+and 40 (ResBlock2).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -277,68 +279,122 @@ def test_tile_geometry_is_jax_fused_mrf(frames):
         L_in *= u
 
 
-def test_every_stage_refused_is_the_bf16_route(monkeypatch):
-    """At 17 frames JAX refuses every stage of the tiny config on the int8
-    route and runs its bf16 program; the port's int8 output is its bf16
-    output bit for bit, within the bf16 bar of JAX's int8 output."""
-    cfg = _hifigan_cfg()
-    _, variables, port, mel = _generator(cfg, seed=8, T=17)
-    stages = port.fused_weights(torch.bfloat16, quantize_int8=True)
-    rungs = hifigan.int8_rungs(stages, 17, torch.bfloat16, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
-    assert rungs == [hifigan.UNQUANTIZED] * 4
-    want = np.asarray(jax_apply_fused(cfg, variables["params"], jnp.asarray(mel), compute_dtype=jnp.bfloat16,
-                                      interpret=True, quantize_int8=True))
-    seen = []
-    real = mrf.fused_mrf_plain
+@contextlib.contextmanager
+def _exact_xla_sums():
+    """JAX's XLA convs and ConvTransposes with exact sums: each runs in
+    float64 (``jax.enable_x64``) and rounds to float32, then to the compute
+    dtype, where XLA sums in float32 in an order of its own.  The port's
+    ``xla_stage`` rounds exact sums so; with plain XLA the two sides part
+    where a float32 sum lies within its rounding error of a bf16 midpoint
+    (one output of 5,120 in the first conv of the 20-frame case), and the
+    int8 codes of the stages after amplify that."""
 
-    def spy(*args, **kwargs):
-        seen.append(kwargs["quantize_int8"])
-        return real(*args, **kwargs)
+    def exact(fn):
+        def call(lhs, rhs, *args, preferred_element_type=None, **kwargs):
+            with jax.enable_x64(True):
+                y = fn(lhs.astype(jnp.float64), rhs.astype(jnp.float64), *args,
+                       preferred_element_type=jnp.float64, **kwargs).astype(jnp.float32)
+            return y.astype(preferred_element_type or lhs.dtype)
 
-    monkeypatch.setattr(mrf, "fused_mrf_plain", spy)
-    with torch.no_grad():
-        got = hifigan.generator_apply_fused(port, torch.from_numpy(mel), torch.bfloat16, quantize_int8=True)
-        bf16 = hifigan.generator_apply_fused(port, torch.from_numpy(mel), torch.bfloat16)
-    assert seen == [False] * 8
-    assert torch.equal(got, bf16)
-    err = np.abs(got.numpy() - want).max()
-    print(f"17 frames: max abs {err:.3e}, rel-RMS {_rel_rms(got.numpy(), want):.2e} against JAX's int8 route")
-    assert err <= 0.02
+        return call
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax.lax, "conv_general_dilated", exact(jax.lax.conv_general_dilated))
+        m.setattr(jax.lax, "conv_transpose", exact(jax.lax.conv_transpose))
+        yield
 
 
-def test_refused_stage_0_runs_unquantized(monkeypatch):
-    """At 20 frames JAX refuses stage 0 alone: the port runs it on the bf16
-    route, bit for bit the bf16 route's stage on the same input, and
-    quantizes stages 1-3; the waveform stays within the bf16 bar of
-    JAX's."""
-    cfg = _hifigan_cfg()
-    _, variables, port, mel = _generator(cfg, seed=8, T=20)
-    stages = port.fused_weights(torch.bfloat16, quantize_int8=True)
-    rungs = hifigan.int8_rungs(stages, 20, torch.bfloat16, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
-    assert rungs == [hifigan.UNQUANTIZED] + [hifigan.FUSED] * 3
-    want = np.asarray(jax_apply_fused(cfg, variables["params"], jnp.asarray(mel), compute_dtype=jnp.bfloat16,
-                                      interpret=True, quantize_int8=True))
-    seen, stage_io = [], []
-    real = mrf.fused_mrf_plain
+def _jax_int8(cfg, variables, mel, exact=False):
+    """JAX's int8 generator (dynamic scales, bf16, interpret mode) and the
+    input of each ``fused_mrf`` call that ran (a refused call raises before
+    it is recorded): the first is the output of the stages before it."""
+    inputs, jax_fused = [], jax_mrf.fused_mrf
 
     def spy(x, *args, **kwargs):
-        seen.append(kwargs["quantize_int8"])
-        out = real(x, *args, **kwargs)
-        stage_io.append((x, out))
+        out = jax_fused(x, *args, **kwargs)
+        inputs.append(np.asarray(x.astype(jnp.float32)))
         return out
 
-    monkeypatch.setattr(mrf, "fused_mrf_plain", spy)
+    with pytest.MonkeyPatch.context() as m, (_exact_xla_sums() if exact else contextlib.nullcontext()):
+        m.setattr(jax_mrf, "fused_mrf", spy)
+        want = np.asarray(jax_apply_fused(cfg, variables["params"], jnp.asarray(mel), compute_dtype=jnp.bfloat16,
+                                          interpret=True, quantize_int8=True))
+    return want, inputs
+
+
+def _port_int8(port, mel, monkeypatch):
+    """The port's int8 generator, with the ``quantize_int8`` of each twin
+    call and the output of each ``xla_stage``."""
+    quantized, xla_out = [], []
+    twin, xla_stage = mrf.fused_mrf_plain, hifigan.xla_stage
+
+    def twin_spy(*args, **kwargs):
+        quantized.append(kwargs["quantize_int8"])
+        return twin(*args, **kwargs)
+
+    def xla_spy(*args, **kwargs):
+        out = xla_stage(*args, **kwargs)
+        xla_out.append(out.float().numpy())
+        return out
+
+    monkeypatch.setattr(mrf, "fused_mrf_plain", twin_spy)
+    monkeypatch.setattr(hifigan, "xla_stage", xla_spy)
     with torch.no_grad():
         got = hifigan.generator_apply_fused(port, torch.from_numpy(mel), torch.bfloat16, quantize_int8=True).numpy()
-    assert seen == [False, True, True, True]
-    weights, upsample, post = port.fused_weights(torch.bfloat16)[0]
-    x0, y0 = stage_io[0]
-    bf16_stage = real(x0, weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes, upsample=upsample,
-                      post=post, compute_dtype=torch.bfloat16)
-    assert torch.equal(y0, bf16_stage)
-    err = np.abs(got - want).max()
-    print(f"20 frames: max abs {err:.3e}, rel-RMS {_rel_rms(got, want):.2e} against JAX's int8 route")
-    assert err <= 0.02
+    return got, quantized, xla_out
+
+
+@pytest.mark.parametrize("frames", [17, 41])
+def test_every_stage_refused_is_the_bf16_route(monkeypatch, frames):
+    """At 17 and 41 frames JAX refuses every stage of the tiny config on the
+    int8 route and runs each as XLA convs in bf16 (its unquantized XLA
+    program, not its bf16 route's fused stages); the port runs
+    ``xla_stage`` four times and no twin or kernel.  Within the int8 bar of
+    JAX's output, and, with exact sums on both sides, within 1e-6 (the
+    float32 tanh)."""
+    cfg = _hifigan_cfg()
+    _, variables, port, mel = _generator(cfg, seed=8, T=frames)
+    stages = port.fused_weights(torch.bfloat16, quantize_int8=True)
+    rungs = hifigan.int8_rungs(stages, frames, torch.bfloat16, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+    assert rungs == [hifigan.XLA_STAGE] * 4
+    got, quantized, xla_out = _port_int8(port, mel, monkeypatch)
+    assert quantized == [] and len(xla_out) == 4
+    want, inputs = _jax_int8(cfg, variables, mel)
+    assert inputs == []
+    print(f"{frames} frames: max abs {np.abs(got - want).max():.3e}, rel-RMS {_rel_rms(got, want):.2e} "
+          "against JAX's int8 route")
+    _assert_int8_close(got, want)
+    exact, _ = _jax_int8(cfg, variables, mel, exact=True)
+    assert np.abs(got - exact).max() <= 1e-6
+
+
+@pytest.mark.parametrize("resblock, frames", [("1", 20), ("2", 40)])
+def test_refused_stage_0_runs_unquantized(monkeypatch, resblock, frames):
+    """At 20 frames (ResBlock1) and 40 (ResBlock2) JAX refuses stage 0
+    alone: the port runs it as JAX's XLA stage (``xla_stage``, no twin or
+    kernel) and quantizes stages 1-3.  The waveform is within the int8 bar
+    of JAX's.  Stage 0's output, against the input of JAX's first fused
+    call: within 1e-3 rel-RMS (midpoint flips of XLA's float32 sums, one
+    bf16 ulp each; K2's stage in its place was 5e-3 off), and bit for bit
+    JAX's with exact sums on both sides, where the waveform is within 1e-5
+    rel-RMS."""
+    cfg = _hifigan_cfg(resblock)
+    _, variables, port, mel = _generator(cfg, seed=8, T=frames)
+    stages = port.fused_weights(torch.bfloat16, quantize_int8=True)
+    rungs = hifigan.int8_rungs(stages, frames, torch.bfloat16, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+    assert rungs == [hifigan.XLA_STAGE] + [hifigan.FUSED] * 3
+    got, quantized, xla_out = _port_int8(port, mel, monkeypatch)
+    assert quantized == [True] * 3 and len(xla_out) == 1
+    want, inputs = _jax_int8(cfg, variables, mel)
+    assert len(inputs) == 3 and inputs[0].shape == xla_out[0].shape
+    stage_rel = _rel_rms(xla_out[0], inputs[0])
+    print(f"{frames} frames, resblock {resblock}: max abs {np.abs(got - want).max():.3e}, rel-RMS "
+          f"{_rel_rms(got, want):.2e} against JAX's int8 route; stage 0 {stage_rel:.2e}")
+    _assert_int8_close(got, want)
+    assert stage_rel <= 1e-3
+    exact, exact_inputs = _jax_int8(cfg, variables, mel, exact=True)
+    np.testing.assert_array_equal(xla_out[0], exact_inputs[0])
+    assert _rel_rms(got, exact) <= 1e-5
 
 
 def test_xla_prologue_rung_matches_jax():

@@ -13,7 +13,9 @@ bias adds and activations in it, ``tanh`` in float32).
 ``generator_apply_fused`` is the serving path: every stage, ConvTranspose
 prologue included and the tail fused into the last one, goes through
 ``fused_mrf`` (kernel K2 on CUDA), with float32 or bfloat16 storage, and
-on the int8 route with its MRF convs in kernel K3.
+on the int8 route with its MRF convs in kernel K3, but for the stages
+whose tile geometry the TPU kernel refuses, which take JAX's fallbacks
+(``int8_rungs``; ``xla_stage``: JAX's XLA stage in plain torch).
 ``generator_calibrate_int8`` and ``generator_int8_clip_stats`` walk the
 plain float32 generator for the int8 route's static activation scales and
 its clip-rate probe.
@@ -189,18 +191,24 @@ class Generator(nn.Module):
         return stages
 
 
-# The rungs of JAX's fallback on the int8 route, a stage each
-# (viettts_tpu/models/hifigan.py::_generator_apply_fused_one): its fused
-# call with the ConvTranspose prologue; the prologue as an XLA
-# ConvTranspose, then the fused call without it; plain XLA convs in the
-# compute dtype, unquantized, where both calls refuse their tile geometry.
-FUSED, XLA_PROLOGUE, UNQUANTIZED = "fused", "xla_prologue", "unquantized"
+# The rungs of JAX's ladder on the int8 route, a stage each
+# (viettts_tpu/models/hifigan.py:733-818), from the TPU kernel's refusals:
+# FUSED, its fused call with the ConvTranspose prologue (:735-758);
+# XLA_PROLOGUE, the prologue as an XLA ConvTranspose (:769-778), then the
+# fused call without it (:779-804); XLA_STAGE, where that call refuses too,
+# the whole stage on XLA in the compute dtype, unquantized (``xla_mrf``,
+# :671-694, called at :816; on the last stage the tail, :819-823).
+FUSED, XLA_PROLOGUE, XLA_STAGE = "fused", "xla_prologue", "xla_stage"
 
 
 def int8_rungs(stages, frames: int, store, kernel_sizes, dilations) -> List[str]:
     """JAX's rung of each stage (``fused_weights``' stages) on the int8 route
     for mels of ``frames`` frames in storage ``store``, from the TPU
-    kernel's refusals (``ops.mrf.jax_tile_geometry``)."""
+    kernel's refusals (``ops.mrf.jax_tile_geometry``): ``FUSED`` runs the
+    stage through ``fused_mrf`` with its prologue (K3 on the card),
+    ``XLA_PROLOGUE`` runs ``_xla_upsample`` and then ``fused_mrf`` without
+    the prologue (K3), ``XLA_STAGE`` runs ``xla_stage`` (plain torch, no
+    kernel)."""
     rungs, L_in = [], frames
     for weights, upsample, post in stages:
         k_u, C_in, C = _dense(upsample[0]).shape
@@ -212,19 +220,71 @@ def int8_rungs(stages, frames: int, store, kernel_sizes, dilations) -> List[str]
         elif jax_tile_geometry(L_in * u, C, C, *args, **kw).error is None:
             rungs.append(XLA_PROLOGUE)
         else:
-            rungs.append(UNQUANTIZED)
+            rungs.append(XLA_STAGE)
         L_in *= u
     return rungs
 
 
+def _lrelu_in(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu`` in ``x``'s dtype: the slope rounded to that
+    dtype, as a weakly typed scalar is, and the product rounded to it (one
+    rounding of an exact float32 product)."""
+    return F.leaky_relu(x, torch.tensor(slope, dtype=x.dtype).item())
+
+
+def _xla_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int, store) -> torch.Tensor:
+    """The ``conv`` of JAX's XLA fallback (viettts_tpu/models/hifigan.py:657-668)
+    on x [B, C_in, L] in ``store``, a JAX-layout weight (W, I, O): the SAME
+    conv of the weight rounded to ``store``, its sums rounded to ``store``,
+    then the bias added in ``store``.  The sums run in float64 and round
+    once to float32, as ``conv_pre`` and ``_xla_upsample`` do: exact
+    products, so every device rounds them to the same ``store`` values.
+    The conv is one float64 matrix product over the taps' shifted copies
+    of x (cuDNN's float64 convs took twice as long on the H100)."""
+    k, c_in, c_out = w.shape
+    p, L = d * (k - 1) // 2, x.shape[-1]
+    xp = F.pad(x, (p, p)).double()
+    cols = torch.cat([xp[:, :, t * d:t * d + L] for t in range(k)], dim=1)  # [B, k * C_in, L], tap-major
+    y = torch.matmul(w.to(store).double().reshape(k * c_in, c_out).t(), cols).float().to(store)
+    return y + b.to(store)[None, :, None]
+
+
+def xla_stage(x: torch.Tensor, weights, upsample, post, kernel_sizes, dilations, store) -> torch.Tensor:
+    """JAX's XLA fallback for a stage the TPU kernel refuses (the
+    ``XLA_STAGE`` rung), plain torch on ``x``'s device: ``_xla_upsample``,
+    then ``xla_mrf`` (viettts_tpu/models/hifigan.py:671-694) with every
+    leaky_relu, conv, bias, residual add, the resblocks' sum and its
+    division rounded to ``store``, and on the last stage the tail
+    (:819-823): leaky_relu 0.01 and conv_post in ``store``, tanh in
+    float32.  ``x`` [B, L_in, C_in] in ``store`` and a stage of the
+    unquantized ``fused_weights`` -> [B, L, C] in ``store``, or the
+    float32 waveform [B, L, 1]."""
+    h = _xla_upsample(x, upsample, store).transpose(1, 2)  # [B, C, L]
+    acc = None
+    for (w1, b1, w2, b2), dils in zip(weights, dilations):
+        r = h
+        for j, d in enumerate(dils):
+            y = _xla_conv(_lrelu_in(r, LRELU_SLOPE), _dense(w1)[j], b1[j], d, store)
+            if w2 is not None:
+                y = _xla_conv(_lrelu_in(y, LRELU_SLOPE), _dense(w2)[j], b2[j], 1, store)
+            r = y + r
+        acc = r if acc is None else acc + r
+    h = acc / len(kernel_sizes)  # exact or never near a tie, however the device divides
+    if post is None:
+        return h.transpose(1, 2).contiguous()
+    w_p, b_p = post
+    y = _xla_conv(_lrelu_in(h, POST_LRELU_SLOPE), w_p, b_p, 1, store)
+    return torch.tanh(y.float()).transpose(1, 2).contiguous()
+
+
 def _xla_upsample(x: torch.Tensor, upsample, store) -> torch.Tensor:
-    """JAX's XLA prologue of the ``XLA_PROLOGUE`` rung: leaky_relu in the
-    storage dtype (its slope rounded to it, as a weakly typed scalar is),
-    the ConvTranspose rounded to it, then the bias added in it; [B, L_in,
-    C_in] -> [B, L_in * u, C] in ``store``.  The sums run in float64 and
-    round once to float32, as the int8 route's conv_pre does."""
+    """JAX's XLA prologue of the ``XLA_PROLOGUE`` and ``XLA_STAGE`` rungs
+    (viettts_tpu/models/hifigan.py:767-778): leaky_relu in the storage
+    dtype, the ConvTranspose rounded to it, then the bias added in it;
+    [B, L_in, C_in] -> [B, L_in * u, C] in ``store``.  The sums run in
+    float64 and round once to float32, as the int8 route's conv_pre does."""
     w_t, b_t, u = upsample
-    a = torch.where(x > 0, x, x * torch.tensor(LRELU_SLOPE, dtype=x.dtype, device=x.device))
+    a = _lrelu_in(x, LRELU_SLOPE)
     zero = torch.zeros(b_t.shape[0], dtype=torch.float64, device=x.device)
     h = conv_transpose_same(a.transpose(1, 2).double(), convt_weight_to_torch(_dense(w_t).double()), zero, u)
     h = h.float().to(store).float() + b_t.to(store).float()[None, :, None]
@@ -244,11 +304,13 @@ def generator_apply_fused(
     inter-stage activations in bfloat16; arithmetic stays float32.
     conv_pre is a plain torch conv (it is outside the TPU kernel too).
     ``quantize_int8`` runs the stages' MRF convs in int8 (K3) wherever the
-    JAX int8 route quantizes them: a stage whose tile geometry the TPU
-    kernel refuses takes JAX's fallback (``int8_rungs``), and where every
-    stage does, the route is the unquantized one; ``act_scales``
-    ``{stage: [n_convs]}`` (``generator_calibrate_int8``) selects static
-    activation scales, else they are dynamic (one a tile window).
+    JAX int8 route quantizes them.  A stage whose tile geometry the TPU
+    kernel refuses takes JAX's fallback (``int8_rungs``): the
+    ConvTranspose prologue on XLA (``_xla_upsample``) before the quantized
+    MRF, or, where the MRF call refuses too, JAX's XLA stage in the
+    storage dtype (``xla_stage``, no kernel).  ``act_scales`` ``{stage:
+    [n_convs]}`` (``generator_calibrate_int8``) selects static activation
+    scales, else they are dynamic (one a tile window).
     """
     cfg = gen.cfg
     store = storage_dtype(compute_dtype)
@@ -256,8 +318,6 @@ def generator_apply_fused(
     rungs = [FUSED] * len(stages)
     if quantize_int8:
         rungs = int8_rungs(stages, mel.shape[1], store, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
-        if all(r == UNQUANTIZED for r in rungs):  # JAX's int8 program is then its unquantized one
-            return generator_apply_fused(gen, mel, compute_dtype)
     # as JAX's conv_pre: the conv rounds to the storage dtype, then the
     # bias is added in it (one bf16 rounding less moves the int8 route's
     # codes, and its waveform by ~1% rel-RMS).  On the int8 route the sums
@@ -270,15 +330,16 @@ def generator_apply_fused(
     x = x.to(store).float() + gen.conv_pre.bias.to(store).float()[None, :, None]
     x = x.transpose(1, 2).contiguous().to(store)
     for i, (weights, upsample, post) in enumerate(stages):
-        quantize = quantize_int8 and rungs[i] != UNQUANTIZED
-        if rungs[i] == UNQUANTIZED:  # K2 on the storage dtype's route
-            weights, upsample, post = gen.fused_weights(compute_dtype)[i]
-        elif rungs[i] == XLA_PROLOGUE:
+        if rungs[i] == XLA_STAGE:  # the float weights of the storage dtype's route
+            x = xla_stage(x, *gen.fused_weights(compute_dtype)[i], cfg.resblock_kernel_sizes,
+                          cfg.resblock_dilation_sizes, store)
+            continue
+        if rungs[i] == XLA_PROLOGUE:
             x, upsample = _xla_upsample(x, upsample, store), None
         x = fused_mrf(
             x, weights, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
             upsample=upsample, post=post, compute_dtype=compute_dtype,
-            quantize_int8=quantize, act_scales=(act_scales or {}).get(i) if quantize else None,
+            quantize_int8=quantize_int8, act_scales=(act_scales or {}).get(i) if quantize_int8 else None,
         )
     return x
 

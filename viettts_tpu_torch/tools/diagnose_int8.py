@@ -24,7 +24,9 @@ on the card, its plain twin on the CPU) with the same scales against the
 plain float32 generator on the same clip, and reports the gap to the full
 simulation of the stages the route quantizes at the clip's length (where
 the TPU kernel refuses a stage's tile geometry, JAX's route, and so the
-port's, leaves it unquantized: ``models/hifigan.py::int8_rungs``).  The route also stores bf16 between stages, so the gap is
+port's, runs it as XLA convs in bf16, unquantized:
+``models/hifigan.py::int8_rungs``, ``xla_stage``; the simulation runs
+those stages so too).  The route also stores bf16 between stages, so the gap is
 judged against the bf16 route's own error: a gap beyond
 ``0.25 * simulation + bf16 error + 1e-3`` is reported as a kernel fault.
 
@@ -101,9 +103,13 @@ def generator_walk(gen, mel: torch.Tensor, *, quant_w: bool = False, act_mode: s
     """The plain float32 generator on ``mel`` [B, T, n_mels] -> [B, T*256, 1],
     with its MRF convs fake-quantized (``quant_w``: weights; ``act_mode``
     with ``calib[i]``: conv i's input) in the flat conv order of K3, in
-    every stage or in ``stages``.  With ``record`` it appends each MRF conv
-    input's statistics (amax, rms, 99.9th percentile of |x|, per-channel
-    amax) and quantizes nothing."""
+    every stage or in ``stages``, the stages the int8 route quantizes: the
+    others run as that route runs them, JAX's XLA stage in bf16
+    (``models.hifigan.xla_stage``).  With ``record`` it appends each MRF
+    conv input's statistics (amax, rms, 99.9th percentile of |x|,
+    per-channel amax) and quantizes nothing."""
+    from viettts_tpu_torch.models.hifigan import xla_stage
+
     cfg = gen.cfg
     n = len(cfg.resblock_kernel_sizes)
     counter = [0]
@@ -128,6 +134,16 @@ def generator_walk(gen, mel: torch.Tensor, *, quant_w: bool = False, act_mode: s
     x = _conv(mel.float().transpose(1, 2), gen.conv_pre)
     for i, (ups, u) in enumerate(zip(gen.ups, cfg.upsample_rates)):
         stage[0] = i
+        if stages is not None and i not in stages:
+            bf16 = torch.bfloat16
+            y = xla_stage(x.transpose(1, 2).to(bf16).contiguous(), *gen.fused_weights(bf16)[i],
+                          cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes, bf16)
+            counter[0] += sum(len(rb.dilations) * (1 if rb.convs2 is None else 2)
+                              for rb in gen.resblocks[i * n:(i + 1) * n])
+            if i == len(cfg.upsample_rates) - 1:
+                return y
+            x = y.float().transpose(1, 2)
+            continue
         x = conv_transpose_same(F.leaky_relu(x, LRELU_SLOPE), ups.weight.float(), ups.bias.float(), u)
         acc = None
         for rb in gen.resblocks[i * n:(i + 1) * n]:
@@ -195,7 +211,7 @@ def run(
     """The decomposition on the held-out clip, calibrated on the first
     corpus clip; written to ``out``/``int8_diagnosis.json`` (none when
     None)."""
-    from viettts_tpu_torch.models.hifigan import UNQUANTIZED, generator_apply_fused, int8_rungs
+    from viettts_tpu_torch.models.hifigan import XLA_STAGE, generator_apply_fused, int8_rungs
 
     device = resolve_device(device)
     gen = load_trained_generator(ckpt, cfg, device)
@@ -224,11 +240,11 @@ def run(
         generator_walk(random_generator(cfg, device), cal_mel, record=random_record)
         f32 = gen(eval_mel).cpu()
         # the route quantizes the stages whose tile geometry the TPU kernel
-        # takes at this clip's length (JAX's fallback leaves the others
-        # unquantized): the simulation that the route is held to does too
+        # takes at this clip's length (JAX's fallback runs the others as
+        # XLA convs in bf16): the simulation that the route is held to does too
         rungs = int8_rungs(gen.fused_weights(torch.bfloat16, quantize_int8=True), eval_mel.shape[1],
                            torch.bfloat16, cfg.hifigan.resblock_kernel_sizes, cfg.hifigan.resblock_dilation_sizes)
-        quantized = [i for i, r in enumerate(rungs) if r != UNQUANTIZED]
+        quantized = [i for i, r in enumerate(rungs) if r != XLA_STAGE]
         sim = results["full_static_per_conv"]
         if len(quantized) < len(rungs):
             sim = rel_rms(generator_walk(gen, eval_mel, calib=calib, stages=quantized,
