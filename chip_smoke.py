@@ -1218,24 +1218,26 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
     from viettts_tpu_torch.infer.pipeline import Synthesizer
     from viettts_tpu_torch.ops.ar_decoder import ar_decode
     from viettts_tpu_torch.ops.mrf import fused_mrf
+    from viettts_tpu_torch.utils import profiling
 
     out = {}
     for route in ("bfloat16", "float32", "int8"):
         synth = Synthesizer(apply_overrides(cfg.replace(ckpt_dir=ckpt_dir), [f"hifigan.inference_dtype={route}"]),
                             device=device)
-        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         synth.warmup()
-        warmup_s = time.perf_counter() - t0
+        warmup_s = 1e-9 * (time.perf_counter_ns() - t0_ns)
         want = [b for b in synth.token_buckets if b <= synth.single_dispatch_max_tokens]
         if sorted(synth.lead_graphs) != want:
             raise AssertionError(f"lead program ({route}): warmup captured buckets {sorted(synth.lead_graphs)}, "
                                  f"want {want}")
-        capture_s = {T: g.capture_s for T, g in sorted(synth.lead_graphs.items())}
+        captures = dict(sorted((sp.attrs["token_bucket"], 1e-9 * (sp.end - sp.start)) for sp in profiling.spans()
+                               if sp.name == "lead.capture" and sp.start >= t0_ns))
         pool = graph_pool_bytes(synth)
         log(f"lead program ({route}): warmup {warmup_s:.2f} s; eager run + capture per token bucket "
-            + ", ".join(f"{T}: {v:.3f} s" for T, v in capture_s.items())
+            + ", ".join(f"{T}: {v:.3f} s" for T, v in captures.items())
             + f"; graph pool {'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}")
-        stats = {"warmup_s": warmup_s, "capture_s": capture_s, "pool_bytes": pool,
+        stats = {"warmup_s": warmup_s, "captures": captures, "pool_bytes": pool,
                  "replay_vs_eager": lead_replay_vs_eager(synth)}
         zero()
         for _ in range(LEAD_COUNTED):
@@ -2456,6 +2458,7 @@ def main() -> int:
     from viettts_tpu_torch.ops import _build
     from viettts_tpu_torch.ops.ar_decoder import ar_decode
     from viettts_tpu_torch.ops.mrf import fused_mrf
+    from viettts_tpu_torch.utils import profiling
     from viettts_tpu_torch.utils.flops import device_peaks, mrf_bound, mrf_flop, stage_shapes
 
     smi = subprocess.run(
@@ -2466,7 +2469,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_library()
-    built = "found built" if _build.build_seconds is None else f"nvcc build {_build.build_seconds:.1f} s"
+    lib = [sp for sp in profiling.spans() if sp.name == "setup.library"][-1]
+    built = f"nvcc build {1e-9 * (lib.end - lib.start):.1f} s" if lib.attrs["built"] else "found built"
     log(f"kernel library {_build.library_path().name}: {built}, ready in {time.perf_counter() - t0:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -63,6 +63,16 @@ steps above 8 for each of ``silence_durations``).  The buckets are kept
 per padded global (B, T), as JAX keys them under a mesh; ``stream``'s
 chunks key by (device count, T), as JAX replicates a chunk over the mesh.
 
+Each stage of a call is a span of ``utils.profiling`` (recorded only
+under ``profiling.recording()`` or a ``torch.profiler`` session): a root
+``synth.batch``, ``synth.single`` or a stream's ``synth.chunk``, and under
+it ``synth.tokens``, ``synth.durations`` (its read-back
+``synth.durations.fetch``), ``synth.dispatch`` (``synth.decode``,
+``synth.vocode``, ``synth.copy``), ``synth.finalize`` (``synth.wait``) and
+``synth.lead`` (``lead.inputs``, ``lead.replay``, ``lead.fetch``; on the
+CPU ``lead.program``); set-up and lead-graph capture always record
+(``setup.*``, ``lead.capture``).
+
 Not ported: the scan-decode batch gate (the port has no scan decode: K1
 runs every batch, in launches of up to 64 rows, and plans every decoder
 width: where its float32 gate columns outgrow the card's shared memory,
@@ -82,7 +92,6 @@ import contextlib
 import copy
 import dataclasses
 import threading
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -108,6 +117,7 @@ from viettts_tpu_torch.ops.ar_decoder import ar_decode
 from viettts_tpu_torch.ops.mrf import fused_mrf
 from viettts_tpu_torch.text import load_lexicon, normalize_text, text_to_tokens
 from viettts_tpu_torch.types import DurationBatch
+from viettts_tpu_torch.utils.profiling import always_span, new_trace, span
 
 DEFAULT_TOKEN_BUCKETS = (32, 64, 128, 192, 256, 384, 512)
 FRAME_BUCKET = 128  # frames are padded to a multiple of this
@@ -217,15 +227,15 @@ def _add_counters(counts: Sequence[int]) -> None:
 class LeadGraph:
     """The lead program of one token bucket captured as a CUDA graph: its
     static inputs, the outputs each replay overwrites, the launches each
-    replay makes (``_COUNTERS`` order), the int8 scales it reads (kept
-    alive with it) and the seconds its eager run and capture took."""
+    replay makes (``_COUNTERS`` order) and the int8 scales it reads (kept
+    alive with it).  The ``lead.capture`` span times its eager run and
+    capture."""
 
     graph: torch.cuda.CUDAGraph
     inputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # tokens [1, T], lengths [1], sil_dur []
     outputs: Tuple[torch.Tensor, ...]  # wave [1, S], mel [1, F, mel_dim], durations [1, T], total [1]
     launches: List[int]
     act_scales: Optional[Dict[int, torch.Tensor]]
-    capture_s: float
 
 
 class Synthesizer:
@@ -249,68 +259,74 @@ class Synthesizer:
         device: Optional[str | torch.device] = None,
         devices: Optional[Sequence[str | torch.device]] = None,
     ):
-        if (device is None) == (devices is None) or (devices is not None and not devices):
-            raise TypeError("pass device= (one device) or a non-empty devices= (one replica each)")
-        self.devices = [torch.device(d) for d in (devices if devices is not None else [device])]
-        self.device = self.devices[0]  # the duration model's, and synthesize()'s and stream()'s
-        for d in self.devices:
-            if d.type == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError(f"device {d} requested but CUDA is not available")
-        dtype = cfg.hifigan.inference_dtype
-        if dtype not in ("float32", "bfloat16", "bf16", "int8"):
-            raise ValueError(f"unknown hifigan.inference_dtype {dtype!r}")
-        self.vocoder_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
-        self.vocoder_quant = dtype == "int8"
-        # static int8 activation scales {stage: [n_convs]}, set by
-        # calibrate_int8(); None means dynamic scales
-        self._act_scales: Optional[Dict[int, torch.Tensor]] = None
-        self.last_clip_stats: Optional[dict] = None
-        self.cfg = cfg
+        with always_span("setup.synthesizer", "host"):
+            if (device is None) == (devices is None) or (devices is not None and not devices):
+                raise TypeError("pass device= (one device) or a non-empty devices= (one replica each)")
+            self.devices = [torch.device(d) for d in (devices if devices is not None else [device])]
+            self.device = self.devices[0]  # the duration model's, and synthesize()'s and stream()'s
+            for d in self.devices:
+                if d.type == "cuda" and not torch.cuda.is_available():
+                    raise RuntimeError(f"device {d} requested but CUDA is not available")
+            dtype = cfg.hifigan.inference_dtype
+            if dtype not in ("float32", "bfloat16", "bf16", "int8"):
+                raise ValueError(f"unknown hifigan.inference_dtype {dtype!r}")
+            self.vocoder_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+            self.vocoder_quant = dtype == "int8"
+            # static int8 activation scales {stage: [n_convs]}, set by
+            # calibrate_int8(); None means dynamic scales
+            self._act_scales: Optional[Dict[int, torch.Tensor]] = None
+            self.last_clip_stats: Optional[dict] = None
+            self.cfg = cfg
 
-        ckpt_dir = Path(cfg.ckpt_dir)
-        duration_ckpt = duration_ckpt or ckpt_dir / "duration_latest_ckpt.pickle"
-        acoustic_ckpt = acoustic_ckpt or ckpt_dir / "acoustic_latest_ckpt.pickle"
-        if hifigan_ckpt is None:
-            for cand in (
-                ckpt_dir / "hifigan_latest_ckpt.pickle",
-                Path(cfg.hifigan_ckpt_dir) / "hk_hifi.pickle",
-                ckpt_dir / "hk_hifi.pickle",
-            ):
-                if cand.exists():
-                    hifigan_ckpt = cand
-                    break
-        if hifigan_ckpt is None:
-            raise FileNotFoundError("no HiFi-GAN checkpoint found; pass hifigan_ckpt=")
+            ckpt_dir = Path(cfg.ckpt_dir)
+            duration_ckpt = duration_ckpt or ckpt_dir / "duration_latest_ckpt.pickle"
+            acoustic_ckpt = acoustic_ckpt or ckpt_dir / "acoustic_latest_ckpt.pickle"
+            if hifigan_ckpt is None:
+                for cand in (
+                    ckpt_dir / "hifigan_latest_ckpt.pickle",
+                    Path(cfg.hifigan_ckpt_dir) / "hk_hifi.pickle",
+                    ckpt_dir / "hk_hifi.pickle",
+                ):
+                    if cand.exists():
+                        hifigan_ckpt = cand
+                        break
+            if hifigan_ckpt is None:
+                raise FileNotFoundError("no HiFi-GAN checkpoint found; pass hifigan_ckpt=")
 
-        self.duration_model = DurationModel(cfg.duration)
-        load_duration(self.duration_model, load_variables(duration_ckpt, "duration"))
-        acoustic = AcousticModel(cfg.acoustic)
-        load_acoustic(acoustic, load_variables(acoustic_ckpt, "acoustic"))
-        generator = Generator(cfg.hifigan)
-        load_generator(generator, load_variables(hifigan_ckpt, "hifigan"))
-        self.acoustic_models = [acoustic] + [copy.deepcopy(acoustic) for _ in self.devices[1:]]
-        self.generators = [generator] + [copy.deepcopy(generator) for _ in self.devices[1:]]
-        self.duration_model.to(self.device).eval().requires_grad_(False)
-        for models in (self.acoustic_models, self.generators):
-            for model, d in zip(models, self.devices):
-                model.to(d).eval().requires_grad_(False)
-        self.acoustic_model, self.generator = acoustic, generator
+            variables = {}
+            for kind, path in (("duration", duration_ckpt), ("acoustic", acoustic_ckpt), ("hifigan", hifigan_ckpt)):
+                with always_span("setup.checkpoint", "host", kind=kind):
+                    variables[kind] = load_variables(path, kind)
+            with always_span("setup.models", "host"):
+                self.duration_model = DurationModel(cfg.duration)
+                load_duration(self.duration_model, variables.pop("duration"))
+                acoustic = AcousticModel(cfg.acoustic)
+                load_acoustic(acoustic, variables.pop("acoustic"))
+                generator = Generator(cfg.hifigan)
+                load_generator(generator, variables.pop("hifigan"))
+                self.acoustic_models = [acoustic] + [copy.deepcopy(acoustic) for _ in self.devices[1:]]
+                self.generators = [generator] + [copy.deepcopy(generator) for _ in self.devices[1:]]
+                self.duration_model.to(self.device).eval().requires_grad_(False)
+                for models in (self.acoustic_models, self.generators):
+                    for model, d in zip(models, self.devices):
+                        model.to(d).eval().requires_grad_(False)
+                self.acoustic_model, self.generator = acoustic, generator
 
-        self.lexicon = load_lexicon(lexicon_file) if lexicon_file is not None else None
-        self.token_buckets = tuple(token_buckets)
-        self.prenet_seed = prenet_seed
-        self._prenet_gens = [torch.Generator(device=d) for d in self.devices]
-        # the lead program: its prenet keep masks per frame budget, and on
-        # CUDA its graphs per token bucket, their memory pool and the lock
-        # that serializes capture, replay and the copy of a replay's outputs
-        self._lead_keeps: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self.lead_graphs: Dict[int, LeadGraph] = {}
-        self._graph_pool = None
-        self._lead_lock = threading.Lock()
-        # the frame buckets that have run per padded (rows, token bucket)
-        # shape, filled by warmup() and by every bucketed dispatch; a
-        # dispatch snaps up to one of them (_frame_bucket)
-        self._seen_nf: Dict[Tuple[int, int], set] = {}
+            self.lexicon = load_lexicon(lexicon_file) if lexicon_file is not None else None
+            self.token_buckets = tuple(token_buckets)
+            self.prenet_seed = prenet_seed
+            self._prenet_gens = [torch.Generator(device=d) for d in self.devices]
+            # the lead program: its prenet keep masks per frame budget, and on
+            # CUDA its graphs per token bucket, their memory pool and the lock
+            # that serializes capture, replay and the copy of a replay's outputs
+            self._lead_keeps: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+            self.lead_graphs: Dict[int, LeadGraph] = {}
+            self._graph_pool = None
+            self._lead_lock = threading.Lock()
+            # the frame buckets that have run per padded (rows, token bucket)
+            # shape, filled by warmup() and by every bucketed dispatch; a
+            # dispatch snaps up to one of them (_frame_bucket)
+            self._seen_nf: Dict[Tuple[int, int], set] = {}
 
     # Default calibration set (the JAX package's): a greeting, a long
     # multi-clause sentence, a short exclamation and digit-heavy text, so
@@ -418,27 +434,28 @@ class Synthesizer:
         every token bucket of at most ``lead_tokens`` tokens (default:
         ``single_dispatch_max_tokens``, and none on the CPU, as JAX skips
         them on its CPU backend), which on CUDA captures each bucket's
-        graph (``lead_graphs``)."""
-        if self.vocoder_quant and self._act_scales is None:
-            self.calibrate_int8()
-        fps = self.cfg.dsp.sample_rate / self.cfg.dsp.hop_length
-        n_dev = len(self.devices)
-        sizes = list(dict.fromkeys(-(-b // n_dev) * n_dev for b in batch_sizes))
-        buckets = tuple(token_buckets or self.token_buckets)
-        for b in sizes:
-            for tb in buckets:
-                rows = [[SIL_INDEX] * tb] * b
-                toks, lengths, _ = self._durations_for(rows, -1.0)
-                for nf in frame_buckets or _warmup_frame_buckets(tb, silence_durations, fps):
-                    dur_s = np.full(toks.shape, nf / tb / fps, np.float32)
-                    self._finalize_shards(self._dispatch_shards(rows, toks, lengths, dur_s, int(nf)))
-                    self._seen_nf.setdefault(toks.shape, set()).add(int(nf))
-        if lead_tokens is None:
-            lead_tokens = 0 if self.device.type == "cpu" else self.single_dispatch_max_tokens
-        if lead_tokens and 1 in batch_sizes:
-            for tb in buckets:
-                if tb <= lead_tokens:
-                    self._synthesize_single_fused([SIL_INDEX] * max(tb - 1, 1), -1.0)
+        graph (``lead_graphs``).  The ``setup.warmup`` span times it."""
+        with always_span("setup.warmup", "host"):
+            if self.vocoder_quant and self._act_scales is None:
+                self.calibrate_int8()
+            fps = self.cfg.dsp.sample_rate / self.cfg.dsp.hop_length
+            n_dev = len(self.devices)
+            sizes = list(dict.fromkeys(-(-b // n_dev) * n_dev for b in batch_sizes))
+            buckets = tuple(token_buckets or self.token_buckets)
+            for b in sizes:
+                for tb in buckets:
+                    rows = [[SIL_INDEX] * tb] * b
+                    toks, lengths, _ = self._durations_for(rows, -1.0)
+                    for nf in frame_buckets or _warmup_frame_buckets(tb, silence_durations, fps):
+                        dur_s = np.full(toks.shape, nf / tb / fps, np.float32)
+                        self._finalize_shards(self._dispatch_shards(rows, toks, lengths, dur_s, int(nf)))
+                        self._seen_nf.setdefault(toks.shape, set()).add(int(nf))
+            if lead_tokens is None:
+                lead_tokens = 0 if self.device.type == "cpu" else self.single_dispatch_max_tokens
+            if lead_tokens and 1 in batch_sizes:
+                for tb in buckets:
+                    if tb <= lead_tokens:
+                        self._synthesize_single_fused([SIL_INDEX] * max(tb - 1, 1), -1.0)
 
     def text_to_token_ids(self, text: str) -> List[int]:
         return text_to_tokens(normalize_text(text), self.lexicon)
@@ -471,28 +488,33 @@ class Synthesizer:
         self, token_rows: List[List[int]], silence_duration: float
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Predict + postprocess durations.  Returns (padded token ids
-        [B, T], lengths [B], durations-in-seconds [B, T])."""
-        B = len(token_rows)
-        T = _bucket_tokens(max(len(r) for r in token_rows), self.token_buckets)
-        toks = np.zeros((B, T), np.int32)
-        lengths = np.zeros((B,), np.int32)
-        for i, row in enumerate(token_rows):
-            toks[i, : len(row)] = row
-            lengths[i] = len(row)
-        batch = DurationBatch(
-            torch.as_tensor(toks, dtype=torch.long, device=self.device),
-            torch.as_tensor(lengths, dtype=torch.long, device=self.device),
-            None,
-        )
-        durations = self.duration_model(batch).cpu().numpy()
-        # clamp silences, zero word-end markers and padding
-        if silence_duration >= 0:
-            durations = np.where(
-                toks == SIL_INDEX, np.clip(durations, silence_duration, None), durations
+        [B, T], lengths [B], durations-in-seconds [B, T]).  Spans:
+        ``synth.durations``, and inside it ``synth.durations.fetch``, the
+        read-back that blocks on the device and the postprocessing."""
+        with span("synth.durations", "issue"):
+            B = len(token_rows)
+            T = _bucket_tokens(max(len(r) for r in token_rows), self.token_buckets)
+            toks = np.zeros((B, T), np.int32)
+            lengths = np.zeros((B,), np.int32)
+            for i, row in enumerate(token_rows):
+                toks[i, : len(row)] = row
+                lengths[i] = len(row)
+            batch = DurationBatch(
+                torch.as_tensor(toks, dtype=torch.long, device=self.device),
+                torch.as_tensor(lengths, dtype=torch.long, device=self.device),
+                None,
             )
-        durations = np.where(toks == WORD_END_INDEX, 0.0, durations)
-        mask = np.arange(T)[None, :] < lengths[:, None]
-        durations = np.where(mask, durations, 0.0).astype(np.float32)
+            durations = self.duration_model(batch)
+            with span("synth.durations.fetch", "wait"):
+                durations = durations.cpu().numpy()
+                # clamp silences, zero word-end markers and padding
+                if silence_duration >= 0:
+                    durations = np.where(
+                        toks == SIL_INDEX, np.clip(durations, silence_duration, None), durations
+                    )
+                durations = np.where(toks == WORD_END_INDEX, 0.0, durations)
+                mask = np.arange(T)[None, :] < lengths[:, None]
+                durations = np.where(mask, durations, 0.0).astype(np.float32)
         return toks, lengths, durations
 
     def synthesize(self, text: str, silence_duration: float = -1.0) -> SynthesisResult:
@@ -500,21 +522,24 @@ class Synthesizer:
         ``single_dispatch_max_tokens`` tokens takes the lead program (the
         bucketed path when its frame budget overflows).  Inputs longer than
         ``cfg.data.max_phoneme_seq_len`` tokens are split at silence
-        boundaries, synthesized as one padded batch, and concatenated."""
-        tokens = self.text_to_token_ids(text)
-        max_tokens = self.cfg.data.max_phoneme_seq_len
-        if len(tokens) <= max_tokens:
-            if len(tokens) <= self.single_dispatch_max_tokens:
-                res = self._synthesize_single_fused(tokens, silence_duration)
-                if res is not None:
-                    return res
-            return self._synthesize_rows([tokens], silence_duration)[0]
-        parts = self._synthesize_rows(_chunk_token_rows(tokens, max_tokens), silence_duration)
-        return SynthesisResult(
-            wave=np.concatenate([p.wave for p in parts]),
-            mel=np.concatenate([p.mel for p in parts], axis=0),
-            durations=np.concatenate([p.durations for p in parts]),
-        )
+        boundaries, synthesized as one padded batch, and concatenated.
+        Root span: ``synth.single``."""
+        with span("synth.single", "host"):
+            with span("synth.tokens", "host"):
+                tokens = self.text_to_token_ids(text)
+            max_tokens = self.cfg.data.max_phoneme_seq_len
+            if len(tokens) <= max_tokens:
+                if len(tokens) <= self.single_dispatch_max_tokens:
+                    res = self._synthesize_single_fused(tokens, silence_duration)
+                    if res is not None:
+                        return res
+                return self._synthesize_rows([tokens], silence_duration)[0]
+            parts = self._synthesize_rows(_chunk_token_rows(tokens, max_tokens), silence_duration)
+            return SynthesisResult(
+                wave=np.concatenate([p.wave for p in parts]),
+                mel=np.concatenate([p.mel for p in parts], axis=0),
+                durations=np.concatenate([p.durations for p in parts]),
+            )
 
     @torch.inference_mode()
     def stream(self, text: str, silence_duration: float = -1.0, lead_tokens: int = 64):
@@ -536,19 +561,14 @@ class Synthesizer:
         waves equal ``synthesize(text)`` where both split the text alike
         and take the same path (texts of up to ``lead_tokens`` tokens, or
         at most ``max_phoneme_seq_len`` tokens a chunk on the bucketed
-        path)."""
-        tokens = self.text_to_token_ids(text)
-        rows = _chunk_token_rows(
-            tokens, self.cfg.data.max_phoneme_seq_len, first_chunk_tokens=lead_tokens or None
-        )
-        if lead_tokens and len(rows[0]) <= self.single_dispatch_max_tokens:
-            lead = self._synthesize_single_fused(rows[0], silence_duration)
-            if lead is not None:
-                yield lead
-                rows = rows[1:]
-                if not rows:
-                    return
-        toks, lengths, dur_s = self._durations_for(rows, silence_duration)
+        path).
+
+        The work before each yield is one root span, ``synth.chunk`` (attr
+        ``chunk``, the index of the chunk it yields), all of a stream's
+        under one trace id; no span stays open across a yield."""
+        trace = new_trace()
+        toks = lengths = dur_s = None
+        handles: Dict[int, tuple] = {}
 
         def dispatch(i):
             # the encoder and durations of a row do not depend on padding
@@ -556,15 +576,37 @@ class Synthesizer:
             t = _bucket_tokens(len(rows[i]), self.token_buckets)
             return self._dispatch([rows[i]], toks[i : i + 1, :t], lengths[i : i + 1], dur_s[i : i + 1, :t])
 
-        yield self._finalize(dispatch(0))[0]
-        pending = None
-        for i in range(1, len(rows)):
-            handle = dispatch(i)
-            if pending is not None:
-                yield self._finalize(pending)[0]
-            pending = handle
-        if pending is not None:
-            yield self._finalize(pending)[0]
+        def bucketed(j):
+            # chunk j of the bucketed rows: at j = 0 the durations of them
+            # all, then its own dispatch alone; from j = 1 on, chunk j + 1
+            # is queued on the device before chunk j is fetched
+            nonlocal toks, lengths, dur_s
+            if j == 0:
+                toks, lengths, dur_s = self._durations_for(rows, silence_duration)
+            for i in (j,) if j == 0 else (j, j + 1):
+                if i < len(rows) and i not in handles:
+                    handles[i] = dispatch(i)
+            return self._finalize(handles.pop(j))[0]
+
+        with span("synth.chunk", "host", trace, chunk=0):
+            with span("synth.tokens", "host"):
+                tokens = self.text_to_token_ids(text)
+                rows = _chunk_token_rows(
+                    tokens, self.cfg.data.max_phoneme_seq_len, first_chunk_tokens=lead_tokens or None
+                )
+            first = None
+            if lead_tokens and len(rows[0]) <= self.single_dispatch_max_tokens:
+                first = self._synthesize_single_fused(rows[0], silence_duration)
+            led = first is not None
+            if led:
+                rows = rows[1:]
+            else:
+                first = bucketed(0)
+        yield first
+        for j in range(0 if led else 1, len(rows)):
+            with span("synth.chunk", "host", trace, chunk=j + led):
+                res = bucketed(j)
+            yield res
 
     @torch.inference_mode()
     def synthesize_batch(
@@ -575,20 +617,23 @@ class Synthesizer:
         JAX pipeline, then to a multiple of the device count, and those
         rows are dropped from the results.  With several devices each
         takes an equal shard of the rows.  One short text takes the lead
-        program on the first device, as in ``synthesize``."""
-        token_rows = [self.text_to_token_ids(t) for t in texts]
-        n = len(token_rows)
-        if n == 1 and len(token_rows[0]) <= self.single_dispatch_max_tokens:
-            res = self._synthesize_single_fused(token_rows[0], silence_duration)
-            if res is not None:
-                return [res]
-        bucket = 1
-        while bucket < n:
-            bucket *= 2
-        bucket = -(-bucket // len(self.devices)) * len(self.devices)
-        token_rows = token_rows + [[SIL_INDEX]] * (bucket - n)
-        toks, lengths, dur_s = self._durations_for(token_rows, silence_duration)
-        return self._finalize_shards(self._dispatch_shards(token_rows, toks, lengths, dur_s))[:n]
+        program on the first device, as in ``synthesize``.  Root span:
+        ``synth.batch``."""
+        with span("synth.batch", "host"):
+            with span("synth.tokens", "host"):
+                token_rows = [self.text_to_token_ids(t) for t in texts]
+            n = len(token_rows)
+            if n == 1 and len(token_rows[0]) <= self.single_dispatch_max_tokens:
+                res = self._synthesize_single_fused(token_rows[0], silence_duration)
+                if res is not None:
+                    return [res]
+            bucket = 1
+            while bucket < n:
+                bucket *= 2
+            bucket = -(-bucket // len(self.devices)) * len(self.devices)
+            token_rows = token_rows + [[SIL_INDEX]] * (bucket - n)
+            toks, lengths, dur_s = self._durations_for(token_rows, silence_duration)
+            return self._finalize_shards(self._dispatch_shards(token_rows, toks, lengths, dur_s))[:n]
 
     @torch.inference_mode()
     def _synthesize_rows(
@@ -645,39 +690,46 @@ class Synthesizer:
         the int8 scales change), after one eager run of the program on the
         same inputs that prepares every kernel outside the capture.  The
         lock covers capture, replay and the copies: the next replay
-        overwrites the outputs."""
+        overwrites the outputs.  Spans: ``lead.inputs`` (pinned, then
+        copied to the graph's inputs), ``lead.replay`` (``graph.replay()``
+        alone) and ``lead.fetch`` (the copies out and the wait for them)."""
         with self._lead_lock, _device_scope(self.device):
             lead = self.lead_graphs.get(T)
             if lead is None or lead.act_scales is not self._act_scales:
                 lead = self.lead_graphs[T] = self._capture_lead(n_frames, host_inputs)
-            for static, host in zip(lead.inputs, host_inputs):
-                static.copy_(host, non_blocking=True)
-            lead.graph.replay()
+            with span("lead.inputs", "issue"):
+                pinned = [t.pin_memory() for t in host_inputs]
+                for static, host in zip(lead.inputs, pinned):
+                    static.copy_(host, non_blocking=True)
+            with span("lead.replay", "issue"):
+                lead.graph.replay()
             _add_counters(lead.launches)
-            outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-                    for t in lead.outputs]
-            event = torch.cuda.Event()
-            event.record()
-            event.synchronize()
+            with span("lead.fetch", "wait"):
+                outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                        for t in lead.outputs]
+                event = torch.cuda.Event()
+                event.record()
+                event.synchronize()
         return outs
 
     def _capture_lead(self, n_frames: int, host_inputs: Sequence[torch.Tensor]) -> LeadGraph:
         """Capture the lead program for ``n_frames`` frames into a new CUDA
         graph in the shared pool; its launches are taken off the counters
         (a capture launches nothing) and added back by each replay.  A
-        failed capture raises."""
-        t0 = time.perf_counter()
-        inputs = tuple(h.to(self.device) for h in host_inputs)
-        self._lead_program(*inputs, n_frames)  # prepares K1, K2/K3 opt-ins, cuBLAS and cuDNN
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = _read_counters()
-        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
-            outputs = self._lead_program(*inputs, n_frames)
-        launches = [a - b for a, b in zip(_read_counters(), before)]
-        _add_counters([-n for n in launches])
-        return LeadGraph(graph, inputs, outputs, launches, self._act_scales, time.perf_counter() - t0)
+        failed capture raises.  The ``lead.capture`` span, always recorded,
+        times the eager run and the capture."""
+        with always_span("lead.capture", "host", token_bucket=host_inputs[0].shape[1]):
+            inputs = tuple(h.to(self.device) for h in host_inputs)
+            self._lead_program(*inputs, n_frames)  # prepares K1, K2/K3 opt-ins, cuBLAS and cuDNN
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = _read_counters()
+            with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+                outputs = self._lead_program(*inputs, n_frames)
+            launches = [a - b for a, b in zip(_read_counters(), before)]
+            _add_counters([-n for n in launches])
+        return LeadGraph(graph, inputs, outputs, launches, self._act_scales)
 
     @torch.inference_mode()
     def _synthesize_single_fused(self, row: List[int], silence_duration: float) -> Optional[SynthesisResult]:
@@ -687,22 +739,26 @@ class Synthesizer:
         end.  Returns None when the predicted frame total overflows that
         budget, and on the CPU unless both ``acoustic.fused_decode`` and
         ``hifigan.fused_inference`` are off (JAX's CPU gate); the caller
-        then takes the bucketed path."""
+        then takes the bucketed path.  Span: ``synth.lead``; on the CPU
+        ``lead.program`` inside it times the eager program."""
         if self.device.type == "cpu" and (self.cfg.acoustic.fused_decode or self.cfg.hifigan.fused_inference):
             return None
         T = _bucket_tokens(len(row), self.token_buckets)
         n_frames = _bucket_frames(T * LEAD_FRAMES_PER_TOKEN)
-        toks = torch.zeros(1, T, dtype=torch.long)
-        toks[0, : len(row)] = torch.as_tensor(row, dtype=torch.long)
-        inputs = (toks, torch.tensor([len(row)], dtype=torch.long), torch.tensor(silence_duration, dtype=torch.float32))
-        if self.device.type == "cuda":
-            wave, mel, durs, total = self._lead_replay(T, n_frames, [t.pin_memory() for t in inputs])
-        else:
-            wave, mel, durs, total = self._lead_program(*(t.to(self.device) for t in inputs), n_frames)
-        total = total.numpy()
-        if float(total[0]) + 1 > n_frames:
-            return None
-        return self._finalize(([row], mel, wave, durs.numpy(), total, None))[0]
+        with span("synth.lead", "host"):
+            toks = torch.zeros(1, T, dtype=torch.long)
+            toks[0, : len(row)] = torch.as_tensor(row, dtype=torch.long)
+            inputs = (toks, torch.tensor([len(row)], dtype=torch.long),
+                      torch.tensor(silence_duration, dtype=torch.float32))
+            if self.device.type == "cuda":
+                wave, mel, durs, total = self._lead_replay(T, n_frames, inputs)
+            else:
+                with span("lead.program", "issue"):
+                    wave, mel, durs, total = self._lead_program(*(t.to(self.device) for t in inputs), n_frames)
+            total = total.numpy()
+            if float(total[0]) + 1 > n_frames:
+                return None
+            return self._finalize(([row], mel, wave, durs.numpy(), total, None))[0]
 
     def _frames(self, dur_s: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
         """Durations (seconds) -> (frames, each row's frame total, the
@@ -765,21 +821,26 @@ class Synthesizer:
         without waiting for them; ``_finalize`` waits.  ``n_frames``
         defaults to ``_frame_bucket`` of the rows.  On CUDA the copies go
         to pinned memory and an event on the replica's device marks their
-        end."""
+        end.  Span: ``synth.dispatch``, and inside it ``synth.decode``,
+        ``synth.vocode`` and ``synth.copy``."""
         device = self.devices[replica]
-        if n_frames is None:
-            n_frames = self._frame_bucket(toks.shape, dur_s)
-        with _device_scope(device):
-            mels, total_frames = self._decode(toks, lengths, dur_s, replica, n_frames, seed)
-            waves = self._vocode(mels, replica)[..., 0]
-            event = None
-            if device.type == "cuda":
-                mels, waves = (
-                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-                    for t in (mels, waves)
-                )
-                event = torch.cuda.Event()
-                event.record()
+        with span("synth.dispatch", "host"):
+            if n_frames is None:
+                n_frames = self._frame_bucket(toks.shape, dur_s)
+            with _device_scope(device):
+                with span("synth.decode", "issue"):
+                    mels, total_frames = self._decode(toks, lengths, dur_s, replica, n_frames, seed)
+                with span("synth.vocode", "issue"):
+                    waves = self._vocode(mels, replica)[..., 0]
+                event = None
+                if device.type == "cuda":
+                    with span("synth.copy", "issue"):
+                        mels, waves = (
+                            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                            for t in (mels, waves)
+                        )
+                        event = torch.cuda.Event()
+                        event.record()
         return token_rows, mels, waves, dur_s, total_frames, event
 
     def _dispatch_shards(self, token_rows, toks, lengths, dur_s, n_frames: Optional[int] = None) -> List:
@@ -805,26 +866,34 @@ class Synthesizer:
         return [r for h in handles for r in self._finalize(h)]
 
     def _finalize(self, handle) -> List[SynthesisResult]:
-        """Wait for a dispatched batch and trim each row."""
+        """Wait for a dispatched batch and trim each row.  Span:
+        ``synth.finalize`` (attrs ``decoded_frames``, rows times the frame
+        budget, and ``kept_frames``, the frames the rows keep), and inside
+        it ``synth.wait``, the wait for the copies."""
         token_rows, mels, waves, dur_s, total_frames, event = handle
-        if event is not None:
-            event.synchronize()
-        waves, mels = waves.numpy(), mels.numpy()
-        cfg = self.cfg
-        frames_per_sec = cfg.dsp.sample_rate / cfg.dsp.hop_length
-        hop = cfg.dsp.hop_length
-        results = []
-        for i, row in enumerate(token_rows):
-            keep = int(total_frames[i])
-            # trailing-silence trim (reference text2mel.py:99-102)
-            if row and row[-1] == SIL_INDEX:
-                sil_frames = int(dur_s[i, len(row) - 1] * frames_per_sec)
-                keep = max(keep - sil_frames, 1)
-            results.append(
-                SynthesisResult(
-                    wave=waves[i, : keep * hop],
-                    mel=mels[i, :keep],
-                    durations=dur_s[i, : len(row)],
+        with span("synth.finalize", "host") as sp:
+            if event is not None:
+                with span("synth.wait", "wait"):
+                    event.synchronize()
+            waves, mels = waves.numpy(), mels.numpy()
+            cfg = self.cfg
+            frames_per_sec = cfg.dsp.sample_rate / cfg.dsp.hop_length
+            hop = cfg.dsp.hop_length
+            results = []
+            kept = 0
+            for i, row in enumerate(token_rows):
+                keep = int(total_frames[i])
+                # trailing-silence trim (reference text2mel.py:99-102)
+                if row and row[-1] == SIL_INDEX:
+                    sil_frames = int(dur_s[i, len(row) - 1] * frames_per_sec)
+                    keep = max(keep - sil_frames, 1)
+                kept += keep
+                results.append(
+                    SynthesisResult(
+                        wave=waves[i, : keep * hop],
+                        mel=mels[i, :keep],
+                        durations=dur_s[i, : len(row)],
+                    )
                 )
-            )
+            sp.set(decoded_frames=mels.shape[0] * mels.shape[1], kept_frames=kept)
         return results

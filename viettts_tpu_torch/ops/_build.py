@@ -25,9 +25,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Optional
+
+from viettts_tpu_torch.utils.profiling import always_span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -102,7 +103,6 @@ RESTYPES = {"viettts_error_string": ctypes.c_char_p}
 
 _lib: Optional[ctypes.CDLL] = None
 _plan_lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of this process's build
 
 
 def _nvcc() -> str:
@@ -129,47 +129,53 @@ def library_path() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib, build_seconds
+    """Build (if needed) and load the kernel library; cached per process.
+    The ``setup.library`` span (attr ``built``) times the build and the
+    load."""
+    global _lib
     if _lib is not None:
         return _lib
     so = library_path()
-    if not so.exists():
-        t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{so.stem}.{os.getpid()}"
-        cu, _ = _sources()
-        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
-        procs = [
-            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(cu, objs))
-        ]
-        tmp = BUILD_DIR / f"{tag}.tmp"
-        failed = []
-        for cmd, proc in procs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append((cmd, proc.returncode, out))
-        if not failed:
-            cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                failed.append((cmd, proc.returncode, proc.stdout + proc.stderr))
-        for o in objs:
-            o.unlink(missing_ok=True)
-        if failed:
-            raise RuntimeError("\n".join(
-                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, rc, out in failed
-            ))
-        tmp.replace(so)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
+    with always_span("setup.library", "host", built=not so.exists()):
+        if not so.exists():
+            _build_library(so)
+        lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
+
+
+def _build_library(so: Path) -> None:
+    """nvcc every ``csrc/*.cu`` in parallel and link them into ``so``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    cu, _ = _sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(cu, objs))
+    ]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append((cmd, proc.returncode, out))
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append((cmd, proc.returncode, proc.stdout + proc.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, rc, out in failed
+        ))
+    tmp.replace(so)
 
 
 def load_plan_library() -> ctypes.CDLL:

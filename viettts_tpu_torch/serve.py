@@ -54,6 +54,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from viettts_tpu_torch.audio import pcm16, wav_bytes
+from viettts_tpu_torch.utils.profiling import new_trace, span
 
 
 class QueueFullError(RuntimeError):
@@ -400,15 +401,25 @@ class TTSServer:
         """Iterate ``Synthesizer.stream`` with the device serialized
         against the batch worker: the lock is held per chunk, so batched
         requests interleave between a long stream's chunks instead of
-        starving behind it."""
+        starving behind it.  Each chunk is a root span, ``server.chunk``
+        (attr ``chunk``), all of a stream's under one trace id, with the
+        wait for the lock (``server.lock``) and the stream's own spans
+        inside."""
         it = self._synth.stream(text, silence_duration=silence_duration)
+        trace = new_trace()
+        k = 0
         while True:
-            with self.batcher.synth_lock:
+            with span("server.chunk", "host", trace, chunk=k):
+                with span("server.lock", "queue"):
+                    self.batcher.synth_lock.acquire()
                 try:
                     res = next(it)
                 except StopIteration:
                     return
+                finally:
+                    self.batcher.synth_lock.release()
             yield res
+            k += 1
 
     @property
     def port(self) -> int:
