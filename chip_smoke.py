@@ -7,7 +7,11 @@
    CUDA versions, and the nvcc build of the port's kernels from
    ``viettts_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch twin on the card, at the shapes
-   the main path gives it, TF32 off: K1 ``ar_decode`` (H=512, P=256, D=80;
+   the main path gives it, TF32 off: the encoders' bi-LSTM
+   (``check_bilstm``: csrc/lstm.cu against its loop at H=256, B=64 x 256
+   tokens and B=1 x 64, within 1e-5 at every position and bitwise run to
+   run, timed beside the loop, its bound and cuDNN's ``nn.LSTM`` on the
+   same weights over a packed sequence), K1 ``ar_decode`` (H=512, P=256, D=80;
    B in {1, 4, 16}; 512 and 300 frames; dropout masks on; two launches
    must give the same bits), K2 ``fused_mrf``
    (the four default generator stages, B=2, 128 and 100 mel frames,
@@ -67,8 +71,8 @@
    bucket of at most 64 tokens (seconds per bucket, the pool's bytes); a
    replay against the eager program (float32 within 1e-5 of scale, bf16
    and int8 at K2's and K3's card bars) and two replays bitwise equal;
-   3 replays counted exactly (one K1 and four vocoder-stage launches each,
-   no twin); B=1 latency of ``synthesize(SENTENCE)`` and time to first
+   3 replays counted exactly (two bi-LSTM, one K1 and four vocoder-stage
+   launches each, no twin); B=1 latency of ``synthesize(SENTENCE)`` and time to first
    audio of ``stream(STREAM_TEXT)`` with the lead program and with
    ``single_dispatch_max_tokens = 0``, in turns, medians of 3; then on the
    float32 route with durations pinned at 0.08 s a token the lead against
@@ -158,7 +162,7 @@
    at B = 1, 8 and 64 (1 warm-up, 2 timed runs), ``b1_vocoder`` at 1,024
    frames (1 warm-up, 4 timed runs), ``stream`` (``bench_stream.py``'s
    530-token text, 1 warm-up and the best of 2 runs of each).
-9. A JSON line of per-kernel results (K1, K1 at the widths 1024 and 768
+9. A JSON line of per-kernel results (the bi-LSTM, K1, K1 at the widths 1024 and 768
    as their own entries, K2, K3, and the per-conv wgmma pipeline on each
    of its four routes as its own entry), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -191,6 +195,8 @@ BATCH_TEXTS = [
     "tuyệt vời quá!",
 ]
 K1_ATOL = 1e-4
+LSTM_ATOL = 1e-5  # the bi-LSTM kernel against its loop, tests/test_torch_rnn.py's bar
+LSTM_CASES = ((64, 256), (1, 64))  # (B, T) at H=256: the bulk cells' encoders, the stream's lead
 K1_CASES = ((1, 512), (4, 512), (16, 512), (1, 300), (4, 300), (16, 300))
 SMALL_CARD_SMS = 114  # the H100 PCIe: K1's plan for it runs on this card too
 # decoder widths whose float32 gate columns exceed the card's shared memory: K1
@@ -357,6 +363,108 @@ def check_ar_decode_plan(dev, sms=SMALL_CARD_SMS, H=512, P=256, D=80, cases=((1,
             f"{own_sms}-SM plan ({own.ctas} CTAs x {own.units} units) {own_ms:.3f} ms ({native[0]:.3f}; "
             f"{native[1]:.3f}); bound {bound_ms:.4f} ms ({bound_by})")
     return worst, times
+
+
+def check_bilstm(dev, H=256, cases=LSTM_CASES, reps=5):
+    """The encoders' bi-LSTM kernel (``ops/rnn.py::bidirectional_lstm``,
+    csrc/lstm.cu) against its twin, the Python loop
+    (``bidirectional_lstm_plain``), at each (B, T) case with H = D = 256
+    and lengths from 1 to T: every position, padded ones too, within
+    ``LSTM_ATOL``, and two launches bitwise equal.  Times with CUDA events
+    the call as the encoders make it (the two input projections and the
+    kernel), the projections alone, and the loop, beside the kernel's
+    bound, and the library's bi-LSTM (``cudnn_bilstm``) on the same
+    weights, held to the loop at the real positions.  Returns the worst
+    error and per-case results."""
+    import numpy as np
+    import torch
+
+    from viettts_tpu_torch.ops import rnn
+    from viettts_tpu_torch.utils.flops import bilstm_bound, device_peaks
+
+    params = [rnn.LSTM(H, H) for _ in range(2)]
+    for i, p in enumerate(params):
+        p.init_params(torch.Generator().manual_seed(i))
+        p.to(dev)
+    library = cudnn_bilstm(params, dev)
+    rng = np.random.default_rng(3)
+    worst, times = 0.0, {}
+    with torch.inference_mode():
+        for B, T in cases:
+            xs = torch.from_numpy(seeded(rng, B, T, H)).to(dev)
+            lengths = torch.from_numpy(np.r_[[T, 1], rng.integers(1, T + 1, max(B - 2, 0))][:B]).to(dev)
+            launches = rnn.bidirectional_lstm.launches
+            got = rnn.bidirectional_lstm(*params, xs, lengths)
+            again = rnn.bidirectional_lstm(*params, xs, lengths)
+            want = rnn.bidirectional_lstm_plain(*params, xs, lengths)
+            if rnn.bidirectional_lstm.launches != launches + 2:
+                raise AssertionError(f"bidirectional_lstm B={B} T={T}: "
+                                     f"{rnn.bidirectional_lstm.launches - launches} launches for 2 calls")
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            bitwise = torch.equal(got, again)
+            log(f"bi-LSTM kernel H={H} B={B} T={T}: max|kernel - loop| = {err:.3e} (atol {LSTM_ATOL}); "
+                f"two launches bitwise equal: {bitwise}")
+            if not err <= LSTM_ATOL:
+                raise AssertionError(f"bidirectional_lstm H={H} B={B} T={T} differs from its loop by {err}")
+            if not bitwise:
+                raise AssertionError(f"bidirectional_lstm H={H} B={B} T={T}: two launches on the same inputs differ")
+            x2 = xs.reshape(B * T, H)
+            ms = time_ms(lambda: rnn.bidirectional_lstm(*params, xs, lengths), reps)
+            proj_ms = time_ms(lambda: [torch.addmm(p.b, x2, p.w_i) for p in params], reps)
+            plain_ms = time_ms(lambda: rnn.bidirectional_lstm_plain(*params, xs, lengths), 2)
+            host_lengths = lengths.cpu()
+            real = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[..., None]
+            library_err = ((library(xs, host_lengths) - want) * real).abs().max().item()
+            library_ms = time_ms(lambda: library(xs, host_lengths), reps)
+            library_padded_ms = time_ms(lambda: library.lstm(xs), reps)
+            bound_ms, bound_by = bilstm_bound(B, T, H, device_peaks())
+            plan = rnn.plan_lstm(H, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+            times[(B, T)] = {"ms": ms, "projections_ms": proj_ms, "kernel_ms": ms - proj_ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "library_padded_ms": library_padded_ms,
+                             "library_max_abs_err": library_err,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                             "plan": {"ctas": plan.ctas, "slices": plan.slices, "groups": plan.groups,
+                                      "group_rows": plan.group_rows, "smem_bytes": plan.smem_bytes}}
+            log(f"bi-LSTM kernel H={H} B={B} T={T}: call {ms:.3f} ms (projections {proj_ms:.3f}, kernel "
+                f"{ms - proj_ms:.3f}), loop {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / (ms - proj_ms):.2f}% of bound; plan {times[(B, T)]['plan']}")
+            log(f"bi-LSTM cuDNN H={H} B={B} T={T}: packed call {library_ms:.3f} ms (with its projections; "
+                f"padded, no packing, {library_padded_ms:.3f} ms); max|cuDNN - loop| at real positions "
+                f"{library_err:.3e}")
+    return worst, times
+
+
+def cudnn_bilstm(params, dev):
+    """The library's bi-LSTM computing ``bidirectional_lstm`` at every real
+    position: a float32 ``nn.LSTM`` (cuDNN; the caller turns TF32 off) with
+    haiku's gate columns (i, g, f, o) permuted to torch's (i, f, g, o) and
+    the forget gate's +1 folded into the bias.  Over a packed sequence its
+    reverse direction starts at length - 1 from a zero state, as the loop's
+    reset does; padded positions come back zero.  Returns ``run(xs,
+    host_lengths)`` with the module as ``run.lstm``."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    D, H = params[0].w_i.shape[0], params[0].w_h.shape[0]
+    order = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H), torch.arange(H, 2 * H),
+                       torch.arange(3 * H, 4 * H)]).to(dev)
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for suffix, p in (("l0", params[0]), ("l0_reverse", params[1])):
+            bias = p.b[order].clone()
+            bias[H:2 * H] += 1.0
+            getattr(lstm, f"weight_ih_{suffix}").copy_(p.w_i[:, order].T)
+            getattr(lstm, f"weight_hh_{suffix}").copy_(p.w_h[:, order].T)
+            getattr(lstm, f"bias_ih_{suffix}").copy_(bias)
+            getattr(lstm, f"bias_hh_{suffix}").zero_()
+
+    def run(xs, host_lengths):
+        packed = pack_padded_sequence(xs, host_lengths, batch_first=True, enforce_sorted=False)
+        return pad_packed_sequence(lstm(packed)[0], batch_first=True, total_length=xs.shape[1])[0]
+
+    run.lstm = lambda xs: lstm(xs)[0]
+    return run
 
 
 def stage_weights(rng, dev, cfg, C_in, C, k_u, u, post, resblock2, dtype):
@@ -1218,6 +1326,7 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
     from viettts_tpu_torch.infer.pipeline import Synthesizer
     from viettts_tpu_torch.ops.ar_decoder import ar_decode
     from viettts_tpu_torch.ops.mrf import fused_mrf
+    from viettts_tpu_torch.ops.rnn import bidirectional_lstm
     from viettts_tpu_torch.utils import profiling
 
     out = {}
@@ -1245,20 +1354,22 @@ def lead_phase(cfg, ckpt_dir: Path, zero, read, device="cuda"):
         int8 = route == "int8"
         counted = (ar_decode.launches, ar_decode.plain_calls, fused_mrf.launches, fused_mrf.int8_launches,
                    fused_mrf.plain_calls, fused_mrf.conv_launches, fused_mrf.int8_conv_launches,
-                   fused_mrf.tf32_conv_launches, fused_mrf.int8_dynamic_conv_launches)
+                   fused_mrf.tf32_conv_launches, fused_mrf.int8_dynamic_conv_launches,
+                   bidirectional_lstm.launches, bidirectional_lstm.plain_calls)
         # the 512-frame lead's stages on the per-conv wgmma pipeline: C = 256 and 128 on the bf16 and
-        # calibrated int8 routes, all four on the float32 route
+        # calibrated int8 routes, all four on the float32 route; the two encoders' bi-LSTMs
         want = (LEAD_COUNTED, 0, 4 * LEAD_COUNTED, 4 * LEAD_COUNTED if int8 else 0, 0,
                 2 * LEAD_COUNTED if route == "bfloat16" else 0, 2 * LEAD_COUNTED if int8 else 0,
-                4 * LEAD_COUNTED if route == "float32" else 0, 0)
+                4 * LEAD_COUNTED if route == "float32" else 0, 0, 2 * LEAD_COUNTED, 0)
         log(f"lead program ({route}): {LEAD_COUNTED} replays counted (K1, K1 twin, K2, K3, K2/K3 twin, "
-            f"their wgmma stages bf16, int8, tf32, int8 dynamic) {counted}, want {want}")
+            f"their wgmma stages bf16, int8, tf32, int8 dynamic, bi-LSTM, its loop) {counted}, want {want}")
         if counted != want:
             raise AssertionError(f"lead program ({route}): replays counted {counted}, want {want}")
         zero()
         stats["timings"] = t = lead_timings(synth)
         stats["launches"] = read(f"lead program ({route})",
-                                 ["ar_decode", "fused_mrf"] + (["fused_mrf_int8", "mrf_conv_wgmma_int8"] if int8 else [])
+                                 ["bidirectional_lstm", "ar_decode", "fused_mrf"]
+                                 + (["fused_mrf_int8", "mrf_conv_wgmma_int8"] if int8 else [])
                                  + (["mrf_conv_wgmma"] if route == "bfloat16" else [])
                                  + (["mrf_conv_wgmma_tf32"] if route == "float32" else []))
         log(f"lead program ({route}): B=1 latency of SENTENCE lead {1e3 * t['lead']['b1_latency_s']:.1f} ms "
@@ -1323,7 +1434,7 @@ def wide_decoder_phase(cfg, tmp: Path, zero, read, width, device="cuda"):
                       "synthesize_batch": sum(len(r.wave) for r in results) / cfg.dsp.sample_rate,
                       "stream": float(np.sum([len(c.wave) for c in chunks])) / cfg.dsp.sample_rate}
     out["launches"] = read(f"decoder_dim={width} (bf16: lead, synthesize_batch, stream)",
-                           ["ar_decode", "fused_mrf", "mrf_conv_wgmma"])
+                           ["bidirectional_lstm", "ar_decode", "fused_mrf", "mrf_conv_wgmma"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 3d, decoder_dim={width}: warmup {out['warmup_s']:.2f} s (lead buckets {out['lead_buckets']}); "
         f"B=1 lead {1e3 * out['b1_latency_s']:.1f} ms for {out['audio_s']['synthesize']:.2f} s of audio; "
@@ -2414,15 +2525,17 @@ def bench_phase(zero, read):
     from viettts_tpu_torch.bench import b1_vocoder, batch, e2e, stream, train, vocoder_batch
 
     programs = (
-        ("e2e", lambda: e2e.run(iters=3, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
-        ("batch", lambda: batch.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
+        ("e2e", lambda: e2e.run(iters=3, warmup=1), ["bidirectional_lstm", "ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
+        ("batch", lambda: batch.run(iters=2, warmup=1),
+         ["bidirectional_lstm", "ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
         ("train", lambda: train.run(iters=1, warmup=1, gan_steps=2), []),
         ("vocoder_batch", lambda: vocoder_batch.run(iters=2, warmup=1, batches=BENCH_VOCODER_BATCHES),
          ["fused_mrf", "mrf_conv_wgmma", "mrf_conv_wgmma_tf32"]),
         ("b1_vocoder", lambda: b1_vocoder.run(iters=4, warmup=1),
          ["fused_mrf", "fused_mrf_int8", "mrf_conv_wgmma", "mrf_conv_wgmma_int8", "mrf_conv_wgmma_tf32",
           "mrf_conv_wgmma_int8_dynamic"]),
-        ("stream", lambda: stream.run(iters=2, warmup=1), ["ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
+        ("stream", lambda: stream.run(iters=2, warmup=1),
+         ["bidirectional_lstm", "ar_decode", "fused_mrf", "mrf_conv_wgmma"]),
     )
     results, seconds, launches = {}, {}, {}
     with _torch_defaults():
@@ -2458,6 +2571,7 @@ def main() -> int:
     from viettts_tpu_torch.ops import _build
     from viettts_tpu_torch.ops.ar_decoder import ar_decode
     from viettts_tpu_torch.ops.mrf import fused_mrf
+    from viettts_tpu_torch.ops.rnn import bidirectional_lstm
     from viettts_tpu_torch.utils import profiling
     from viettts_tpu_torch.utils.flops import device_peaks, mrf_bound, mrf_flop, stage_shapes
 
@@ -2478,6 +2592,7 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = Config()
 
+    lstm_err, lstm_times = check_bilstm(dev)
     k1_err, k1_times = check_ar_decode(dev)
     k1_plan_err, k1_plan_times = check_ar_decode_plan(dev)
     t0 = time.perf_counter()
@@ -2496,6 +2611,7 @@ def main() -> int:
         fused_mrf.launches = fused_mrf.int8_launches = fused_mrf.plain_calls = 0
         fused_mrf.conv_launches = fused_mrf.int8_conv_launches = 0
         fused_mrf.tf32_conv_launches = fused_mrf.int8_dynamic_conv_launches = 0
+        bidirectional_lstm.launches = bidirectional_lstm.plain_calls = 0
 
     def read_counts(path, kernels):
         counts = {"ar_decode": (ar_decode.launches, ar_decode.plain_calls),
@@ -2504,7 +2620,8 @@ def main() -> int:
                   "mrf_conv_wgmma": (fused_mrf.conv_launches, fused_mrf.plain_calls),
                   "mrf_conv_wgmma_int8": (fused_mrf.int8_conv_launches, fused_mrf.plain_calls),
                   "mrf_conv_wgmma_tf32": (fused_mrf.tf32_conv_launches, fused_mrf.plain_calls),
-                  "mrf_conv_wgmma_int8_dynamic": (fused_mrf.int8_dynamic_conv_launches, fused_mrf.plain_calls)}
+                  "mrf_conv_wgmma_int8_dynamic": (fused_mrf.int8_dynamic_conv_launches, fused_mrf.plain_calls),
+                  "bidirectional_lstm": (bidirectional_lstm.launches, bidirectional_lstm.plain_calls)}
         log(f"{path} launches (kernel, plain twin): {counts}")
         for name in kernels:
             launches, plain = counts[name]
@@ -2517,11 +2634,11 @@ def main() -> int:
         write_checkpoints(cfg, tmp)
         zero_counts()
         stats = main_path(cfg, tmp, tmp)
-        launches = read_counts("main path (bf16, f32)", ["ar_decode", "fused_mrf", "mrf_conv_wgmma",
+        launches = read_counts("main path (bf16, f32)", ["bidirectional_lstm", "ar_decode", "fused_mrf", "mrf_conv_wgmma",
                                                           "mrf_conv_wgmma_tf32"])
         zero_counts()
         stats["int8"], int8_synth = int8_path(cfg, tmp, tmp)
-        launches_int8 = read_counts("main path (int8)", ["ar_decode", "fused_mrf", "fused_mrf_int8",
+        launches_int8 = read_counts("main path (int8)", ["bidirectional_lstm", "ar_decode", "fused_mrf", "fused_mrf_int8",
                                                          "mrf_conv_wgmma_int8", "mrf_conv_wgmma_int8_dynamic"])
         ref = reference_check(cfg, tmp)
         ref["int8"] = reference_check_int8(cfg, tmp, int8_synth)
@@ -2535,7 +2652,7 @@ def main() -> int:
         train["gan"], vocoder = gan_phase(cfg, tmp / "corpus", trained, tmp)
         zero_counts()
         train["round_trip"] = round_trip(cfg, trained, vocoder, GAN_STEPS + GTA_STEPS)
-        launches_trained = read_counts("train round trip", ["ar_decode", "fused_mrf", "fused_mrf_int8",
+        launches_trained = read_counts("train round trip", ["bidirectional_lstm", "ar_decode", "fused_mrf", "fused_mrf_int8",
                                                             "mrf_conv_wgmma", "mrf_conv_wgmma_int8",
                                                             "mrf_conv_wgmma_tf32"])
         train["card_vs_cpu"] = train_card_vs_cpu()
@@ -2546,7 +2663,8 @@ def main() -> int:
         multi = {"nccl_training": nccl_training(cfg, tmp, earlier)}
         multi["replicas"], launches_replicated = replicated_serving(
             cfg, tmp, zero=zero_counts,
-            read=lambda: read_counts("two replicas on cuda:0", ["ar_decode", "fused_mrf", "fused_mrf_int8"]))
+            read=lambda: read_counts("two replicas on cuda:0", ["bidirectional_lstm", "ar_decode", "fused_mrf",
+                                                                "fused_mrf_int8"]))
         multi["serve_refusal"] = serve_refuses_missing_cards(tmp)
         multi["tools"] = tools_on_card(cfg, tmp)
         multi["dryrun"] = multihost_dryrun(tmp)
@@ -2575,7 +2693,23 @@ def main() -> int:
 
     def mrf_flop_sum(B, T):  # the MRF convs of the four ResBlock1 stages
         return sum(mrf_flop(cfg.hifigan, B, L_in * u, C, False) for _, C, _, u, L_in, _ in stage_shapes(cfg.hifigan, T))
+    lstm_main = lstm_times[LSTM_CASES[0]]
     kernels = [
+        {"name": "bidirectional_lstm", "route": "cuda", "source": "viettts_tpu_torch/csrc/lstm.cu",
+         "replaces": "none: JAX runs the recurrence as lax.scan (viettts_tpu/ops/rnn.py:137)",
+         "launches": launches["bidirectional_lstm"], "launches_int8_path": launches_int8["bidirectional_lstm"],
+         "launches_round_trip": launches_trained["bidirectional_lstm"],
+         "launches_replicated": launches_replicated["bidirectional_lstm"],
+         "launches_lead": {route: n["bidirectional_lstm"] for route, n in launches_lead.items()},
+         "launches_bench": {name: n["bidirectional_lstm"] for name, n in launches_bench.items()},
+         "max_abs_err": lstm_err, "ms": lstm_main["kernel_ms"], "plain_ms": lstm_main["plain_ms"],
+         "bound_ms": lstm_main["bound_ms"], "bound_by": lstm_main["bound_by"], "call_ms": lstm_main["ms"],
+         "library_ms": lstm_main["library_ms"], "library_max_abs_err": lstm_main["library_max_abs_err"],
+         "library": "nn.LSTM (cuDNN, float32, TF32 off) over a packed sequence, gate columns permuted and the "
+                    "forget +1 in its bias: the same function at every real position",
+         "cases": {f"B={B} T={T}": v for (B, T), v in lstm_times.items()},
+         "shape": f"B={LSTM_CASES[0][0]} T={LSTM_CASES[0][1]} H=256 D=256 f32; ms: the call less its input "
+                  "projections; call_ms, plain_ms and library_ms: with them"},
         {"name": "ar_decode", "route": "cuda", "source": "viettts_tpu_torch/csrc/ar_decoder.cuh",
          "replaces": "viettts_tpu/ops/ar_decoder.py:140", "launches": launches["ar_decode"],
          "launches_int8_path": launches_int8["ar_decode"], "launches_round_trip": launches_trained["ar_decode"],

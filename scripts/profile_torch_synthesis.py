@@ -32,6 +32,7 @@ from chip_smoke import BATCH_TEXTS, SENTENCE, write_checkpoints  # noqa: E402
 # mrf_conv_wgmma_kernel and conv_operand_kernel by their route, (viettts::FRoute)0 bf16, 1 int8
 # (static and dynamic scales, whose quantize passes are conv_operand_kernel's) or 2 tf32 (float32)
 PORT_KERNELS = {
+    "bi-LSTM": ("bilstm_grid",),
     "K1": ("ar_decode_grid",),
     "K2": ("Bf16Mma", "Tf32Mma", "post_kernel", "to_f32_kernel", "FRoute)0", "FRoute)2"),
     "K3": ("Int8Mma", "F64Mma", "absmax_kernel", "FRoute)1"),

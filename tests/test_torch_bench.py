@@ -296,16 +296,17 @@ def test_vocoder_programs_report_every_route(results):
 
 
 @pytest.mark.parametrize("name,plain", [
-    ("e2e", ("ar_decode", "fused_mrf")), ("batch", ("ar_decode", "fused_mrf")),
-    ("batch_int8", ("ar_decode", "fused_mrf_int8")), ("train", ()),
-    ("vocoder_batch", ("fused_mrf",)), ("b1_vocoder", ("fused_mrf_int8",)), ("stream", ("ar_decode", "fused_mrf")),
+    ("e2e", ("ar_decode", "fused_mrf", "bidirectional_lstm")), ("batch", ("ar_decode", "fused_mrf", "bidirectional_lstm")),
+    ("batch_int8", ("ar_decode", "fused_mrf_int8", "bidirectional_lstm")), ("train", ("bidirectional_lstm",)),
+    ("vocoder_batch", ("fused_mrf",)), ("b1_vocoder", ("fused_mrf_int8",)),
+    ("stream", ("ar_decode", "fused_mrf", "bidirectional_lstm")),
 ])
 def test_counters_show_twins_and_no_kernel_on_the_cpu(results, name, plain):
     counts = results[name]["launches"]
     assert all(c["launches"] == 0 for c in counts.values())
     assert all(counts[k]["plain_calls"] > 0 for k in plain)
-    if not plain:
-        assert all(c["plain_calls"] == 0 for c in counts.values())
+    if set(plain) <= set(common.TRAINING_TWINS):  # the trainers: no twin but the bi-LSTM loop
+        assert all(c["plain_calls"] == 0 for n, c in counts.items() if n not in plain)
 
 
 def test_read_counters_refuses_a_twin_on_the_card():
@@ -315,6 +316,20 @@ def test_read_counters_refuses_a_twin_on_the_card():
     fused_mrf.plain_calls = 1
     with pytest.raises(AssertionError, match="launch counters"):
         common.read_counters(torch.device("cuda"), [])
+    common.zero_counters()
+
+
+def test_read_counters_refuses_the_lstm_loop_only_where_its_kernel_is_expected():
+    """The bi-LSTM loop is also the card's training route: a run that does
+    not expect the kernel may call it; one that expects it may not."""
+    from viettts_tpu_torch.ops.rnn import bidirectional_lstm
+
+    common.zero_counters()
+    bidirectional_lstm.plain_calls = 1
+    assert common.read_counters(torch.device("cuda"), [])["bidirectional_lstm"]["plain_calls"] == 1
+    bidirectional_lstm.launches = 1
+    with pytest.raises(AssertionError, match="launch counters"):
+        common.read_counters(torch.device("cuda"), ["bidirectional_lstm"])
     common.zero_counters()
 
 

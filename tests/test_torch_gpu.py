@@ -12,6 +12,7 @@ main path's stage widths at short lengths; the main path's full shapes are
 checked by ``chip_smoke.py``.
 """
 
+import copy
 import ctypes
 
 import numpy as np
@@ -19,7 +20,7 @@ import pytest
 import torch
 from torch.nn import functional as F
 
-from viettts_tpu_torch.ops import _build, ar_decoder, mrf
+from viettts_tpu_torch.ops import _build, ar_decoder, mrf, rnn
 
 pytestmark = pytest.mark.gpu
 
@@ -184,6 +185,103 @@ def test_ar_decode_wide_kernel_replays_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
+
+
+def _lstm_case(seed, B, T, H, D, dev):
+    """Both directions' weights at the encoders' scale (sigma 1/sqrt(D + H)),
+    inputs and lengths that include T, 0 and 1 (B=1: T)."""
+    rng = np.random.RandomState(seed)
+    params = []
+    for _ in range(2):
+        p = rnn.LSTM(D, H)
+        with torch.no_grad():
+            p.w_i.copy_(_w(rng, D, 4 * H, s=(D + H) ** -0.5))
+            p.w_h.copy_(_w(rng, H, 4 * H, s=(D + H) ** -0.5))
+            p.b.copy_(_w(rng, 4 * H, s=0.1))
+        params.append(p.to(dev))
+    lengths = np.r_[[T, 0, 1], rng.randint(0, T + 1, max(B - 3, 0))][:B]
+    return params, _w(rng, B, T, D).to(dev), torch.from_numpy(lengths).to(dev)
+
+
+def _lstm_counts():
+    return rnn.bidirectional_lstm.launches, rnn.bidirectional_lstm.plain_calls
+
+
+@pytest.mark.parametrize("H", [32, 256, 512])
+@pytest.mark.parametrize("T", [1, 7, 64, 256])
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_bilstm_kernel_matches_the_loop(cuda, B, T, H):
+    """One launch of csrc/lstm.cu against the loop, every position (padded
+    ones too) within tests/test_torch_rnn.py's 1e-5."""
+    params, xs, lengths = _lstm_case(B * 1000 + T + H, B, T, H, 40, cuda)
+    with torch.inference_mode():
+        before = _lstm_counts()
+        got = rnn.bidirectional_lstm(*params, xs, lengths)
+        torch.cuda.synchronize()
+        assert _lstm_counts() == (before[0] + 1, before[1])
+        want = rnn.bidirectional_lstm_plain(*params, xs, lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_bilstm_kernel_is_bitwise_run_to_run(cuda):
+    """Every dot is summed in a fixed order inside one CTA: two launches at
+    the bulk cells' shape give the same bits."""
+    params, xs, lengths = _lstm_case(11, 64, 256, 256, 256, cuda)
+    with torch.inference_mode():
+        first = rnn.bidirectional_lstm(*params, xs, lengths)
+        second = rnn.bidirectional_lstm(*params, xs, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_bilstm_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured after one eager launch (its opt-in and occupancy check):
+    the capture counts one launch and every replay gives the eager bits."""
+    params, xs, lengths = _lstm_case(12, 1, 64, 256, 256, cuda)
+    with torch.inference_mode():
+        eager = rnn.bidirectional_lstm(*params, xs, lengths)
+        torch.cuda.synchronize()
+        launches = rnn.bidirectional_lstm.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = rnn.bidirectional_lstm(*params, xs, lengths)
+        assert rnn.bidirectional_lstm.launches == launches + 1
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager)
+
+
+def test_bilstm_on_the_card_takes_the_loop_where_a_gradient_is_needed(cuda):
+    """Under autograd with weights that require grad the card runs the
+    loop, in float32 and in bfloat16; bfloat16 in inference raises and
+    runs nothing; more than 64 rows take one launch per 64."""
+    params, xs, lengths = _lstm_case(13, 70, 9, 32, 16, cuda)
+    half = [copy.deepcopy(p).to(torch.bfloat16) for p in params]
+    before = _lstm_counts()
+    trained = rnn.bidirectional_lstm(*params, xs, lengths)
+    assert trained.requires_grad and _lstm_counts() == (before[0], before[1] + 1)
+    trained = rnn.bidirectional_lstm(*half, xs.bfloat16(), lengths)
+    assert trained.requires_grad and trained.dtype == torch.bfloat16
+    assert _lstm_counts() == (before[0], before[1] + 2)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="torch.bfloat16 on cuda"):
+            rnn.bidirectional_lstm(*half, xs.bfloat16(), lengths)
+        assert _lstm_counts() == (before[0], before[1] + 2)
+        got = rnn.bidirectional_lstm(*params, xs, lengths)
+        assert _lstm_counts() == (before[0] + 2, before[1] + 2)
+        torch.testing.assert_close(got, rnn.bidirectional_lstm_plain(*params, xs, lengths), rtol=0, atol=1e-5)
+
+
+def test_bilstm_kernel_refuses_a_wider_lstm(cuda):
+    """H=640 in inference raises with the width, launching nothing and
+    never falling back to the loop."""
+    params, xs, lengths = _lstm_case(14, 2, 3, 640, 8, cuda)
+    before = _lstm_counts()
+    with torch.inference_mode(), pytest.raises(ValueError, match="H=640"):
+        rnn.bidirectional_lstm(*params, xs, lengths)
+    assert _lstm_counts() == before
 
 
 def _rel_rms(got, want):
@@ -1051,20 +1149,35 @@ def test_lead_graph_replay_matches_the_eager_program(cuda, default_ckpts, route)
 
 @pytest.mark.parametrize("route", ["bfloat16", "int8"])
 def test_lead_replays_are_counted(cuda, default_ckpts, route):
-    """Each replay adds the launches its capture recorded (one K1, four
-    vocoder stages; K3's on the int8 route), the capture itself none, and
-    no plain twin runs."""
-    dec, voc = ar_decoder.ar_decode, mrf.fused_mrf
+    """Each replay adds the launches its capture recorded (two bi-LSTMs,
+    one K1, four vocoder stages; K3's on the int8 route), the capture
+    itself none, and no plain twin runs."""
+    dec, voc, lstm = ar_decoder.ar_decode, mrf.fused_mrf, rnn.bidirectional_lstm
     synth = _synth(default_ckpts, f"hifigan.inference_dtype={route}")
     synth.calibrate_int8()
     text = "xin chào các bạn"
     synth.synthesize(text)  # the bucket's eager run, capture and first replay
     dec.launches = dec.plain_calls = voc.launches = voc.int8_launches = voc.plain_calls = 0
+    lstm.launches = lstm.plain_calls = 0
     for _ in range(3):
         synth.synthesize(text)
     int8 = route == "int8"
-    assert (dec.launches, dec.plain_calls, voc.launches, voc.int8_launches, voc.plain_calls) == (
-        3, 0, 12, 12 if int8 else 0, 0)
+    assert (lstm.launches, lstm.plain_calls, dec.launches, dec.plain_calls, voc.launches, voc.int8_launches,
+            voc.plain_calls) == (6, 0, 3, 0, 12, 12 if int8 else 0, 0)
+
+
+def test_bulk_dispatch_counts_two_lstm_launches(cuda, default_ckpts):
+    """After warm-up a bucketed call of 64 rows runs each encoder's bi-LSTM
+    as one kernel launch (the duration model's, the acoustic model's) and
+    never the loop."""
+    lstm = rnn.bidirectional_lstm
+    synth = _synth(default_ckpts, "hifigan.inference_dtype=bfloat16")
+    words = "xin chào các bạn hôm nay trời đẹp quá một hai ba bốn năm sáu bảy".split()
+    texts = [" ".join(words[: 3 + i % 12]) for i in range(64)]
+    synth.synthesize_batch(texts)
+    lstm.launches = lstm.plain_calls = 0
+    results = synth.synthesize_batch(texts)
+    assert len(results) == 64 and (lstm.launches, lstm.plain_calls) == (2, 0)
 
 
 def test_bucketed_dispatch_snaps_to_a_warmed_bucket(cuda, default_ckpts):

@@ -122,7 +122,7 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = K, warmup: int
     zero_counters()
     runs_full = host_runs(lambda: waves.append(chain()), device, iters, warmup)
     runs_voc = host_runs(lambda: vocode(mel0).cpu(), device, iters, warmup)
-    launches = read_counters(device, ["ar_decode", "fused_mrf"] + (["fused_mrf_int8"] if quant else [])
+    launches = read_counters(device, ["ar_decode", "fused_mrf", "bidirectional_lstm"] + (["fused_mrf_int8"] if quant else [])
                              + wgmma_counters(route, act_scales is not None))
     check_wave(waves[-1], (batch, n_frames * cfg.dsp.hop_length, 1), "batch")
 

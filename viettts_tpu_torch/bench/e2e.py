@@ -108,7 +108,7 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = ITERS, warmup:
 
     zero_counters()
     runs = host_runs(lambda: waves.append(chain()), device, iters, warmup)
-    launches = read_counters(device, ["ar_decode", "fused_mrf"] + (["fused_mrf_int8"] if quant else [])
+    launches = read_counters(device, ["ar_decode", "fused_mrf", "bidirectional_lstm"] + (["fused_mrf_int8"] if quant else [])
                              + wgmma_counters(route))
     check_wave(waves[-1], (batch, n_frames * cfg.dsp.hop_length, 1), "e2e")
     stage_ms, per_run = stage_medians(marks[warmup:])

@@ -107,7 +107,7 @@ def run(cfg: Optional[Config] = None, device="cuda", iters: int = ITERS, warmup:
     fulls = [streamed(0) for _ in range(iters)]
     route = cfg.hifigan.inference_dtype
     quant = route == "int8"
-    launches = read_counters(device, ["ar_decode", "fused_mrf"] + (["fused_mrf_int8"] if quant else [])
+    launches = read_counters(device, ["ar_decode", "fused_mrf", "bidirectional_lstm"] + (["fused_mrf_int8"] if quant else [])
                              + wgmma_counters(route, int8_static=False))
     full_s, n_samples = min(shots)
     first_s, total_s, n_stream = min(leads)

@@ -115,6 +115,7 @@ from viettts_tpu_torch.models.hifigan import (
 )
 from viettts_tpu_torch.ops.ar_decoder import ar_decode
 from viettts_tpu_torch.ops.mrf import fused_mrf
+from viettts_tpu_torch.ops.rnn import bidirectional_lstm
 from viettts_tpu_torch.text import load_lexicon, normalize_text, text_to_tokens
 from viettts_tpu_torch.types import DurationBatch
 from viettts_tpu_torch.utils.profiling import always_span, new_trace, span
@@ -130,7 +131,8 @@ LEAD_FRAMES_PER_TOKEN = 8
 _COUNTERS = ((ar_decode, "launches"), (ar_decode, "plain_calls"), (fused_mrf, "launches"),
              (fused_mrf, "int8_launches"), (fused_mrf, "plain_calls"), (fused_mrf, "conv_launches"),
              (fused_mrf, "int8_conv_launches"), (fused_mrf, "tf32_conv_launches"),
-             (fused_mrf, "int8_dynamic_conv_launches"))
+             (fused_mrf, "int8_dynamic_conv_launches"), (bidirectional_lstm, "launches"),
+             (bidirectional_lstm, "plain_calls"))
 
 
 def _bucket_tokens(n: int, buckets: Sequence[int]) -> int:

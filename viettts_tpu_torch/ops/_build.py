@@ -67,6 +67,10 @@ SIGNATURES = {
     "viettts_mrf_post": [I, P, P, P, P] + [I] * 5 + [P],
     # x_bf16, y_f32, n, stream
     "viettts_mrf_to_f32": [P, P, LL, P],
+    # H, ctas, slices, groups, group_rows, smem_bytes
+    "viettts_bilstm_prepare": [I] * 6,
+    # xp_f, xp_b, wh_f, wh_b, lengths, out, exchange, B, T, H, ctas, slices, groups, group_rows, smem_bytes, stream
+    "viettts_bilstm": [P] * 7 + [I] * 8 + [P],
     # code -> its name
     "viettts_error_string": [I],
     # out_bf16, x, w (int8 [k, C_out, C_in]), scale, bias, act, act_stride, dynamic,

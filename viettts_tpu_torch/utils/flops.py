@@ -434,6 +434,16 @@ def ar_decode_bound(B, L, H, P, D, peaks: Peaks) -> Tuple[float, str]:
     return roofline(bytes_, flop / peaks.fp32, peaks)
 
 
+def bilstm_bound(B, T, H, peaks: Peaks) -> Tuple[float, str]:
+    """The bi-LSTM kernel's roofline (``csrc/lstm.cu``, the recurrence
+    alone: the input projections are the caller's matmuls): 2 FLOP per
+    w_h weight per row per step, both directions, at the float32 peak;
+    bytes: both w_h, both projections read and the output written once."""
+    flop = 2.0 * 2 * B * T * H * 4 * H
+    bytes_ = 4 * (2 * H * 4 * H + 2 * B * T * 4 * H + B * T * 2 * H)
+    return roofline(bytes_, flop / peaks.fp32, peaks)
+
+
 def stage_shapes(h, frames) -> List[Tuple[int, int, int, int, int, bool]]:
     """(C_in, C, k_up, u, L_in, post) of each generator stage for a mel of
     ``frames`` frames."""
