@@ -235,14 +235,16 @@ def gaps(items: List[Item], outputs, ref_outputs, sizes) -> Dict[str, float]:
             "wave_gap_worst_row": float(worst_row)}
 
 
-def check(record, trees, sizes, warmup, prenet_seed: int, device, control: Optional[str] = None) -> Dict[str, float]:
-    """The numbers compared for a finished run (``drivers.Record``).  A
+def check(record, trees, sizes, warmup, prenet_seed: int, device, models,
+          control: Optional[str] = None) -> Dict[str, float]:
+    """The numbers compared for a finished run (``drivers.Record``), by the
+    configuration's model modules (``cells.Models``).  A
     ``control`` puts the reference in the program's place on the same
     items, at a lower precision: ``bfloat16`` (autocast) for every stage,
     ``float8`` (e4m3) for the vocoder alone."""
     fps = sizes["dsp.sample_rate"] / sizes["dsp.hop_length"]
     items, mismatches = replay(record.dispatches, warmup, fps)
-    ref = Reference(trees, sizes, device)
+    ref = Reference(trees, sizes, device, models)
     hop = sizes["dsp.hop_length"]
     if control is None:
         served = [(it.out.durations, it.out.mel, it.out.wave) for it in items]

@@ -5,7 +5,6 @@ and build the result line."""
 from __future__ import annotations
 
 import gc
-import importlib.util
 import math
 import sys
 import time
@@ -46,19 +45,17 @@ def seeds(seed: int) -> Dict[str, int]:
 
 
 def _reader(name: str):
-    path = METRICS_DIR / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return cells.load_module(METRICS_DIR / f"{name}.py", "perfbench_metric_").read
 
 
 class Context:
     """What a per-layer metric's reader reads: the trace, the run's record,
-    the configuration's sizes and the card's peaks."""
+    the configuration's sizes, the card's peaks and the configuration's
+    model modules (``cells.Models``, whose counts the rooflines take)."""
 
-    def __init__(self, trace, record, sizes, peaks, hop: int):
+    def __init__(self, trace, record, sizes, peaks, hop: int, models):
         self.trace, self.record, self.sizes, self.peaks, self.hop = trace, record, sizes, peaks, hop
+        self.models = models
 
     def traced_dispatches(self) -> List[drivers.Dispatch]:
         """The dispatches that ran wholly inside the traced part."""
@@ -103,7 +100,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: t
     reference keeps the one the configuration states."""
     sizes = cell.config["sizes"]
     s = seeds(seed)
-    trees = seeded_trees(sizes, s["weights"], device, cell.config["weights"])
+    trees = seeded_trees(sizes, s["weights"], device, cell.config["weights"], cell.models)
     program_sizes = dict(sizes, **({"hifigan.inference_dtype": program_route} if program_route else {}))
     program = Program(program_sizes, trees, device, s["prenet"], cell.config.get("program_overrides", []))
     synth = program.synth
@@ -135,7 +132,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: t
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    readings = check(record, trees, sizes, cell.traffic["warmup"], s["prenet"], device)
+    readings = check(record, trees, sizes, cell.traffic["warmup"], s["prenet"], device, cell.models)
     mismatches = readings.pop("mismatches")
     for m in mismatches[:5]:
         log(f"mismatch: {m}", file=sys.stderr)
@@ -158,7 +155,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: t
     else:
         t = tracer.result
         peaks = peaks_for_name(name) if device.type == "cuda" else None
-        ctx = Context(t, record, sizes, peaks, sizes["dsp.hop_length"])
+        ctx = Context(t, record, sizes, peaks, sizes["dsp.hop_length"], cell.models)
         for m in cell.per_layer:
             v = _reader(m["name"])(ctx)
             if v is not None:
@@ -189,7 +186,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: t
         result["run"]["trace_host_slowdown"] = ctx.host_slowdown()
     if also:
         result["also"] = {c: {k: v for k, v in check(record, trees, sizes, cell.traffic["warmup"], s["prenet"],
-                                                      device, c).items() if k != "mismatches"}
+                                                      device, cell.models, c).items() if k != "mismatches"}
                           for c in also}
     result["checks"] = checks
     return result

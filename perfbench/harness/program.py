@@ -4,6 +4,7 @@ loading the seeded checkpoints, nothing else of the program touched."""
 
 from __future__ import annotations
 
+import dataclasses
 import tempfile
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -30,16 +31,29 @@ def _plain(v):
     return v
 
 
+def _nested(v) -> bool:
+    return isinstance(v, list) and bool(v) and isinstance(v[0], list)
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
 def program_config(sizes: Dict[str, object], overrides: Sequence[str] = ()):
-    """The program's ``Config`` with every scalar of ``sizes`` set through its
-    own override parser; each key is then read back and must equal the file's
-    (a tuple of tuples, which the parser cannot set, must be the default)."""
+    """The program's ``Config`` with every key of ``sizes`` set: scalars and
+    flat tuples through its own override parser, then tuples of tuples,
+    which the parser cannot read, with ``dataclasses.replace`` on their
+    section; each key is then read back and must equal the file's."""
     from viettts_tpu_torch.config import Config, apply_overrides
 
     keys = [k for k in sizes if k.startswith(SECTIONS)]
-    scalars = [f"{k}={_literal(sizes[k])}" for k in keys
-               if not (isinstance(sizes[k], list) and sizes[k] and isinstance(sizes[k][0], list))]
+    scalars = [f"{k}={_literal(sizes[k])}" for k in keys if not _nested(sizes[k])]
     cfg = apply_overrides(Config(), scalars + list(overrides))
+    for k in keys:
+        if _nested(sizes[k]):
+            section, field = k.split(".")
+            cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section),
+                                                                           **{field: _tuples(sizes[k])})})
     for k in keys:
         section, field = k.split(".")
         got = _plain(getattr(getattr(cfg, section), field))

@@ -3,7 +3,8 @@ the least time the card needs for the frames its rows keep (K1's operations
 at the float32 peak, or its bytes at the HBM rate, whichever is larger;
 weights read once a call), summed, over the summed device time of the K1
 kernels (names in ``kernels/k1*.json``).  Frames that padding decodes and no
-row keeps are not counted as work."""
+row keeps are not counted as work.  The counts are the acoustic model
+module's (``ar_decode_counts``)."""
 
 from perfbench.harness import cells, flops
 
@@ -17,6 +18,6 @@ def read(ctx):
         return None
     bound = 0.0
     for d in calls:
-        flop, bytes_ = flops.ar_decode_counts(ctx.sizes, sum(ctx.kept_frames(d)))
+        flop, bytes_ = ctx.models.acoustic.ar_decode_counts(ctx.sizes, sum(ctx.kept_frames(d)))
         bound += flops.bound_seconds(flop, bytes_, ctx.peaks.fp32, ctx.peaks)
     return 100.0 * bound / seconds

@@ -2,9 +2,9 @@
 generator operations of the tokens and kept frames of the rows returned in
 the traced part, over the traced window's length without the profiler's
 cost (``Context.untraced_window_s``), against the bf16 peak (the serving
-route's, as the program's own MFU report names it)."""
+route's, as the program's own MFU report names it).  The counts are the
+configuration's model modules'."""
 
-from perfbench.harness import flops
 from perfbench.reference import frontend
 
 
@@ -17,4 +17,7 @@ def read(ctx):
     for d in calls:
         tokens += [len(frontend.tokens(t)) for t in d.texts]
         frames += ctx.kept_frames(d)
-    return 100.0 * flops.pipeline_flops(ctx.sizes, tokens, frames) / window / ctx.peaks.bf16
+    m, sizes = ctx.models, ctx.sizes
+    flop = float(sum(m.duration.flops(sizes, t) + m.acoustic.decode_flops(sizes, t, f)
+                     + m.vocoder.generator_flops(sizes, f) for t, f in zip(tokens, frames)))
+    return 100.0 * flop / window / ctx.peaks.bf16

@@ -1,11 +1,13 @@
-"""The metric arithmetic: percentiles with failures at +inf, the frozen
-counts equal to the program's own (the yardstick is a copy), rooflines."""
+"""The metric arithmetic: percentiles with failures at +inf, the model
+modules' frozen counts equal to the program's own (the yardstick is a
+copy), rooflines."""
 
 import math
 
 from perfbench.harness import flops
 from perfbench.harness.core import percentile
 from perfbench.harness.trace import Trace, _union_ns
+from perfbench.reference.models import hifigan, viettts_acoustic, viettts_duration
 from tests_sizes import SIZES
 
 
@@ -22,11 +24,11 @@ def test_frozen_counts_equal_the_programs():
 
     cfg = Config()
     for n, f in ((37, 150), (256, 1024)):
-        assert flops.duration_flops(SIZES, n) == pf.duration_flops(cfg, n)
-        assert flops.acoustic_decode_flops(SIZES, n, f) == pf.acoustic_decode_flops(cfg, n, f)
-        assert flops.generator_flops(SIZES, f) == pf.generator_flops(cfg, f)
+        assert viettts_duration.flops(SIZES, n) == pf.duration_flops(cfg, n)
+        assert viettts_acoustic.decode_flops(SIZES, n, f) == pf.acoustic_decode_flops(cfg, n, f)
+        assert hifigan.generator_flops(SIZES, f) == pf.generator_flops(cfg, f)
     b, L, H, P, D = 64, 1024, 512, 256, 80
-    flop, bytes_ = flops.ar_decode_counts(SIZES, b * L)
+    flop, bytes_ = viettts_acoustic.ar_decode_counts(SIZES, b * L)
     ms, _ = pf.ar_decode_bound(b, L, H, P, D, pf.H100_SXM)
     assert abs(1e3 * flops.bound_seconds(flop, bytes_, flops.H100_SXM.fp32, flops.H100_SXM) - ms) < 1e-9
     assert flops.peaks_for_name("NVIDIA H100 80GB HBM3") == flops.H100_SXM
@@ -34,8 +36,8 @@ def test_frozen_counts_equal_the_programs():
 
 def test_vocoder_counts_leave_out_conv_pre():
     f = 300
-    with_pre = flops.generator_flops(SIZES, f)
-    stage_flop, stage_bytes = flops.vocoder_stage_counts(SIZES, f)
+    with_pre = hifigan.generator_flops(SIZES, f)
+    stage_flop, stage_bytes = hifigan.stage_counts(SIZES, f)
     assert with_pre - stage_flop == 2 * f * 80 * 512 * 7
     assert stage_bytes == 2 * (300 * 512 + 2400 * 256 + 2400 * 256 + 19200 * 128 + 19200 * 128 + 38400 * 64
                                + 38400 * 64 + 76800 * 1)
@@ -85,7 +87,7 @@ def test_the_profilers_cost_is_divided_out():
     for t0, dur in ((0.0, 0.5), (0.5, 0.5), (1.0, 0.6), (1.6, 0.6)):
         rec.dispatches.append(drivers.Dispatch("batch", ["a"], [], [1000], {}, t0, t0 + dur))
     trace = Trace(window_s=1.2, busy_s=0.5, ops=[("k", 0, 10)], host=[], span=(1.0, 2.2))
-    ctx = Context(trace, rec, SIZES, None, 256)
+    ctx = Context(trace, rec, SIZES, None, 256, None)
     assert abs(ctx.host_slowdown() - 1.2) < 1e-12 and abs(ctx.untraced_window_s() - 1.0) < 1e-12
     import importlib.util
     from pathlib import Path

@@ -93,7 +93,7 @@ def test_no_jax_and_a_reference_free_of_the_program():
     for p in sources:
         tops = {m.split(".")[0] for m in _imports(p)}
         assert not tops & {"jax", "jaxlib", "flax", "viettts_tpu"}, p
-    for p in (BENCH / "reference").glob("*.py"):
+    for p in (BENCH / "reference").rglob("*.py"):
         tops = {m.split(".")[0] for m in _imports(p)}
         assert "viettts_tpu_torch" not in tops, p
 

@@ -77,6 +77,6 @@ def test_call_spans_and_self_times(monkeypatch):
     trace = Trace(window_s=1e-3, busy_s=2e-4, ops=[], host=[], span=(100.0, 100.001))
     record = drivers.Record()
     record.dispatches = [drivers.Dispatch("batch", ["x"], [], [1], {}, 100.0, 100.0009)]
-    ctx = core.Context(trace, record, None, None, 256)
+    ctx = core.Context(trace, record, None, None, 256, None)
     assert [r.id for r in SPANS.call_spans(ctx)] == [2, 3, 1]
     assert SPANS.self_ns(spans[:3]) == {2: 450_000, 3: 100_000, 1: 240_000}
